@@ -1,0 +1,38 @@
+"""Spatial self-attention: the port of ``tqdne_tpu/nn/attention.py``.
+
+GroupNorm -> 1x1 conv to 3C with channel order [q|k|v] x heads x head_dim
+-> attention with q and k both scaled by d^-1/4 and an f32 softmax ->
+zero-init 1x1 output projection -> residual add.  The attention is always
+``flash_attention`` (the kernel on CUDA, its plain einsum on the CPU): the
+JAX package's ``use_pallas=True`` route, with no length switch.
+"""
+
+from __future__ import annotations
+
+from torch import nn
+
+from tqdne_tpu_torch.nn.layers import Norm32, conv_nd
+from tqdne_tpu_torch.ops.flash_attention import flash_attention
+
+
+class AttentionBlock(nn.Module):
+    """Residual self-attention over the flattened spatial dims."""
+
+    def __init__(self, channels: int, num_heads: int = 1, dims: int = 2,
+                 use_causal_mask: bool = False):
+        super().__init__()
+        if channels % num_heads:
+            raise ValueError(f"{channels} channels do not split into {num_heads} heads")
+        self.num_heads = num_heads
+        self.use_causal_mask = use_causal_mask
+        self.norm = Norm32(channels)
+        self.qkv = conv_nd(dims, channels, 3 * channels, 1)
+        self.proj_out = conv_nd(dims, channels, channels, 1)
+
+    def forward(self, x):  # (B, C, *spatial)
+        b, c, *spatial = x.shape
+        qkv = self.qkv(self.norm(x)).movedim(1, -1)  # (B, *spatial, 3C), channels-last view
+        qkv = qkv.reshape(b, -1, 3, self.num_heads, c // self.num_heads)
+        a = flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], self.use_causal_mask)
+        a = a.reshape(b, *spatial, c).movedim(-1, 1)
+        return x + self.proj_out(a)

@@ -1,0 +1,78 @@
+"""Build the port's CUDA sources with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles for Hopper (``sm_90a``) into its own shared
+library with a plain C interface, under ``build/tqdne_tpu_torch/`` at the
+root of the checkout.  The library's file name carries a digest of its
+source and flags, so an edited source is rebuilt and an unchanged one is
+reused.  Nothing is built at import: the first launch of a kernel builds it,
+and ``build()`` builds several at once (one nvcc process each, all started
+together).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tqdne_tpu_torch"
+SOURCES = ("group_norm", "flash_attention")
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME  # env vars, PATH, then the default
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names=SOURCES) -> dict[str, Path]:
+    """Compile the named sources concurrently; returns {name: library path}.
+
+    The ptxas report (registers, shared memory, spills) of each build is
+    kept beside the library as ``<name>.log``.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, out, tmp, proc))
+    errors = []
+    for name, out, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        (BUILD_DIR / f"{name}.log").write_text(log)
+        if proc.returncode:
+            errors.append(f"{name}.cu: nvcc exited {proc.returncode}\n{log}")
+        else:
+            os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("CUDA build failed:\n" + "\n".join(errors))
+    return {name: library_path(name) for name in names}
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """The built library of ``csrc/<name>.cu`` (built on first use)."""
+    return ctypes.CDLL(str(build([name])[name]))

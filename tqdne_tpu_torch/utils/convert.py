@@ -1,0 +1,105 @@
+"""Weight bridge: flax parameter trees -> the port's ``state_dict``s.
+
+The port names its modules after the flax scopes, so a flax path maps to a
+PyTorch key one to one.  This module owns every layout change:
+
+  flax                                   port
+  -------------------------------------  ---------------------------------
+  <conv>/kernel (K..., I, O)             <conv>.weight (O, I, K...)
+  <dense>/kernel (I, O)                  <dense>.weight (O, I)
+  <x>/bias                               <x>.bias
+  <norm>/GroupNorm_0/{scale,bias}        <norm>.{weight,bias}
+  <fourier>/W                            <fourier>.W
+
+It reads committed ``weights/*.msgpack`` artifacts (flax's msgpack layout,
+arrays as extension type 1) with the ``msgpack`` package, without flax:
+
+    python -m tqdne_tpu_torch.utils.convert weights/Autoencoder-...-ema.msgpack ae.pt
+"""
+
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+
+import numpy as np
+import torch
+
+_NDARRAY_EXT = 1  # flax.serialization._MsgpackExtType.ndarray
+
+
+def _array_from_ext(data: bytes) -> torch.Tensor:
+    import msgpack
+
+    shape, dtype, buf = msgpack.unpackb(data, raw=False)
+    if dtype == "bfloat16":  # not a numpy dtype: reinterpret the raw 16-bit words
+        t = torch.frombuffer(bytearray(buf), dtype=torch.bfloat16).float()
+    else:
+        t = torch.from_numpy(np.frombuffer(buf, dtype=np.dtype(dtype)).copy())
+    return t.reshape(shape)
+
+
+def read_msgpack(path) -> dict:
+    """A flax ``serialization.to_bytes`` file -> nested dict of tensors."""
+    import msgpack
+
+    def ext_hook(code, data):
+        if code != _NDARRAY_EXT:
+            raise ValueError(f"{path}: unsupported msgpack extension type {code}")
+        return _array_from_ext(data)
+
+    return msgpack.unpackb(Path(path).read_bytes(), ext_hook=ext_hook, raw=False,
+                           strict_map_key=False)
+
+
+def _flatten(tree: dict, prefix: tuple = ()):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _flatten(value, prefix + (str(key),))
+        else:
+            yield prefix + (str(key),), value
+
+
+def flax_to_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """A flax variables or params tree (numpy arrays or tensors) -> the
+    ``state_dict`` of the matching port module, in float32."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    sd = {}
+    for path, value in _flatten(tree):
+        t = value.float() if isinstance(value, torch.Tensor) else \
+            torch.from_numpy(np.array(value, dtype=np.float32))
+        *scope, leaf = path
+        if scope and scope[-1] == "GroupNorm_0":
+            scope = scope[:-1]
+            leaf = {"scale": "weight", "bias": "bias"}[leaf]
+        elif leaf == "kernel":
+            leaf = "weight"
+            # (K..., I, O) -> (O, I, K...); a Dense (I, O) -> (O, I) is the same move
+            t = t.permute(t.ndim - 1, t.ndim - 2, *range(t.ndim - 2))
+        elif leaf not in ("bias", "W"):
+            raise ValueError(f"unexpected flax parameter {'/'.join(path)}")
+        sd[".".join([*scope, leaf])] = t.contiguous()
+    return sd
+
+
+def convert_file(src, dst) -> dict[str, torch.Tensor]:
+    """Convert a flax msgpack artifact to a ``.pt`` state dict; returns it."""
+    sd = flax_to_state_dict(read_msgpack(src))
+    torch.save(sd, dst)
+    return sd
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Convert a flax .msgpack weight artifact "
+                                                 "to a PyTorch state dict (.pt).")
+    parser.add_argument("src", help="flax serialization.to_bytes file (.msgpack)")
+    parser.add_argument("dst", help="output .pt path")
+    args = parser.parse_args(argv)
+    sd = convert_file(args.src, args.dst)
+    n = sum(t.numel() for t in sd.values())
+    print(f"wrote {len(sd)} tensors ({n / 1e6:.1f}M params) to {args.dst}")
+
+
+if __name__ == "__main__":
+    main()
