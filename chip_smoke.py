@@ -4,23 +4,31 @@
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. build both CUDA kernels from ``tqdne_tpu_torch/csrc`` (one nvcc each, in
-   parallel);
+1. build the three CUDA sources of ``tqdne_tpu_torch/csrc`` (one nvcc each,
+   in parallel);
 2. hold each kernel against its plain PyTorch version on the card: GroupNorm
    (+SiLU) at every (S, C) the flagship UNet and decoder give it, in f32 and
    in each (x, scale) dtype pair the bf16 path gives that shape, SiLU on and
    off; flash attention at (L, D) = (16, 128), (256, 64)
-   and (508, 64), causal and not, output and base-2 log-sum-exp;
+   and (508, 64), causal and not, output and base-2 log-sum-exp; the two
+   flash backward kernels (dK/dV and dQ) at (B, L, H, D) = (128, 16, 4, 128),
+   (8, 256, 4, 64) and (8, 508, 4, 64), f32 and bf16, causal and not;
 3. full-width flagship sampling in f32, 2 Heun steps, once through the
    kernels and once through the plain versions: the decoded spectrograms
-   must agree (TF32 off);
-4. the main path: ``build_inference`` + ``generate`` at full width in bf16,
-   batch 32, Heun-25 then dpmpp_2m-10, each with 32 Griffin-Lim iterations,
-   seeded random weights; waveforms must be finite (32, 3, 4064) and the
-   launch counters must show both kernels on the path;
-5. timings on the card: each kernel at the main path's shapes beside its
-   bound, its plain version and a PyTorch yardstick call, and end-to-end
-   waveforms/s.
+   must agree (TF32 off); then one full-width f32 training step (frozen
+   encoder, EDM loss, backward) with the same injected draws both ways: the
+   loss and every parameter gradient must agree;
+4. the main paths, each with the launch counters set to 0 just before it and
+   read just after: sampling (``build_inference`` + ``generate`` at full width
+   in bf16, batch 32, Heun-25 then dpmpp_2m-10, each with 32 Griffin-Lim
+   iterations, seeded random weights; waveforms must be finite
+   (32, 3, 4064)), and training (``Trainer.fit`` through ``BatchLoader`` over
+   in-memory synthetic waveforms, bf16 compute over f32 parameters, batch
+   128, 30 steps; the loss must be finite); the counts must be exact;
+5. timings on the card: each kernel at the main paths' shapes beside its
+   bound, its plain version and a PyTorch yardstick call, end-to-end
+   waveforms/s and training samples/s, a profiled sampling run and a profiled
+   train step by kernel class, and one train step at the recipe's batch 256.
 
 Prints the card's name and power limit and a ``{"kernels": [...]}`` line,
 then, last, ``{"ok": true, "device": {...}}``.
@@ -30,21 +38,31 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
 SEED = 0
 BATCH = 32
-E2E_RUNS = 5  # timed generate() calls per solver, the launch-counted one included
+E2E_RUNS = 3  # timed generate() calls per solver, the launch-counted one included
+TRAIN_BATCH = 128  # the training benchmark's batch (bench_train.py)
+TRAIN_STEPS = 30
+TRAIN_E2E_RUNS, TRAIN_E2E_STEPS = 3, 8  # timed train_step windows for [train-e2e]
+TRAIN_SAMPLES = 512  # synthetic waveforms in memory: 4 batches per epoch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor / f32 vector
 GN_OPS_PER_ELEM = {True: 10, False: 7}  # moments 2, normalise+affine 4 (+1 store), SiLU 3
 TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1.6e-2, 1e-3)}  # rtol, atol
+# flash backward: f32 takes the JAX package's own gradient bound
+# (tests/test_flash_attention.py); bf16 outputs one bf16 step, as above
+BWD_TOL = {torch.float32: (2e-3, 2e-4), torch.bfloat16: (1.6e-2, 1e-3)}
 
 
 def log(msg: str):
@@ -69,12 +87,24 @@ def cuda_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_kernels(prof) -> list:
+    """The profiler's averaged CUDA kernel events.  A ``record_function``
+    range (the GroupNorm backward's, the optimizer step's) is mirrored on the
+    device timeline under its own name and spans kernels already counted:
+    CUDA events named like a CPU-side user annotation are left out."""
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()
+    ranges = {e.key for e in events
+              if e.device_type == DeviceType.CPU and getattr(e, "is_user_annotation", False)}
+    return [e for e in events if e.device_type == DeviceType.CUDA and e.key not in ranges]
+
+
 def device_ms(fn, reps: int = 20) -> float:
     """Device time per call: the summed durations of the CUDA kernels ``fn``
     launches, from torch.profiler.  Event timing of back-to-back calls
     measures the host's issue rate instead when a call's kernels are shorter
     than its Python overhead, as they are at the UNet's shapes."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -83,15 +113,14 @@ def device_ms(fn, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA)
+    total_us = sum(e.self_device_time_total for e in device_kernels(prof))
     if not total_us:
         fail("torch.profiler recorded no device time")
     return total_us / 1e3 / reps
 
 
-def close(got, want, dtype) -> tuple[float, bool]:
-    rtol, atol = TOL[dtype]
+def close(got, want, dtype, tol=TOL) -> tuple[float, bool]:
+    rtol, atol = tol[dtype]
     err = (got.float() - want.float()).abs()
     ok = bool((err <= atol + rtol * want.float().abs()).all()) and bool(torch.isfinite(got).all())
     return err.max().item(), ok
@@ -105,7 +134,6 @@ KERNEL_CLASSES = (("group_norm_silu", ("gn_partial", "gn_finalize", "gn_apply"))
 
 def profile_breakdown(bundle, cond, gen):
     """Device time of one generate() by kernel class, from torch.profiler."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -113,7 +141,7 @@ def profile_breakdown(bundle, cond, gen):
         bundle.generate(cond, generator=gen)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = device_kernels(prof)
     total_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if not total_ms:
         log("[profile] the profiler recorded no device time: breakdown not measured")
@@ -130,6 +158,91 @@ def profile_breakdown(bundle, cond, gen):
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} x  {e.key[:110]}")
 
 
+TRAIN_CLASSES = (("group_norm_silu", ("gn_partial", "gn_finalize", "gn_apply")),
+                 ("flash_fwd", ("flash_fwd",)),
+                 ("flash_bwd_dkdv", ("flash_bwd_dkdv",)),
+                 ("flash_bwd_dq", ("flash_bwd_dq",)),
+                 ("convolution_gemm", ("conv", "xmma", "cudnn", "implicit", "gemm", "cutlass",
+                                       "wgrad", "dgrad")),
+                 ("optimizer_ema", ("multi_tensor", "foreach")))
+GN_BWD_CLASS = "group_norm_silu_backward_plain"
+
+
+def kernel_class(name: str) -> str:
+    return next((n for n, keys in TRAIN_CLASSES if any(k in name.lower() for k in keys)),
+                "other")
+
+
+def train_profile(step, label: str):
+    """Device time of one train step by kernel class.  The plain GroupNorm
+    backward's kernels are found under its profiler range
+    (``tq::group_norm_silu_backward``) and moved into their own class."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = device_kernels(prof)
+    left_out = sorted({e.key for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA} - {e.key for e in kernels})
+    total_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not total_ms:
+        log("[train-profile] the profiler recorded no device time: breakdown not measured")
+        return None
+    classes = {name: 0.0 for name, _ in TRAIN_CLASSES} | {GN_BWD_CLASS: 0.0, "other": 0.0}
+    for e in kernels:
+        classes[kernel_class(e.key)] += e.self_device_time_total / 1e3
+    found = []
+
+    def walk(ev):
+        found.extend(ev.kernels)
+        for child in ev.cpu_children:
+            walk(child)
+
+    ranges = [ev for ev in prof.events()
+              if ev.name == "tq::group_norm_silu_backward" and ev.device_type == DeviceType.CPU]
+    for ev in ranges:
+        walk(ev)
+    for k in found:
+        classes[kernel_class(k.name)] -= k.duration / 1e3
+        classes[GN_BWD_CLASS] += k.duration / 1e3
+    log(f"[train-profile] {label}: wall {wall_ms:.3f} ms under the profiler, device kernels "
+        f"{total_ms:.3f} ms (busy share {total_ms / wall_ms:.3f}; device-side ranges left out: "
+        f"{left_out}); {len(ranges)} GroupNorm "
+        f"backward ranges holding {len(found)} kernels; by class (ms): "
+        f"{json.dumps({k: round(v, 3) for k, v in classes.items()})}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"[train-profile]   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} x  "
+            f"{e.key[:110]}")
+    return dict(wall_ms=wall_ms, device_ms=total_ms, busy_share=total_ms / wall_ms, **classes)
+
+
+def training_setup(dev, dtype):
+    """The bench_train.py configuration: the full-width flagship UNet and
+    frozen 64-channel autoencoder with seeded random weights, computing in
+    ``dtype`` over f32 parameters, Adam with the cosine schedule, EMA 0.999."""
+    from tqdne_tpu_torch import configs
+    from tqdne_tpu_torch.cli.common import build_autoencoder, build_unet, latent_shape, \
+        signal_shape
+    from tqdne_tpu_torch.train.state import TrainState, cosine_annealing, make_optimizer
+    from tqdne_tpu_torch.train.steps import make_edm_steps
+    from tqdne_tpu_torch.utils import randomize_
+
+    config = configs.LatentSpectrogramConfig()
+    ae, enc_cfg, _ = build_autoencoder(config, dtype)
+    model_shape = latent_shape(enc_cfg, signal_shape(config))
+    unet, _ = build_unet(config, model_shape[-1], model_shape[-1], dtype)
+    for module, seed in ((unet, SEED), (ae, SEED + 1)):
+        randomize_(module, seed).to(dev, memory_format=torch.channels_last)
+    schedule = cosine_annealing(1e-4, 100_000)
+    state = TrainState(unet, make_optimizer("adam", unet, 1e-4), schedule)
+    train_step, eval_step = make_edm_steps(autoencoder=ae)
+    return config, state, (train_step, eval_step), ae, model_shape, schedule
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -141,7 +254,19 @@ def main():
     from tqdne_tpu_torch.nn.attention import AttentionBlock
     from tqdne_tpu_torch.nn.layers import Norm32
     from tqdne_tpu_torch.ops import cuda_build
-    from tqdne_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+    from tqdne_tpu_torch.data.dataset import ArrayDataset, synthetic_arrays
+    from tqdne_tpu_torch.data.pipeline import BatchLoader
+    from tqdne_tpu_torch.ops.flash_attention import (
+        attention_delta,
+        flash_attention,
+        flash_attention_bwd_dkdv,
+        flash_attention_bwd_dkdv_plain,
+        flash_attention_bwd_dq,
+        flash_attention_bwd_dq_plain,
+        flash_attention_plain,
+    )
+    from tqdne_tpu_torch.train.loop import Trainer
+    from tqdne_tpu_torch.train.steps import edm_step_loss
     from tqdne_tpu_torch.ops.group_norm import group_norm_silu, group_norm_silu_plain
 
     torch.backends.cudnn.allow_tf32 = False
@@ -152,7 +277,7 @@ def main():
     # ---- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
     cuda_build.build()
-    log(f"[build] both kernels built in {time.perf_counter() - t0:.2f} s")
+    log(f"[build] {len(cuda_build.SOURCES)} sources built in {time.perf_counter() - t0:.2f} s")
     for name in cuda_build.SOURCES:
         for line in (cuda_build.BUILD_DIR / f"{name}.log").read_text().splitlines():
             if "registers" in line or "spill" in line:
@@ -237,6 +362,31 @@ def main():
                     f"causal={causal}: max_abs_err={err:.3e} tol={TOL[dtype]} "
                     f"lse_err={lse_err:.3e} tol={TOL[torch.float32]} "
                     f"{'ok' if ok and lse_ok else 'FAIL'}")
+    errs |= {"flash_attention_bwd_dkdv": 0.0, "flash_attention_bwd_dq": 0.0}
+    for b_, length, h, d in ((TRAIN_BATCH, 16, 4, 128), (8, 256, 4, 64), (8, 508, 4, 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (False, True):
+                # q, k, v as strided views of one fused projection, as the UNet gives them
+                qkv = torch.randn(b_, length, 3, h, d, generator=gen, device=dev).to(dtype)
+                q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+                do = torch.randn(b_, length, h, d, generator=gen, device=dev).to(dtype)
+                out, lse = flash_attention_plain(q, k, v, causal, return_lse=True)
+                delta = attention_delta(do, out)
+                got = (flash_attention_bwd_dq(q, k, v, do, lse, delta, causal),
+                       *flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal))
+                want = (flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal),
+                        *flash_attention_bwd_dkdv_plain(q, k, v, do, lse, delta, causal))
+                results = [close(g, w, dtype, BWD_TOL) for g, w in zip(got, want)]
+                errs["flash_attention_bwd_dq"] = max(errs["flash_attention_bwd_dq"],
+                                                     results[0][0])
+                errs["flash_attention_bwd_dkdv"] = max(errs["flash_attention_bwd_dkdv"],
+                                                       results[1][0], results[2][0])
+                ok = all(r[1] for r in results)
+                bad += not ok
+                log(f"[check] flash backward B={b_} L={length} H={h} D={d} {str(dtype)[6:]} "
+                    f"causal={causal}: max_abs_err dq={results[0][0]:.3e} dk={results[1][0]:.3e} "
+                    f"dv={results[2][0]:.3e} (peak {max(w.float().abs().max().item() for w in want):.3e}) "
+                    f"tol(rtol,atol)={BWD_TOL[dtype]} {'ok' if ok else 'FAIL'}")
     torch.cuda.synchronize()
     if bad:
         fail(f"{bad} kernel checks disagree with the plain versions")
@@ -260,6 +410,49 @@ def main():
     if not (torch.isfinite(with_kernels).all() and slice_err <= 1e-4 * scale):
         fail("the f32 slice through the kernels disagrees with the plain versions")
     del f32_bundle
+
+    # one full-width f32 train step, kernels vs plain versions, same draws
+    _, f32_state, _, f32_ae, model_shape, _ = training_setup(dev, torch.float32)
+    unet32 = f32_state.model.eval()  # no dropout: the two passes see the same function
+    n32 = 8
+    batch32 = {"signal": torch.rand(n32, 128, 128, 3, generator=gen, device=dev) * 2 - 1,
+               "cond": torch.randn(n32, 5, generator=gen, device=dev)}
+    draws = {"ae_eps": torch.randn(n32, *model_shape, generator=gen, device=dev),
+             "sigma_eps": torch.randn(n32, generator=gen, device=dev),
+             "noise": torch.randn(n32, *model_shape, generator=gen, device=dev)}
+
+    def loss_and_grads():
+        unet32.zero_grad(set_to_none=True)
+        before = (flash_attention_bwd_dkdv.launches, flash_attention_bwd_dq.launches)
+        loss = edm_step_loss(unet32, batch32, autoencoder=f32_ae, draws=draws)
+        loss.backward()
+        launched = (flash_attention_bwd_dkdv.launches - before[0],
+                    flash_attention_bwd_dq.launches - before[1])
+        return loss.item(), {n: p.grad.clone() for n, p in unet32.named_parameters()
+                             if p.grad is not None}, launched
+
+    k_loss, k_grads, k_launched = loss_and_grads()
+    with contextlib.ExitStack() as stack:
+        stack.callback(setattr, layers_mod, "group_norm_silu", layers_mod.group_norm_silu)
+        stack.callback(setattr, attention_mod, "flash_attention", attention_mod.flash_attention)
+        layers_mod.group_norm_silu = group_norm_silu_plain  # autograd through the plain ops
+        attention_mod.flash_attention = flash_attention_plain
+        p_loss, p_grads, p_launched = loss_and_grads()
+    worst, worst_name = 0.0, ""
+    for name, want in p_grads.items():
+        ratio = (k_grads[name] - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+    log(f"[slice-f32-train] batch {n32} f32 train step: loss kernels {k_loss:.8e} plain "
+        f"{p_loss:.8e} (rel {loss_rel:.3e}, tol 1e-5); {len(p_grads)} parameter gradients, "
+        f"worst max_abs_err / peak {worst:.3e} at {worst_name} (tol 1e-3); backward launches "
+        f"dkdv/dq kernels {k_launched} plain {p_launched}")
+    if (set(k_grads) != set(p_grads) or len(p_grads) < 100 or loss_rel > 1e-5 or worst > 1e-3
+            or k_launched != (6, 6) or p_launched != (0, 0) or not math.isfinite(k_loss)):
+        fail("the f32 train step through the kernels disagrees with the plain versions")
+    del f32_state, f32_ae, unet32, k_grads, p_grads
+    torch.cuda.empty_cache()
 
     # ---- 4. the main path ------------------------------------------------------
     bundles["dpmpp_2m-10"].generate(cond, generator=gen)  # warm-up: lazy CUDA init, cuDNN plans
@@ -287,6 +480,60 @@ def main():
             fail(f"{name}: launches {counts[name]} != expected {want} ({evals} UNet evals)")
     if min(launches.values()) == 0:
         fail(f"a kernel of the path was never launched: {launches}")
+
+    # ---- 4b. the main training path: Trainer.fit, bf16, batch 128 -------------
+    config, state, (train_step, eval_step), ae, model_shape, schedule = training_setup(
+        dev, torch.bfloat16)
+    enc_gn = []
+    hooks = [m.register_forward_pre_hook(lambda mod, args: enc_gn.append(1))
+             for m in ae.encoder.modules() if isinstance(m, Norm32)]
+    with torch.no_grad():
+        ae.encode(torch.zeros(1, 128, 128, 3, device=dev))
+    for h in hooks:
+        h.remove()
+    t0 = time.perf_counter()
+    dataset = ArrayDataset(synthetic_arrays(TRAIN_SAMPLES, t=config.t, seed=SEED),
+                           config.make_representation(), cut=config.t, cond=True, split="full")
+    loader = BatchLoader(dataset, TRAIN_BATCH, device=dev, keys=("signal", "cond"), seed=SEED)
+    log(f"[train] {TRAIN_SAMPLES} synthetic waveforms in {time.perf_counter() - t0:.2f} s; "
+        f"{len(loader)} batches of {TRAIN_BATCH} per epoch; encoder GroupNorm calls per "
+        f"encode: {len(enc_gn)}")
+    workdir = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
+    shutil.rmtree(workdir, ignore_errors=True)
+    trainer = Trainer(train_step, eval_step, workdir, device=dev, max_epochs=1000,
+                      max_steps=TRAIN_STEPS, log_every=10, seed=SEED,
+                      checkpoint_every_epochs=10**6, lr_schedule=schedule)
+    torch.cuda.synchronize()
+    counters = (group_norm_silu, flash_attention, flash_attention_bwd_dkdv,
+                flash_attention_bwd_dq)
+    for fn in counters:
+        fn.launches = 0
+    group_norm_silu.backward_calls = 0
+    t0 = time.perf_counter()
+    trainer.fit(state, loader, resume=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    train_counts = {fn.__name__: fn.launches for fn in counters}
+    gn_bwd_calls = group_norm_silu.backward_calls
+    metric_rows = [json.loads(line) for line in (workdir / "metrics.jsonl").open()]
+    losses = [r["training/loss"] for r in metric_rows if "training/loss" in r]
+    log(f"[train] Trainer.fit: {state.step} steps of batch {TRAIN_BATCH} bf16 in {fit_s:.2f} s "
+        f"(checkpoint included), logged losses {losses}, traintime "
+        f"{metric_rows[-1]['traintime']:.3f} s; launches {train_counts}, GroupNorm plain backward "
+        f"calls {gn_bwd_calls}")
+    want_counts = {"group_norm_silu": (len(unet_gn) + len(enc_gn)) * TRAIN_STEPS,
+                   "flash_attention": len(unet_fa) * TRAIN_STEPS,
+                   "flash_attention_bwd_dkdv": len(unet_fa) * TRAIN_STEPS,
+                   "flash_attention_bwd_dq": len(unet_fa) * TRAIN_STEPS}
+    if state.step != TRAIN_STEPS or not losses or not all(map(math.isfinite, losses)):
+        fail(f"training: {state.step} steps, losses {losses}")
+    if train_counts != want_counts or gn_bwd_calls != len(unet_gn) * TRAIN_STEPS:
+        fail(f"training launches {train_counts} (GroupNorm backward {gn_bwd_calls}) != "
+             f"expected {want_counts} ({len(unet_gn) * TRAIN_STEPS})")
+    if not (workdir / "checkpoints" / "last" / f"{TRAIN_STEPS}.pt").exists():
+        fail("training: no checkpoint written")
+    shutil.rmtree(workdir, ignore_errors=True)
+    launches = {k: launches.get(k, 0) + v for k, v in train_counts.items()}
 
     # ---- 5. timings --------------------------------------------------------------
     for name, bundle in bundles.items():
@@ -351,7 +598,88 @@ def main():
     for row in gn_rows + fa_rows:
         log(f"[time] {json.dumps(row)}")
 
-    def summed(rows, key):  # the kernel's work in one UNet eval plus one decode
+    # training: samples/s of train_step on a resident batch, a profiled step,
+    # the backward kernels per call, and one step at the recipe's batch 256
+    tgen = torch.Generator(device=dev).manual_seed(SEED)
+    batch = next(iter(loader))
+
+    def one_step(b=batch):
+        return train_step(state, b, generator=tgen)
+
+    one_step()
+    torch.cuda.synchronize()
+    secs = []
+    for _ in range(TRAIN_E2E_RUNS):
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_E2E_STEPS):
+            one_step()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    sec = statistics.median(secs)
+    log(f"[train-e2e] flagship latent-EDM train step (frozen encoder, loss, backward, Adam, "
+        f"EMA), batch {TRAIN_BATCH}, bf16: {TRAIN_BATCH * TRAIN_E2E_STEPS / sec:.2f} samples/s "
+        f"(median of {TRAIN_E2E_RUNS} runs of {TRAIN_E2E_STEPS} steps, seconds "
+        f"{[round(r, 4) for r in secs]}); Trainer.fit ran {TRAIN_STEPS} steps at "
+        f"{TRAIN_BATCH * TRAIN_STEPS / metric_rows[-1]['traintime']:.2f} samples/s of its "
+        f"traintime")
+    train_profile(one_step, f"one train step, batch {TRAIN_BATCH}, bf16")
+
+    def bwd_rows(dtype, length, h, d, causal, calls):
+        qkv = torch.randn(TRAIN_BATCH, length, 3, h, d, generator=gen, device=dev).to(dtype)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        do = torch.randn(TRAIN_BATCH, length, h, d, generator=gen, device=dev).to(dtype)
+        out, lse = flash_attention(q, k, v, causal, return_lse=True)
+        delta = attention_delta(do, out)
+        # the library: autograd through SDPA on the same pre-scaled inputs; one
+        # backward computes dq, dk and dv together
+        lq, lk, lv = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q * d**-0.25, k * d**-0.25, v))
+        lib_out = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal, scale=1.0)
+        go = do.transpose(1, 2)
+
+        def library():
+            return torch.autograd.grad(lib_out, (lq, lk, lv), go, retain_graph=True)
+
+        pairs = length * (length + 1) / 2 if causal else length * length
+        elems, size, rows_bytes = q.numel(), q.element_size(), 2 * lse.numel() * 4
+        common = dict(shape=[TRAIN_BATCH, length, h, d], causal=causal, dtype=str(dtype)[6:],
+                      calls=calls)
+        return {
+            # reads q, k, v, dO, lse, delta; writes dK, dV; products S, dP, dV, dK
+            "flash_attention_bwd_dkdv": dict(
+                kernel="flash_attention_bwd_dkdv", **common,
+                **timed(lambda: flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal),
+                        lambda: flash_attention_bwd_dkdv_plain(q, k, v, do, lse, delta, causal),
+                        library),
+                **bound(6 * elems * size + rows_bytes, 8 * TRAIN_BATCH * h * pairs * d, dtype)),
+            # reads q, k, v, dO, lse, delta; writes dQ; products S, dP, dQ
+            "flash_attention_bwd_dq": dict(
+                kernel="flash_attention_bwd_dq", **common,
+                **timed(lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta, causal),
+                        lambda: flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal),
+                        library),
+                **bound(5 * elems * size + rows_bytes, 6 * TRAIN_BATCH * h * pairs * d, dtype)),
+        }
+
+    bwd = [bwd_rows(*key, calls=unet_fa.count(key)) for key in dict.fromkeys(unet_fa)]
+    for row in bwd:
+        for r in row.values():
+            log(f"[time] {json.dumps(r)}")
+
+    big = next(iter(BatchLoader(dataset, 2 * TRAIN_BATCH, device=dev, keys=("signal", "cond"),
+                                prefetch=0)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    big_loss = one_step(big)["loss"].item()
+    torch.cuda.synchronize()
+    log(f"[train-256] one train step at batch {2 * TRAIN_BATCH}, bf16: loss {big_loss:.4e}, "
+        f"{time.perf_counter() - t0:.3f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not math.isfinite(big_loss):
+        fail("the batch-256 train step gave a non-finite loss")
+
+    def summed(rows, key):  # the kernel's work in one UNet eval (plus one decode) or step
         return sum(r[key] * r["calls"] for r in rows)
 
     kernels = []
@@ -372,7 +700,23 @@ def main():
             library_ms=summed(rows, "library_ms"), issue_ms=summed(rows, "issue_ms"),
             per=f"all calls of one UNet eval{' and one decode' if which == 0 else ''}, "
                 f"batch {BATCH}, bf16",
-            launches_per_run={run: counts[run][which] for run in counts},
+            launches_per_run={**{run: counts[run][which] for run in counts},
+                              "train": train_counts[name]},
+        ))
+    for name, line in (("flash_attention_bwd_dkdv", 209), ("flash_attention_bwd_dq", 274)):
+        rows = [row[name] for row in bwd]
+        kernels.append(dict(
+            name=name, route="cuda", source="tqdne_tpu_torch/csrc/flash_attention_bwd.cu",
+            replaces=f"tqdne_tpu/ops/flash_attention.py:{line}",
+            launches=launches[name], max_abs_err=errs[name],
+            ms=summed(rows, "ms"), plain_ms=summed(rows, "plain_ms"),
+            bound_ms=summed(rows, "bound_ms"),
+            bound_by="bytes" if summed(rows, "bytes_ms") >= summed(rows, "ops_ms")
+            else "operations",
+            library_ms=summed(rows, "library_ms"), issue_ms=summed(rows, "issue_ms"),
+            per=f"all calls of one train step, batch {TRAIN_BATCH}, bf16; library_ms is the "
+                f"SDPA backward, which computes dq, dk and dv together",
+            launches_per_run={"train": train_counts[name]},
         ))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

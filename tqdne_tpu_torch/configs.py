@@ -8,6 +8,7 @@ conditioning feature names, the ``LatentSpectrogramConfig`` fields and the
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 
 FEATURES_KEYS = (
     "hypocentral_distance",
@@ -20,8 +21,10 @@ FEATURES_KEYS = (
 
 @dataclasses.dataclass
 class LatentSpectrogramConfig:
-    """Latent diffusion on 128x128 log-spectrograms: the flagship config."""
+    """Latent diffusion on 128x128 log-spectrograms: the flagship config.
+    Data and outputs live under ``workdir`` as in the JAX ``Config``."""
 
+    workdir: str | Path = "."
     channels: int = 3
     fs: int = 100
     t: int = 4064
@@ -31,6 +34,12 @@ class LatentSpectrogramConfig:
     griffin_lim_iters: int = 128
     latent_channels: int = 8
     kl_weight: float = 1e-6
+
+    def __post_init__(self):
+        path = Path(self.workdir)
+        self.datasetdir = path / "data"
+        self.outputdir = path / "outputs"
+        self.datapath = self.datasetdir / "preprocessed_waveforms.h5"
 
     def make_representation(self):
         from tqdne_tpu_torch.data.representation import LogSpectrogram

@@ -1,5 +1,5 @@
-"""EDM schedule and preconditioning: the port of ``tqdne_tpu/diffusion/edm.py``
-(the sampling side)."""
+"""EDM schedule, preconditioning and training loss: the port of
+``tqdne_tpu/diffusion/edm.py``."""
 
 from __future__ import annotations
 
@@ -24,6 +24,16 @@ class EDMConfig:
     S_min: float = 0.05
     S_max: float = 50.0
     S_noise: float = 1.003
+
+
+def sigma_from_normal(cfg: EDMConfig, eps):
+    """Map a standard-normal draw to a training sigma: exp(eps P_std + P_mean)."""
+    return torch.exp(eps * cfg.P_std + cfg.P_mean)
+
+
+def loss_weight(cfg: EDMConfig, sigma):
+    """lambda(sigma) = (sigma^2 + sigma_data^2) / (sigma sigma_data)^2."""
+    return (sigma**2 + cfg.sigma_data**2) / (sigma * cfg.sigma_data) ** 2
 
 
 def skip_scaling(cfg: EDMConfig, sigma):
@@ -73,3 +83,24 @@ def precondition(cfg: EDMConfig, net_apply, noisy, sigma, *, cond_signal=None, c
     out = net_apply(x_in, noise_conditioning(cfg, sigma), cond)
     skip = append_dims(skip_scaling(cfg, sigma), ndim) * noisy
     return out * append_dims(out_scaling(cfg, sigma), ndim) + skip
+
+
+def edm_loss(cfg: EDMConfig, net_apply, sample, *, cond_signal=None, cond=None,
+             sigma_eps=None, noise=None, generator: torch.Generator | None = None):
+    """EDM training loss: the lambda(sigma)-weighted MSE between
+    D(x + sigma n, sigma) and x, with a lognormal sigma per batch element.
+
+    ``sigma_eps`` (B,) and ``noise`` (``sample``'s shape) are the standard-
+    normal draws, injected or drawn in ``sample``'s dtype from ``generator``
+    (the device's default one when None), sigma's first.  Returns a scalar.
+    """
+    def normal(shape):
+        return torch.randn(shape, generator=generator, device=sample.device, dtype=sample.dtype)
+
+    sigma = sigma_from_normal(cfg, normal(sample.shape[:1]) if sigma_eps is None else sigma_eps)
+    if noise is None:
+        noise = normal(sample.shape)
+    noisy = sample + noise * append_dims(sigma, sample.ndim)
+    pred = precondition(cfg, net_apply, noisy, sigma, cond_signal=cond_signal, cond=cond)
+    sq = (pred - sample) ** 2
+    return torch.mean(sq * append_dims(loss_weight(cfg, sigma), sq.ndim))

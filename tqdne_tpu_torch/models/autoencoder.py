@@ -1,9 +1,10 @@
 """KL autoencoder: the port of ``tqdne_tpu/models/autoencoder.py``.
 
 The conv down/up stacks with the flax module's parameter names; public
-methods take and return the JAX layout (B, *spatial, C).  This slice ports
-the inference side: ``moments`` (encoder output split into mean and log
-std) and ``decode``.
+methods take and return the JAX layout (B, *spatial, C): ``moments``
+(encoder output split into mean and log std), ``encode`` (the
+reparameterised latent), ``encode_mean`` and ``decode``, plus
+``kl_divergence``.  Training the autoencoder itself comes with its recipe.
 """
 
 from __future__ import annotations
@@ -116,20 +117,33 @@ class AutoencoderKL(nn.Module):
         self.encoder = Encoder(**encoder_config)
         self.decoder = Decoder(**decoder_config)
 
-    def set_compute_dtype(self, dtype: torch.dtype) -> "AutoencoderKL":
-        """Run the convolutions in ``dtype`` with the norms' scale and bias
-        kept in float32, as the flax module with ``dtype=`` does."""
-        for module in self.modules():
-            if isinstance(module, (nn.Conv1d, nn.Conv2d)):
-                module.to(dtype)
-        return self
-
     def moments(self, x):
         """(B, *spatial, C) -> (mean, log_std), each (B, *latent, C_latent)."""
         out = self.encoder(x.movedim(-1, 1)).movedim(1, -1)
         mean, log_std = out.chunk(2, dim=-1)
         return mean, log_std
 
+    def encode(self, x, *, eps=None, generator: torch.Generator | None = None):
+        """Stochastic latent mean + eps * exp(log_std), in the compute dtype.
+        ``eps`` (the standard-normal draw, latent-shaped) is injected, or
+        drawn from ``generator`` (the device's default one when None)."""
+        mean, log_std = self.moments(x)
+        if eps is None:
+            eps = torch.randn(mean.shape, generator=generator, device=mean.device,
+                              dtype=mean.dtype)
+        return mean + eps.to(mean.dtype) * torch.exp(log_std)
+
+    def encode_mean(self, x):
+        """Deterministic latent: the posterior mean."""
+        return self.moments(x)[0]
+
     def decode(self, z):
         """(B, *latent, C_latent) -> (B, *spatial, C), in the compute dtype."""
         return self.decoder(z.movedim(-1, 1)).movedim(1, -1)
+
+
+def kl_divergence(mean, log_std):
+    """KL(q || N(0, I)) summed over the channel (last) axis; returns
+    ``mean.shape[:-1]``."""
+    log_var = 2.0 * log_std
+    return 0.5 * torch.sum(mean**2 + torch.exp(log_var) - log_var - 1.0, dim=-1)

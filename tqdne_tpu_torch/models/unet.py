@@ -7,10 +7,13 @@ a Res-Attn-Res middle, an up path with skip concatenation and a zero-init
 output convolution.  The public ``forward`` takes and returns the JAX
 layout, (B, *spatial, C); the output is float32.
 
-This is the inference port: the flagship configuration (no scale-shift norm,
-no per-feature conditioning embedding) with dropout active only in
-``train()`` mode.  GroupNorm and attention always take the fused kernels,
-which is the JAX ``use_pallas_norm=True, use_pallas_attention=True`` route.
+It ports the flagship configuration (no scale-shift norm, no per-feature
+conditioning embedding, no remat) for sampling and training: dropout is
+active in ``train()`` mode, and ``nn.layers.set_compute_dtype`` gives it the
+JAX module's ``dtype`` (bf16 compute over float32 parameters).  GroupNorm
+and attention always take the fused kernels, which is the JAX
+``use_pallas_norm=True, use_pallas_attention=True`` route; both are
+differentiable.
 """
 
 from __future__ import annotations

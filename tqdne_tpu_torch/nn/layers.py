@@ -6,9 +6,13 @@ kernel reads them as the (B, S, C) slab the JAX package works on and the
 convolutions take cuDNN's NHWC path.  Module and parameter names follow the
 flax scopes, so ``utils.convert`` maps a flax tree onto them one to one.
 
-Compute dtype follows the weights: a convolution or dense layer casts its
-input to its weight's dtype (flax's ``dtype=`` promotion), and ``Norm32``
-returns its input's dtype with f32 statistics.
+Compute dtype: a convolution or dense layer casts its input, weight and bias
+to its ``compute_dtype`` on every call (flax's ``dtype=`` with
+``param_dtype=float32``), so gradients land in float32 parameters;
+``set_compute_dtype`` sets it on a whole model.  Left at None it follows the
+weight's dtype, which is how a model whose weights were cast once for
+inference runs.  ``Norm32`` returns its input's dtype with f32 statistics and
+keeps its scale and bias in their own dtype.
 """
 
 from __future__ import annotations
@@ -40,21 +44,44 @@ class Norm32(nn.Module):
         return h.movedim(-1, 1)
 
 
-class _Conv1d(nn.Conv1d):
+class _Cast:
+    """Input, weight and bias in ``compute_dtype`` (None: the weight's)."""
+
+    compute_dtype: torch.dtype | None = None
+
+    def _cast(self, x):
+        weight, bias = self.weight, self.bias
+        dtype = self.compute_dtype or weight.dtype
+        if weight.dtype != dtype:
+            weight = weight.to(dtype)
+            bias = None if bias is None else bias.to(dtype)
+        return x.to(dtype), weight, bias
+
+
+class _Conv1d(_Cast, nn.Conv1d):
     def forward(self, x):
-        return super().forward(x.to(self.weight.dtype))
+        return self._conv_forward(*self._cast(x))
 
 
-class _Conv2d(nn.Conv2d):
+class _Conv2d(_Cast, nn.Conv2d):
     def forward(self, x):
-        return super().forward(x.to(self.weight.dtype))
+        return self._conv_forward(*self._cast(x))
 
 
-class Dense(nn.Linear):
-    """``nn.Linear`` computing in its weight's dtype (flax ``Dense(dtype=)``)."""
+class Dense(_Cast, nn.Linear):
+    """``nn.Linear`` computing in ``compute_dtype`` (flax ``Dense(dtype=)``)."""
 
     def forward(self, x):
-        return super().forward(x.to(self.weight.dtype))
+        return F.linear(*self._cast(x))
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype | None) -> nn.Module:
+    """Run every convolution and dense layer of ``module`` in ``dtype`` with
+    its parameters left as they are (None: in each weight's own dtype)."""
+    for m in module.modules():
+        if isinstance(m, _Cast):
+            m.compute_dtype = dtype
+    return module
 
 
 def conv_nd(dims: int, in_channels: int, out_channels: int, kernel_size: int, *,

@@ -10,8 +10,11 @@ statistics with eps inside the rsqrt, output cast back to the input dtype.
 - On a CPU tensor it runs ``group_norm_silu_plain``, the two-pass PyTorch
   version of the JAX module's ``_reference``.
 
-The backward recomputes through the plain version, as the JAX ``_bwd`` does.
-``group_norm_silu.launches`` counts kernel launches.
+The backward recomputes through the plain version, as the JAX ``_bwd`` does
+(XLA autograd over ``_reference``: the TPU package has no backward kernel).
+``group_norm_silu.launches`` counts kernel launches and
+``group_norm_silu.backward_calls`` the plain backward recomputations, which
+run inside a ``tq::group_norm_silu_backward`` profiler range.
 """
 
 from __future__ import annotations
@@ -109,9 +112,10 @@ class _GroupNormSiLU(torch.autograd.Function):
         inputs = [t.detach().requires_grad_(need)
                   for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
         wanted = [t for t in inputs if t.requires_grad]
-        with torch.enable_grad():
+        with torch.enable_grad(), torch.profiler.record_function("tq::group_norm_silu_backward"):
             out = group_norm_silu_plain(*inputs, *ctx.config)
             grads = iter(torch.autograd.grad(out, wanted, grad))
+        group_norm_silu.backward_calls += 1
         return (*(next(grads) if t.requires_grad else None for t in inputs), None, None, None)
 
 
@@ -123,3 +127,4 @@ def group_norm_silu(x, scale, bias, groups: int = 32, eps: float = 1e-5,
 
 
 group_norm_silu.launches = 0
+group_norm_silu.backward_calls = 0

@@ -39,3 +39,33 @@ def randomize_(module: torch.nn.Module, seed: int) -> torch.nn.Module:
             draw = 0.05 * draw
         p.copy_(draw)
     return module
+
+
+# attribute names of the layers the JAX UNet creates with zero_init=True
+_ZERO_INIT = ("out_conv", "proj_out")
+
+
+@torch.no_grad()
+def init_like_flax_(module: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """Initialise as the JAX modules' ``init`` does (the draws differ): conv and
+    dense weights lecun-normal (truncated at 2 sigma), biases zero, the UNet's
+    zero-init layers (``out_conv``, ``proj_out``) zero, norms 1 and 0, and the
+    Fourier frequencies N(0, 0.02^2)."""
+    from tqdne_tpu_torch.nn.layers import GaussianFourierProjection, Norm32, _Cast
+
+    gen = torch.Generator().manual_seed(seed)
+    for name, m in module.named_modules():
+        if isinstance(m, _Cast):
+            if name.rsplit(".", 1)[-1] in _ZERO_INIT:
+                m.weight.zero_()
+            else:
+                std = (m.weight[0].numel() ** -0.5) / 0.87962566103423978
+                torch.nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
+                                            generator=gen)
+            m.bias.zero_()
+        elif isinstance(m, Norm32):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, GaussianFourierProjection):
+            m.W.copy_(torch.randn(m.W.shape, generator=gen) * 0.02)
+    return module

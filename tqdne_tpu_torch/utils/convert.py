@@ -11,6 +11,9 @@ PyTorch key one to one.  This module owns every layout change:
   <norm>/GroupNorm_0/{scale,bias}        <norm>.{weight,bias}
   <fourier>/W                            <fourier>.W
 
+``load_flax_train_state`` carries a whole JAX train state (parameters, EMA
+and the optax Adam moments) over into the port's ``TrainState``.
+
 It reads committed ``weights/*.msgpack`` artifacts (flax's msgpack layout,
 arrays as extension type 1) with the ``msgpack`` package, without flax:
 
@@ -81,6 +84,27 @@ def flax_to_state_dict(tree: dict) -> dict[str, torch.Tensor]:
             raise ValueError(f"unexpected flax parameter {'/'.join(path)}")
         sd[".".join([*scope, leaf])] = t.contiguous()
     return sd
+
+
+def load_flax_train_state(state, params: dict, ema_params: dict, mu: dict, nu: dict,
+                          count: int) -> None:
+    """Carry a JAX ``TrainState`` with an optax Adam state over into the port's
+    ``train.state.TrainState`` in place: ``params`` and ``ema_params`` into
+    the live and EMA modules, Adam's ``mu``/``nu`` (trees shaped like the
+    params, numpy arrays) and its update ``count`` into the optimizer.  The
+    frozen Fourier ``W`` has no optimizer state in the port (its optax
+    moments stay zero, as its gradient is stopped)."""
+    state.model.load_state_dict(flax_to_state_dict(params))
+    state.ema.load_state_dict(flax_to_state_dict(ema_params))
+    moments = flax_to_state_dict(mu), flax_to_state_dict(nu)
+    for name, p in state.model.named_parameters():
+        if p.requires_grad:
+            state.optimizer.state[p] = {
+                "step": torch.tensor(float(count)),
+                "exp_avg": moments[0][name].to(p.device, p.dtype),
+                "exp_avg_sq": moments[1][name].to(p.device, p.dtype),
+            }
+    state.step = int(count)
 
 
 def convert_file(src, dst) -> dict[str, torch.Tensor]:
