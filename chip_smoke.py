@@ -9,10 +9,14 @@ Phases (any failure exits non-zero and prints no result line):
 2. hold each kernel against its plain PyTorch version on the card: GroupNorm
    (+SiLU) at every (S, C) the flagship UNet and decoder give it, in f32 and
    in each (x, scale) dtype pair the bf16 path gives that shape, SiLU on and
-   off; flash attention at (L, D) = (16, 128), (256, 64)
-   and (508, 64), causal and not, output and base-2 log-sum-exp; the two
-   flash backward kernels (dK/dV and dQ) at (B, L, H, D) = (128, 16, 4, 128),
-   (8, 256, 4, 64) and (8, 508, 4, 64), f32 and bf16, causal and not;
+   off; the flash forward (output and base-2 log-sum-exp) and the two flash
+   backward kernels (dK/dV and dQ), f32 and bf16, causal and not, at the
+   main paths' (32, 16, 4, 128) and (128, 16, 4, 128), at every L in
+   (16, 17, 100, 256, 508) x D in (32, 64, 128) with q, k and v as strided
+   views of one fused (B, L, 3, H, D) projection, and at the variants the
+   bf16 tensor-core kernels take for other layouts: D = 40 (zero-padded to
+   its head block of 64), D = 12 (2-byte loads and stores) and views one
+   element into their buffers (2-byte loads);
 3. full-width flagship sampling in f32, 2 Heun steps, once through the
    kernels and once through the plain versions: the decoded spectrograms
    must agree (TF32 off); then one full-width f32 training step (frozen
@@ -26,7 +30,9 @@ Phases (any failure exits non-zero and prints no result line):
    in-memory synthetic waveforms, bf16 compute over f32 parameters, batch
    128, 30 steps; the loss must be finite); the counts must be exact;
 5. timings on the card: each kernel at the main paths' shapes beside its
-   bound, its plain version and a PyTorch yardstick call, end-to-end
+   bound, its plain version and a PyTorch yardstick call (and, for the
+   record, the bf16 flash forward at (128, 16, 4, 128) and the forward and
+   dK/dV at a classifier-like (32, 256, 4, 64)), end-to-end
    waveforms/s and training samples/s, a profiled sampling run and a profiled
    train step by kernel class, and one train step at the recipe's batch 256.
 
@@ -87,6 +93,15 @@ def cuda_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def issue_ms(fn, windows: int = 5, reps: int = 20) -> tuple[float, float]:
+    """Per-call time of ``fn`` issued back to back, the median and the least
+    over a few windows: at the UNet's shapes the host's issue rate sets it,
+    and a lone window swings with the load on the shared host."""
+    cuda_ms(fn, reps=1)  # warm-up
+    times = [cuda_ms(fn, reps=reps, warmup=0) for _ in range(windows)]
+    return statistics.median(times), min(times)
+
+
 def device_kernels(prof) -> list:
     """The profiler's averaged CUDA kernel events.  A ``record_function``
     range (the GroupNorm backward's, the optimizer step's) is mirrored on the
@@ -100,22 +115,36 @@ def device_kernels(prof) -> list:
     return [e for e in events if e.device_type == DeviceType.CUDA and e.key not in ranges]
 
 
-def device_ms(fn, reps: int = 20) -> float:
+def device_ms(fn, reps: int = 20, names: list | None = None) -> float:
     """Device time per call: the summed durations of the CUDA kernels ``fn``
     launches, from torch.profiler.  Event timing of back-to-back calls
     measures the host's issue rate instead when a call's kernels are shorter
-    than its Python overhead, as they are at the UNet's shapes."""
+    than its Python overhead, as they are at the UNet's shapes.  ``names``,
+    when given, receives the kernels' names.
+
+    Now and then the profiler loses some or all of a window's device records,
+    which reads low, so three windows are taken and the time comes from those
+    with the most kernel records (their median)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in device_kernels(prof))
-    if not total_us:
-        fail("torch.profiler recorded no device time")
+    windows = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof)
+        windows.append((sum(e.count for e in kernels),
+                        sum(e.self_device_time_total for e in kernels), kernels))
+    most = max(w[0] for w in windows)
+    if not most:
+        fail("torch.profiler recorded no device time in three windows")
+    full = sorted((w for w in windows if w[0] == most), key=lambda w: w[1])
+    _, total_us, kernels = full[len(full) // 2]
+    if names is not None:
+        names.extend(e.key[:80] for e in kernels)
     return total_us / 1e3 / reps
 
 
@@ -124,6 +153,100 @@ def close(got, want, dtype, tol=TOL) -> tuple[float, bool]:
     err = (got.float() - want.float()).abs()
     ok = bool((err <= atol + rtol * want.float().abs()).all()) and bool(torch.isfinite(got).all())
     return err.max().item(), ok
+
+
+def tol_share(got, want, dtype, tol) -> float:
+    """The largest error as a share of what the tolerance allows there (<= 1 passes)."""
+    rtol, atol = tol[dtype]
+    err = (got.float() - want.float()).abs()
+    return (err / (atol + rtol * want.float().abs())).max().item()
+
+
+def qkv_views(b, length, h, d, dtype, layout, gen, dev):
+    """q, k and v as the paths give them: ``fused``, strided views of one
+    (B, L, 3, H, D) projection (the attention block's); ``separate``,
+    contiguous tensors; ``offset``, views one element into their buffers,
+    which no 16-byte load can read."""
+    if layout == "fused":
+        qkv = torch.randn(b, length, 3, h, d, generator=gen, device=dev).to(dtype)
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    if layout == "offset":
+        n = b * length * h * d
+        return tuple(torch.randn(n + 1, generator=gen, device=dev).to(dtype)[1:]
+                     .view(b, length, h, d) for _ in range(3))
+    return tuple(torch.randn(b, length, h, d, generator=gen, device=dev).to(dtype)
+                 for _ in range(3))
+
+
+def check_flash_kernels(gen, dev, errs: dict) -> int:
+    """The flash forward and both backward kernels against their plain
+    versions, f32 and bf16, causal and not: at the main paths' shapes, at
+    every L x D of the redesigned bf16 kernels' two variants as fused-qkv
+    views, and in the layouts that take their narrow loads.  Records the
+    largest errors in ``errs``; returns the number of failed checks."""
+    from tqdne_tpu_torch.ops.flash_attention import (
+        attention_delta,
+        flash_attention,
+        flash_attention_bwd_dkdv,
+        flash_attention_bwd_dkdv_plain,
+        flash_attention_bwd_dq,
+        flash_attention_bwd_dq_plain,
+        flash_attention_plain,
+        tensor_core_plan,
+    )
+
+    errs |= {"flash_attention": 0.0, "flash_attention_bwd_dkdv": 0.0,
+             "flash_attention_bwd_dq": 0.0}
+    bad = 0
+    bf16_share = {"flash_attention": 0.0, "flash_attention_bwd_dkdv": 0.0}
+    flash_cases = [(BATCH, 16, 4, 128, "separate"), (TRAIN_BATCH, 16, 4, 128, "fused")]
+    flash_cases += [(4, length, 4, d, "fused") for length in (16, 17, 100, 256, 508)
+                    for d in (32, 64, 128)]
+    flash_cases += [(4, 100, 4, 40, "fused"), (4, 17, 2, 12, "fused"), (4, 100, 2, 64, "offset")]
+    for b_, length, h, d, layout in flash_cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (False, True):
+                q, k, v = qkv_views(b_, length, h, d, dtype, layout, gen, dev)
+                do = torch.randn(b_, length, h, d, generator=gen, device=dev).to(dtype)
+                plan = tensor_core_plan(q, k, v) if dtype == torch.bfloat16 else "fma"
+                label = (f"B={b_} L={length} H={h} D={d} {layout} {str(dtype)[6:]} "
+                         f"causal={causal} plan={plan}")
+                out, lse = flash_attention(q, k, v, causal, return_lse=True)
+                want, want_lse = flash_attention_plain(q, k, v, causal, return_lse=True)
+                err, ok = close(out, want, dtype)
+                lse_err, lse_ok = close(lse, want_lse, torch.float32)
+                errs["flash_attention"] = max(errs["flash_attention"], err)
+                bad += not (ok and lse_ok)
+                share = tol_share(out, want, dtype, TOL)
+                if dtype == torch.bfloat16:
+                    bf16_share["flash_attention"] = max(bf16_share["flash_attention"], share)
+                log(f"[check] flash_attention {label}: max_abs_err={err:.3e} "
+                    f"(share of tol {share:.3f}) tol={TOL[dtype]} lse_err={lse_err:.3e} "
+                    f"tol={TOL[torch.float32]} {'ok' if ok and lse_ok else 'FAIL'}")
+                delta = attention_delta(do, want)
+                got = (flash_attention_bwd_dq(q, k, v, do, want_lse, delta, causal),
+                       *flash_attention_bwd_dkdv(q, k, v, do, want_lse, delta, causal))
+                ref = (flash_attention_bwd_dq_plain(q, k, v, do, want_lse, delta, causal),
+                       *flash_attention_bwd_dkdv_plain(q, k, v, do, want_lse, delta, causal))
+                results = [close(g, w, dtype, BWD_TOL) for g, w in zip(got, ref)]
+                shares = [tol_share(g, w, dtype, BWD_TOL) for g, w in zip(got, ref)]
+                errs["flash_attention_bwd_dq"] = max(errs["flash_attention_bwd_dq"],
+                                                     results[0][0])
+                errs["flash_attention_bwd_dkdv"] = max(errs["flash_attention_bwd_dkdv"],
+                                                       results[1][0], results[2][0])
+                if dtype == torch.bfloat16:
+                    bf16_share["flash_attention_bwd_dkdv"] = max(
+                        bf16_share["flash_attention_bwd_dkdv"], *shares[1:])
+                ok = all(r[1] for r in results)
+                bad += not ok
+                log(f"[check] flash backward {label}: max_abs_err dq={results[0][0]:.3e} "
+                    f"dk={results[1][0]:.3e} dv={results[2][0]:.3e} (share of tol dk="
+                    f"{shares[1]:.3f} dv={shares[2]:.3f}; peak "
+                    f"{max(w.float().abs().max().item() for w in ref):.3e}) "
+                    f"tol(rtol,atol)={BWD_TOL[dtype]} {'ok' if ok else 'FAIL'}")
+    log(f"[check] {len(flash_cases) * 4} flash cases; largest bf16 error as a share of its "
+        f"tolerance: {json.dumps(bf16_share)}")
+    return bad
 
 
 KERNEL_CLASSES = (("group_norm_silu", ("gn_partial", "gn_finalize", "gn_apply")),
@@ -327,7 +450,7 @@ def main():
              f"{len(unet_gn)} and {len(unet_fa)}")
 
     # ---- 2. kernels against their plain versions ------------------------------
-    errs = {"group_norm_silu": 0.0, "flash_attention": 0.0}
+    errs = {"group_norm_silu": 0.0}
     bad = 0
     # every (S, C, G) of the path, in f32 and in each (x, scale) dtype pair the
     # path gives that shape: bf16/bf16 in the UNet, bf16/f32 in the decoder
@@ -347,46 +470,7 @@ def main():
                 log(f"[check] group_norm_silu B={BATCH} S={s} C={c} G={g} "
                     f"x={str(dtype)[6:]} scale={str(pdtype)[6:]} silu={silu}: "
                     f"max_abs_err={err:.3e} tol(rtol,atol)={TOL[dtype]} {'ok' if ok else 'FAIL'}")
-    for b_, length, h, d in ((BATCH, 16, 4, 128), (8, 256, 4, 64), (8, 508, 4, 64)):
-        for dtype in (torch.float32, torch.bfloat16):
-            for causal in (False, True):
-                q, k, v = (torch.randn(b_, length, h, d, generator=gen, device=dev).to(dtype)
-                           for _ in range(3))
-                out, lse = flash_attention(q, k, v, causal, return_lse=True)
-                want, want_lse = flash_attention_plain(q, k, v, causal, return_lse=True)
-                err, ok = close(out, want, dtype)
-                lse_err, lse_ok = close(lse, want_lse, torch.float32)
-                errs["flash_attention"] = max(errs["flash_attention"], err)
-                bad += not (ok and lse_ok)
-                log(f"[check] flash_attention B={b_} L={length} H={h} D={d} {str(dtype)[6:]} "
-                    f"causal={causal}: max_abs_err={err:.3e} tol={TOL[dtype]} "
-                    f"lse_err={lse_err:.3e} tol={TOL[torch.float32]} "
-                    f"{'ok' if ok and lse_ok else 'FAIL'}")
-    errs |= {"flash_attention_bwd_dkdv": 0.0, "flash_attention_bwd_dq": 0.0}
-    for b_, length, h, d in ((TRAIN_BATCH, 16, 4, 128), (8, 256, 4, 64), (8, 508, 4, 64)):
-        for dtype in (torch.float32, torch.bfloat16):
-            for causal in (False, True):
-                # q, k, v as strided views of one fused projection, as the UNet gives them
-                qkv = torch.randn(b_, length, 3, h, d, generator=gen, device=dev).to(dtype)
-                q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-                do = torch.randn(b_, length, h, d, generator=gen, device=dev).to(dtype)
-                out, lse = flash_attention_plain(q, k, v, causal, return_lse=True)
-                delta = attention_delta(do, out)
-                got = (flash_attention_bwd_dq(q, k, v, do, lse, delta, causal),
-                       *flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal))
-                want = (flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal),
-                        *flash_attention_bwd_dkdv_plain(q, k, v, do, lse, delta, causal))
-                results = [close(g, w, dtype, BWD_TOL) for g, w in zip(got, want)]
-                errs["flash_attention_bwd_dq"] = max(errs["flash_attention_bwd_dq"],
-                                                     results[0][0])
-                errs["flash_attention_bwd_dkdv"] = max(errs["flash_attention_bwd_dkdv"],
-                                                       results[1][0], results[2][0])
-                ok = all(r[1] for r in results)
-                bad += not ok
-                log(f"[check] flash backward B={b_} L={length} H={h} D={d} {str(dtype)[6:]} "
-                    f"causal={causal}: max_abs_err dq={results[0][0]:.3e} dk={results[1][0]:.3e} "
-                    f"dv={results[2][0]:.3e} (peak {max(w.float().abs().max().item() for w in want):.3e}) "
-                    f"tol(rtol,atol)={BWD_TOL[dtype]} {'ok' if ok else 'FAIL'}")
+    bad += check_flash_kernels(gen, dev, errs)
     torch.cuda.synchronize()
     if bad:
         fail(f"{bad} kernel checks disagree with the plain versions")
@@ -559,9 +643,13 @@ def main():
 
     def timed(kernel, plain, library):
         """Device ms of each, plus the kernel's per-call time when issued back
-        to back (CUDA events), which the host's overhead sets at small shapes."""
+        to back (CUDA events), which the host's overhead sets at small shapes,
+        and the kernels the library call ran."""
+        names = []
+        issue, issue_min = issue_ms(kernel)
         return dict(ms=device_ms(kernel), plain_ms=device_ms(plain),
-                    library_ms=device_ms(library), issue_ms=cuda_ms(kernel))
+                    library_ms=device_ms(library, names=names), issue_ms=issue,
+                    issue_min_ms=issue_min, library_kernels=sorted(set(names)))
 
     def gn_row(dtype, pdtype, s, c, g, silu, calls):
         x = torch.randn(BATCH, s, c, generator=gen, device=dev).to(dtype)
@@ -579,24 +667,28 @@ def main():
                     lambda: group_norm_silu_plain(x, w, b, g, 1e-5, silu), lib),
             **bound(nbytes, GN_OPS_PER_ELEM[silu] * x.numel(), torch.float32))
 
-    def fa_row(dtype, length, h, d, causal, calls):
-        q, k, v = (torch.randn(BATCH, length, h, d, generator=gen, device=dev).to(dtype)
+    def fa_row(dtype, length, h, d, causal, calls, batch=BATCH):
+        q, k, v = (torch.randn(batch, length, h, d, generator=gen, device=dev).to(dtype)
                    for _ in range(3))
         qs, ks, vs = (t.transpose(1, 2) for t in (q * d**-0.25, k * d**-0.25, v))
         pairs = length * (length + 1) / 2 if causal else length * length
         return dict(
-            shape=[BATCH, length, h, d], causal=causal, dtype=str(dtype)[6:], calls=calls,
+            shape=[batch, length, h, d], causal=causal, dtype=str(dtype)[6:], calls=calls,
             **timed(lambda: flash_attention(q, k, v, causal),
                     lambda: flash_attention_plain(q, k, v, causal),
                     lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
                                                            scale=1.0)),
-            **bound(4 * q.numel() * q.element_size(), 4 * BATCH * h * pairs * d, dtype))
+            **bound(4 * q.numel() * q.element_size(), 4 * batch * h * pairs * d, dtype))
 
     gn_rows = [gn_row(*key, calls=unet_gn.count(key)) for key in dict.fromkeys(unet_gn)]
     gn_rows += [gn_row(*key, calls=dec_gn.count(key)) for key in dict.fromkeys(dec_gn)]
     fa_rows = [fa_row(*key, calls=unet_fa.count(key)) for key in dict.fromkeys(unet_fa)]
     for row in gn_rows + fa_rows:
         log(f"[time] {json.dumps(row)}")
+    # for the record (no main-path calls): the forward at the training batch, and at a
+    # classifier-like 256 tokens, where the tensor cores first carry real work
+    for batch, length, d in ((TRAIN_BATCH, 16, 128), (BATCH, 256, 64)):
+        log(f"[time] {json.dumps(fa_row(torch.bfloat16, length, 4, d, False, 0, batch))}")
 
     # training: samples/s of train_step on a resident batch, a profiled step,
     # the backward kernels per call, and one step at the recipe's batch 256
@@ -624,10 +716,9 @@ def main():
         f"traintime")
     train_profile(one_step, f"one train step, batch {TRAIN_BATCH}, bf16")
 
-    def bwd_rows(dtype, length, h, d, causal, calls):
-        qkv = torch.randn(TRAIN_BATCH, length, 3, h, d, generator=gen, device=dev).to(dtype)
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        do = torch.randn(TRAIN_BATCH, length, h, d, generator=gen, device=dev).to(dtype)
+    def bwd_rows(dtype, length, h, d, causal, calls, batch=TRAIN_BATCH):
+        q, k, v = qkv_views(batch, length, h, d, dtype, "fused", gen, dev)
+        do = torch.randn(batch, length, h, d, generator=gen, device=dev).to(dtype)
         out, lse = flash_attention(q, k, v, causal, return_lse=True)
         delta = attention_delta(do, out)
         # the library: autograd through SDPA on the same pre-scaled inputs; one
@@ -642,7 +733,7 @@ def main():
 
         pairs = length * (length + 1) / 2 if causal else length * length
         elems, size, rows_bytes = q.numel(), q.element_size(), 2 * lse.numel() * 4
-        common = dict(shape=[TRAIN_BATCH, length, h, d], causal=causal, dtype=str(dtype)[6:],
+        common = dict(shape=[batch, length, h, d], causal=causal, dtype=str(dtype)[6:],
                       calls=calls)
         return {
             # reads q, k, v, dO, lse, delta; writes dK, dV; products S, dP, dV, dK
@@ -651,20 +742,22 @@ def main():
                 **timed(lambda: flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal),
                         lambda: flash_attention_bwd_dkdv_plain(q, k, v, do, lse, delta, causal),
                         library),
-                **bound(6 * elems * size + rows_bytes, 8 * TRAIN_BATCH * h * pairs * d, dtype)),
+                **bound(6 * elems * size + rows_bytes, 8 * batch * h * pairs * d, dtype)),
             # reads q, k, v, dO, lse, delta; writes dQ; products S, dP, dQ
             "flash_attention_bwd_dq": dict(
                 kernel="flash_attention_bwd_dq", **common,
                 **timed(lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta, causal),
                         lambda: flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal),
                         library),
-                **bound(5 * elems * size + rows_bytes, 6 * TRAIN_BATCH * h * pairs * d, dtype)),
+                **bound(5 * elems * size + rows_bytes, 6 * batch * h * pairs * d, dtype)),
         }
 
     bwd = [bwd_rows(*key, calls=unet_fa.count(key)) for key in dict.fromkeys(unet_fa)]
     for row in bwd:
         for r in row.values():
             log(f"[time] {json.dumps(r)}")
+    classifier_like = bwd_rows(torch.bfloat16, 256, 4, 64, False, 0, batch=BATCH)
+    log(f"[time] {json.dumps(classifier_like['flash_attention_bwd_dkdv'])}")  # for the record
 
     big = next(iter(BatchLoader(dataset, 2 * TRAIN_BATCH, device=dev, keys=("signal", "cond"),
                                 prefetch=0)))
@@ -718,6 +811,9 @@ def main():
                 f"SDPA backward, which computes dq, dk and dv together",
             launches_per_run={"train": train_counts[name]},
         ))
+    for entry in kernels:  # the kernels rebuilt on the tensor cores
+        if entry["name"] in ("flash_attention", "flash_attention_bwd_dkdv"):
+            entry["redesigned"] = "bf16 tensor cores (mma.sync m16n8k16); FMA loops in f32"
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)

@@ -20,13 +20,15 @@ from tqdne_tpu.ops import spectral as jspectral
 from tqdne_tpu.ops.flash_attention import _flash_forward
 from tqdne_tpu.ops.flash_attention import flash_attention as jax_flash_attention
 from tqdne_tpu.ops.group_norm import group_norm_silu as jax_group_norm_silu
-from tqdne_tpu_torch.ops import spectral
+from tqdne_tpu_torch.ops import cuda_build, spectral
 from tqdne_tpu_torch.ops.flash_attention import (
+    _check,
     attention_delta,
     flash_attention,
     flash_attention_plain,
     flash_attention_bwd_dkdv,
     flash_attention_bwd_dq,
+    tensor_core_plan,
 )
 from tqdne_tpu_torch.ops.group_norm import group_norm_silu
 
@@ -155,6 +157,85 @@ def test_wrappers_refuse_devices_without_a_kernel():
     for backward in (flash_attention_bwd_dkdv, flash_attention_bwd_dq):
         with pytest.raises(RuntimeError, match="no kernel"):
             backward(q, q, q, q, rows, rows)
+
+
+def _bf16_pairs(x):
+    """x as bf16 hi + lo, the split the tensor-core kernels give P and dS."""
+    hi = x.bfloat16().float()
+    return hi, (x - hi).bfloat16().float()
+
+
+def test_one_bf16_probability_breaks_the_tolerance():
+    """Why the bf16 kernels split P (and dS) into two bf16 operands: the
+    forward of the UNet's attention computed with P rounded to one bf16 misses
+    the bf16 tolerance (rtol 1.6e-2, atol 1e-3) near zero, and hi + lo holds
+    it.  Plain PyTorch emulates the kernel's products, which are exact for
+    bf16 operands; bf16 inputs from a seed."""
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(32, 16, 4, 128, generator=gen).bfloat16() for _ in range(3))
+    want = flash_attention_plain(q, k, v)
+    s = torch.einsum("blhd,bshd->bhls", q.float(), k.float()) * 128**-0.5
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    denom = p.sum(-1).transpose(1, 2)[..., None]
+    hi, lo = _bf16_pairs(p)
+
+    def share(pp):
+        out = (torch.einsum("bhls,bshd->blhd", pp, v.float()) / denom).bfloat16().float()
+        return ((out - want.float()).abs() / (1e-3 + 1.6e-2 * want.float().abs())).max().item()
+
+    assert share(hi) > 1.0 > share(hi + lo)
+
+
+@pytest.mark.parametrize("d,head_block", [(8, 32), (16, 32), (32, 32), (40, 64), (64, 64),
+                                          (100, 128), (128, 128)])
+def test_tensor_core_plan_head_block(d, head_block):
+    """The bf16 kernels take every D <= 128 in a head block of 32, 64 or 128
+    (zero-padded to it in shared memory); D > 128 is refused first."""
+    q = torch.zeros(2, 16, 4, d, dtype=torch.bfloat16)
+    assert tensor_core_plan(q, q, q)[0] == head_block
+    with pytest.raises(ValueError, match="unsupported shape"):
+        _check("flash_attention", *(torch.zeros(2, 16, 4, 136, dtype=torch.bfloat16),) * 3)
+
+
+@pytest.mark.parametrize("length,warps", [(1, 1), (16, 1), (17, 4), (256, 4), (508, 4)])
+def test_tensor_core_plan_variant_follows_the_length(length, warps):
+    """Four heads a block up to 16 tokens (the UNet's), four warps on one head beyond."""
+    q = torch.zeros(1, length, 2, 64, dtype=torch.bfloat16)
+    assert tensor_core_plan(q, q, q)[1] == warps
+
+
+def test_tensor_core_plan_loads_16_bytes_only_where_aligned():
+    """16-byte cp.async needs every row start 16-byte aligned: the fused qkv
+    views of the models are; a D of 12, a view one element in, or a token
+    stride off by one element take the 2-byte loads instead of failing."""
+    qkv = torch.zeros(2, 16, 3, 4, 64, dtype=torch.bfloat16)
+    views = (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+    assert tensor_core_plan(*views) == (64, 1, 1)
+    _check("flash_attention", *views)  # strided views are taken as they are
+    odd_d = torch.zeros(2, 16, 4, 12, dtype=torch.bfloat16)
+    assert tensor_core_plan(odd_d, odd_d, odd_d)[2] == 0
+    flat = torch.zeros(2 * 16 * 4 * 64 + 1, dtype=torch.bfloat16)
+    shifted = flat[1:].view(2, 16, 4, 64)
+    assert tensor_core_plan(views[0], shifted, views[2])[2] == 0
+    padded = torch.zeros(2, 16, 4 * 64 + 1, dtype=torch.bfloat16)[..., :256].unflatten(-1, (4, 64))
+    assert padded.stride(1) == 257 and tensor_core_plan(padded, padded, padded)[2] == 0
+    with pytest.raises(ValueError, match="unit stride"):
+        _check("flash_attention", *(torch.zeros(2, 16, 4, 64, dtype=torch.bfloat16)[..., ::2],) * 3)
+
+
+def test_library_path_follows_the_shared_headers(tmp_path, monkeypatch):
+    """A library is rebuilt when a header its source includes changes, not
+    only when the source does."""
+    monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    first = cuda_build.library_path("k")
+    assert cuda_build.library_path("k") == first
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    second = cuda_build.library_path("k")
+    assert second != first
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n// edited\n')
+    assert cuda_build.library_path("k") not in (first, second)
 
 
 def test_stft_istft_match_jax(rng):

@@ -306,7 +306,7 @@ def test_dataset_and_loader_match_jax(tmp_path):
     np.testing.assert_allclose(got["signal"], want["signal"], rtol=RTOL, atol=1e-4)
 
     loader = BatchLoader(ArrayDataset(arrays, rep, cut=4064, cond=True), 4,
-                         keys=("signal", "cond"))
+                         keys=("signal", "cond"), device="cpu")
     batches = list(loader)
     assert len(batches) == len(loader) == 2
     assert batches[0]["signal"].shape == (4, 128, 128, 3) and batches[0]["cond"].shape == (4, 5)
@@ -321,7 +321,17 @@ def test_batch_loader_reraises_a_loader_error():
             raise OSError("bad read")
 
     with pytest.raises(OSError, match="bad read"):
-        list(BatchLoader(Broken(), 4))
+        list(BatchLoader(Broken(), 4, device="cpu"))
+
+
+def test_batch_loader_defaults_to_the_card(monkeypatch):
+    """Like every entry point of the port, the loader puts batches on the
+    card unless told otherwise, and says so where there is none."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ds = list(range(8))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BatchLoader(ds, 4)
+    assert BatchLoader(ds, 4, device="cpu").device == torch.device("cpu")
 
 
 class _Patches:
@@ -339,9 +349,9 @@ def _trainer_run(workdir, max_steps, arrays, resume=True):
     state = TrainState(unet, make_optimizer("adam", unet, 1e-3), schedule)
     train_step, eval_step = make_edm_steps(autoencoder=ae)
     train = BatchLoader(ArrayDataset(arrays, _Patches(), cond=True), 8, keys=("signal", "cond"),
-                        prefetch=1)
+                        prefetch=1, device="cpu")
     val = BatchLoader(ArrayDataset(arrays, _Patches(), cond=True, split="validation"), 1,
-                      shuffle=False, keys=("signal", "cond"))
+                      shuffle=False, keys=("signal", "cond"), device="cpu")
     trainer = Trainer(train_step, eval_step, workdir, device="cpu", max_epochs=10,
                       max_steps=max_steps, log_every=1, seed=3, lr_schedule=schedule,
                       hparams={"unet": SMALL_UNET})

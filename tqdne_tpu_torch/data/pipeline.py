@@ -16,6 +16,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from tqdne_tpu_torch.utils import resolve_device
+
 
 def to_channels_last(batch: dict) -> dict:
     """(B, C, *spatial) storage layout -> (B, *spatial, C) model layout."""
@@ -27,7 +29,8 @@ def to_channels_last(batch: dict) -> dict:
 
 
 class BatchLoader:
-    """Iterable over epochs of device batches (dicts of tensors).
+    """Iterable over epochs of device batches (dicts of tensors), on the card unless
+    ``device`` says otherwise.
 
     Shuffled with ``drop_last`` for training, in order for evaluation.  The
     shuffle of an epoch is seeded by ``seed + epoch``; ``epoch`` counts the
@@ -35,14 +38,14 @@ class BatchLoader:
     """
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = True, drop_last: bool = True,
-                 seed: int = 0, device: str | torch.device = "cpu", prefetch: int = 2,
+                 seed: int = 0, device: str | torch.device = "cuda", prefetch: int = 2,
                  channels_last: bool = True, keys: tuple[str, ...] | None = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.prefetch = prefetch
         self.channels_last = channels_last
         self.keys = keys

@@ -3,10 +3,10 @@
 Each ``csrc/<name>.cu`` compiles for Hopper (``sm_90a``) into its own shared
 library with a plain C interface, under ``build/tqdne_tpu_torch/`` at the
 root of the checkout.  The library's file name carries a digest of its
-source and flags, so an edited source is rebuilt and an unchanged one is
-reused.  Nothing is built at import: the first launch of a kernel builds it,
-and ``build()`` builds several at once (one nvcc process each, all started
-together).
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt and an unchanged one is reused.  Nothing is built
+at import: the first launch of a kernel builds it, and ``build()`` builds
+several at once (one nvcc process each, all started together).
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.name.encode() + h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

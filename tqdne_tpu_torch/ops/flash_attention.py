@@ -14,6 +14,9 @@ and dQ from the saved lse.
   ``tqdne_tpu/ops/flash_attention.py:_attention_kernel``), the backward
   ``csrc/flash_attention_bwd.cu`` (replaces ``_bwd_dkdv_kernel`` and
   ``_bwd_dq_kernel``).  The sources say what bounds each and how it is built.
+  In bf16 the forward and dK/dV run on the tensor cores, in variants that
+  ``tensor_core_plan`` picks from the shapes, strides and pointers; in f32
+  they, and dQ in both dtypes, run FMA loops.
 - On CPU tensors they run the plain versions: ``flash_attention_plain`` (the
   einsum of ``tqdne_tpu/nn/attention.py:qkv_attention``),
   ``flash_attention_bwd_dkdv_plain`` and ``flash_attention_bwd_dq_plain``.
@@ -90,28 +93,35 @@ def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool = False):
 
 
 @functools.cache
-def _kernel(source: str, symbol: str, n_ptrs: int, n_strides: int):
+def _kernel(source: str, symbol: str, n_ptrs: int, n_strides: int, n_plan: int = 0):
     fn = getattr(cuda_build.load(source), symbol)
     fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5 + \
         [ctypes.c_longlong] * n_strides + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
+                                           ctypes.c_void_p] + [ctypes.c_int] * n_plan
     fn.restype = ctypes.c_int
     return fn
 
 
 def _check(name: str, *tensors):
-    """Shared checks of the (B, L, H, D) operands a kernel reads."""
+    """Shared checks of the (B, L, H, D) operands a kernel reads.  It runs on
+    every launch, so each tensor's attributes are read once."""
     q = tensors[0]
-    if q.dim() != 4 or any(t.shape != q.shape for t in tensors):
+    shape, dtype, device = q.shape, q.dtype, q.device
+    for t in tensors[1:]:
+        if t.shape != shape:
+            raise ValueError(f"{name}: operands must share one (B, L, H, D) shape")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: unsupported dtypes {[t.dtype for t in tensors]}")
+        if t.device != device:
+            raise ValueError(f"{name}: operands must be on one device")
+    if len(shape) != 4:
         raise ValueError(f"{name}: operands must share one (B, L, H, D) shape")
-    b, _, h, d = q.shape
-    if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype for t in tensors):
+    if dtype not in _DTYPE_CODES:
         raise TypeError(f"{name}: unsupported dtypes {[t.dtype for t in tensors]}")
-    if any(t.device != q.device for t in tensors):
-        raise ValueError(f"{name}: operands must be on one device")
-    if d > MAX_HEAD_DIM or b * h > 65535 or q.numel() == 0:
-        raise ValueError(f"{name}: unsupported shape {tuple(q.shape)}")
-    if any(t.stride(-1) != 1 for t in tensors):
+    b, length, h, d = shape
+    if d > MAX_HEAD_DIM or b * h > 65535 or b * length * h * d == 0:
+        raise ValueError(f"{name}: unsupported shape {tuple(shape)}")
+    if any(t.stride(3) != 1 for t in tensors):
         raise ValueError(f"{name}: the head dimension must have unit stride")
 
 
@@ -125,7 +135,39 @@ def _check_rows(name: str, q, *rows):
 
 
 def _strides(*tensors):
-    return [s for t in tensors for s in (t.stride(0), t.stride(1), t.stride(2))]
+    return [s for t in tensors for s in t.stride()[:3]]
+
+
+def tensor_core_plan(*tensors, strides=None) -> tuple[int, int, int]:
+    """The variant the bf16 tensor-core kernels run for these (B, L, H, D)
+    operands: (head block, warps per head, vec).
+
+    - head block: the smallest of 32, 64 and 128 that holds D (the kernel
+      zero-pads D to it in shared memory);
+    - warps per head: 1 for L <= 16 (four heads a block), else 4 (four warps
+      share the staged tiles of one head);
+    - vec: 1 when every operand's pointer and (b, l, h) strides are 16-byte
+      aligned, so the kernel stages rows with 16-byte cp.async; else 0, and
+      it loads 2 bytes at a time.
+
+    ``strides``, when given, is ``_strides(*tensors)``, which the launch has
+    already read.
+    """
+    _, length, _, d = tensors[0].shape
+    head_block = 32 if d <= 32 else 64 if d <= 64 else 128
+    ptrs = ored = 0  # or-ed together: aligned only if every one is
+    for t in tensors:
+        ptrs |= t.data_ptr()
+    for stride in strides or _strides(*tensors):
+        ored |= stride
+    vec = ptrs % 16 == 0 and ored * tensors[0].element_size() % 16 == 0
+    return head_block, 1 if length <= 16 else 4, int(vec)
+
+
+def _plan(strides, *tensors):
+    if tensors[0].dtype != torch.bfloat16:
+        return 0, 0, 0  # the f32 kernels take no variant
+    return tensor_core_plan(*tensors, strides=strides)
 
 
 def _launch_args(q):
@@ -134,7 +176,10 @@ def _launch_args(q):
 
 
 def _stream(q):
-    return q.device.index or 0, torch.cuda.current_stream(q.device).cuda_stream
+    """(device, its current stream), read without building a Stream object:
+    every launch pays for this on the host."""
+    device = q.device.index or 0
+    return device, torch._C._cuda_getCurrentRawStream(device)
 
 
 def _launch(q, k, v, causal: bool, return_lse: bool):
@@ -142,10 +187,11 @@ def _launch(q, k, v, causal: bool, return_lse: bool):
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32,
                       device=q.device) if return_lse else None
-    err = _kernel("flash_attention", "tq_flash_attention_fwd", 5, 9)(
+    strides = _strides(q, k, v)
+    err = _kernel("flash_attention", "tq_flash_attention_fwd", 5, 9, 3)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr() if lse is not None else None, *_launch_args(q), *_strides(q, k, v),
-        _prescale(q.shape[-1]), int(causal), *_stream(q))
+        lse.data_ptr() if lse is not None else None, *_launch_args(q), *strides,
+        _prescale(q.shape[-1]), int(causal), *_stream(q), *_plan(strides, q, k, v))
     if err:
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA error {err}")
     flash_attention.launches += 1
@@ -176,10 +222,11 @@ def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal: bool = False):
     _check_rows("flash_attention_bwd_dkdv", q, lse, delta)
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    err = _kernel("flash_attention_bwd", "tq_flash_attention_bwd_dkdv", 8, 12)(
+    strides = _strides(q, k, v, do)
+    err = _kernel("flash_attention_bwd", "tq_flash_attention_bwd_dkdv", 8, 12, 3)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *_launch_args(q),
-        *_strides(q, k, v, do), _prescale(q.shape[-1]), int(causal), *_stream(q))
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *_launch_args(q), *strides,
+        _prescale(q.shape[-1]), int(causal), *_stream(q), *_plan(strides, q, k, v, do))
     if err:
         raise RuntimeError(f"flash_attention_bwd_dkdv: kernel launch failed with CUDA error {err}")
     flash_attention_bwd_dkdv.launches += 1
