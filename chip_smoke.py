@@ -7,16 +7,20 @@ Phases (any failure exits non-zero and prints no result line):
 1. build the three CUDA sources of ``tqdne_tpu_torch/csrc`` (one nvcc each,
    in parallel);
 2. hold each kernel against its plain PyTorch version on the card: GroupNorm
-   (+SiLU) at every (S, C) the flagship UNet and decoder give it, in f32 and
-   in each (x, scale) dtype pair the bf16 path gives that shape, SiLU on and
-   off; the flash forward (output and base-2 log-sum-exp) and the two flash
-   backward kernels (dK/dV and dQ), f32 and bf16, causal and not, at the
-   main paths' (32, 16, 4, 128) and (128, 16, 4, 128), at every L in
-   (16, 17, 100, 256, 508) x D in (32, 64, 128) with q, k and v as strided
-   views of one fused (B, L, 3, H, D) projection, and at the variants the
-   bf16 tensor-core kernels take for other layouts: D = 40 (zero-padded to
-   its head block of 64), D = 12 (2-byte loads and stores) and views one
-   element into their buffers (2-byte loads);
+   (+SiLU) at every (S, C) that sampling's UNet and decoder and training's
+   UNet and encoder give it, in f32 and in each (x, scale) dtype pair the
+   bf16 paths give that shape, SiLU on and off, at batch 32 and 128, and in
+   cases that force the launch plan's other variants (the largest cluster
+   the card co-schedules, chunks re-read from L2, element loads, groups of 5
+   channels); the flash forward (output and base-2 log-sum-exp) and the two
+   flash backward kernels (dQ with delta = rowsum(dO * O), then dK/dV with
+   that delta), f32 and bf16, causal and not, at the main paths'
+   (32, 16, 4, 128) and (128, 16, 4, 128), at every L in (16, 17, 100, 256,
+   508) x D in (32, 64, 128) with q, k and v as strided views of one fused
+   (B, L, 3, H, D) projection, and at the variants the bf16 tensor-core
+   kernels take for other layouts: D = 40 (zero-padded to its head block of
+   64), D = 12 (2-byte loads and stores) and views one element into their
+   buffers (2-byte loads);
 3. full-width flagship sampling in f32, 2 Heun steps, once through the
    kernels and once through the plain versions: the decoded spectrograms
    must agree (TF32 off); then one full-width f32 training step (frozen
@@ -32,7 +36,8 @@ Phases (any failure exits non-zero and prints no result line):
 5. timings on the card: each kernel at the main paths' shapes beside its
    bound, its plain version and a PyTorch yardstick call (and, for the
    record, the bf16 flash forward at (128, 16, 4, 128) and the forward and
-   dK/dV at a classifier-like (32, 256, 4, 64)), end-to-end
+   backward at a classifier-like (32, 256, 4, 64)), GroupNorm per UNet eval
+   and per train step, end-to-end
    waveforms/s and training samples/s, a profiled sampling run and a profiled
    train step by kernel class, and one train step at the recipe's batch 256.
 
@@ -185,12 +190,11 @@ def check_flash_kernels(gen, dev, errs: dict) -> int:
     views, and in the layouts that take their narrow loads.  Records the
     largest errors in ``errs``; returns the number of failed checks."""
     from tqdne_tpu_torch.ops.flash_attention import (
-        attention_delta,
         flash_attention,
         flash_attention_bwd_dkdv,
         flash_attention_bwd_dkdv_plain,
         flash_attention_bwd_dq,
-        flash_attention_bwd_dq_plain,
+        flash_attention_bwd_dq_delta_plain,
         flash_attention_plain,
         tensor_core_plan,
     )
@@ -198,7 +202,8 @@ def check_flash_kernels(gen, dev, errs: dict) -> int:
     errs |= {"flash_attention": 0.0, "flash_attention_bwd_dkdv": 0.0,
              "flash_attention_bwd_dq": 0.0}
     bad = 0
-    bf16_share = {"flash_attention": 0.0, "flash_attention_bwd_dkdv": 0.0}
+    bf16_share = {"flash_attention": 0.0, "flash_attention_bwd_dkdv": 0.0,
+                  "flash_attention_bwd_dq": 0.0}
     flash_cases = [(BATCH, 16, 4, 128, "separate"), (TRAIN_BATCH, 16, 4, 128, "fused")]
     flash_cases += [(4, length, 4, d, "fused") for length in (16, 17, 100, 256, 508)
                     for d in (32, 64, 128)]
@@ -223,33 +228,108 @@ def check_flash_kernels(gen, dev, errs: dict) -> int:
                 log(f"[check] flash_attention {label}: max_abs_err={err:.3e} "
                     f"(share of tol {share:.3f}) tol={TOL[dtype]} lse_err={lse_err:.3e} "
                     f"tol={TOL[torch.float32]} {'ok' if ok and lse_ok else 'FAIL'}")
-                delta = attention_delta(do, want)
-                got = (flash_attention_bwd_dq(q, k, v, do, want_lse, delta, causal),
-                       *flash_attention_bwd_dkdv(q, k, v, do, want_lse, delta, causal))
-                ref = (flash_attention_bwd_dq_plain(q, k, v, do, want_lse, delta, causal),
-                       *flash_attention_bwd_dkdv_plain(q, k, v, do, want_lse, delta, causal))
+                # dQ first: it also forms delta, which dK/dV then reads, as on the path
+                dq, delta = flash_attention_bwd_dq(q, k, v, do, want, want_lse, causal)
+                want_dq, want_delta = flash_attention_bwd_dq_delta_plain(q, k, v, do, want,
+                                                                         want_lse, causal)
+                got = (dq, *flash_attention_bwd_dkdv(q, k, v, do, want_lse, delta, causal))
+                ref = (want_dq, *flash_attention_bwd_dkdv_plain(q, k, v, do, want_lse,
+                                                                want_delta, causal))
                 results = [close(g, w, dtype, BWD_TOL) for g, w in zip(got, ref)]
                 shares = [tol_share(g, w, dtype, BWD_TOL) for g, w in zip(got, ref)]
+                delta_err, delta_ok = close(delta, want_delta, torch.float32)
                 errs["flash_attention_bwd_dq"] = max(errs["flash_attention_bwd_dq"],
                                                      results[0][0])
                 errs["flash_attention_bwd_dkdv"] = max(errs["flash_attention_bwd_dkdv"],
                                                        results[1][0], results[2][0])
                 if dtype == torch.bfloat16:
+                    bf16_share["flash_attention_bwd_dq"] = max(
+                        bf16_share["flash_attention_bwd_dq"], shares[0])
                     bf16_share["flash_attention_bwd_dkdv"] = max(
                         bf16_share["flash_attention_bwd_dkdv"], *shares[1:])
-                ok = all(r[1] for r in results)
+                ok = all(r[1] for r in results) and delta_ok
                 bad += not ok
                 log(f"[check] flash backward {label}: max_abs_err dq={results[0][0]:.3e} "
-                    f"dk={results[1][0]:.3e} dv={results[2][0]:.3e} (share of tol dk="
-                    f"{shares[1]:.3f} dv={shares[2]:.3f}; peak "
+                    f"dk={results[1][0]:.3e} dv={results[2][0]:.3e} (share of tol dq="
+                    f"{shares[0]:.3f} dk={shares[1]:.3f} dv={shares[2]:.3f}; peak "
                     f"{max(w.float().abs().max().item() for w in ref):.3e}) "
-                    f"tol(rtol,atol)={BWD_TOL[dtype]} {'ok' if ok else 'FAIL'}")
+                    f"tol(rtol,atol)={BWD_TOL[dtype]}; delta max_abs_err={delta_err:.3e} "
+                    f"tol={TOL[torch.float32]} {'ok' if ok else 'FAIL'}")
     log(f"[check] {len(flash_cases) * 4} flash cases; largest bf16 error as a share of its "
         f"tolerance: {json.dumps(bf16_share)}")
     return bad
 
 
-KERNEL_CLASSES = (("group_norm_silu", ("gn_partial", "gn_finalize", "gn_apply")),
+def check_group_norm_kernels(gen, dev, errs: dict, path_calls: list) -> int:
+    """GroupNorm (+SiLU) against its plain version: at every (S, C, G) of
+    ``path_calls`` (sampling's UNet and decoder, training's UNet and
+    encoder), in f32 and in each (x, scale) dtype pair the paths give that
+    shape, SiLU on and off, at the sampling and the training batch; then
+    cases that force the plan's other variants: the largest cluster the card
+    co-schedules, the re-read variant, element loads (views one element into
+    their buffers, a C of 12 in bf16) and groups of 5 channels.  Records the
+    largest error in ``errs``; returns the number of failed checks."""
+    from tqdne_tpu_torch.ops.group_norm import (
+        cluster_limit,
+        group_norm_plan,
+        group_norm_silu,
+        group_norm_silu_plain,
+    )
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    limit = cluster_limit(torch.cuda.current_device())
+    pairs = {}
+    for x_dtype, p_dtype, s, c, g, _ in path_calls:
+        pairs.setdefault((s, c, g), {(f32, f32)}).add((x_dtype, p_dtype))
+    cases = [(b, s, c, g, dtype, pdtype, "path") for b in (BATCH, TRAIN_BATCH)
+             for (s, c, g), found in sorted(pairs.items())
+             for dtype, pdtype in sorted(found, key=str)]
+    def takes_largest(s):
+        plan = group_norm_plan(2, s, 64, 32, bf16, bf16, True, limit)
+        return plan.cluster == limit and plan.resident
+
+    # the smallest slab that takes the largest cluster, still resident
+    largest = next((s for s in range(16384, 1 << 18, 1024) if takes_largest(s)), None)
+    if largest is None:
+        fail(f"no GroupNorm shape plans a resident cluster of {limit}")
+    forced = [(2, largest, 64, 32, bf16, bf16, "largest cluster"),
+              (2, 65536, 64, 32, f32, f32, "re-read"),
+              (BATCH, 1024, 128, 32, bf16, bf16, "offset"),
+              (TRAIN_BATCH, 16384, 64, 32, bf16, f32, "offset"),
+              (4, 4096, 64, 32, f32, f32, "offset"),
+              (4, 100, 12, 4, bf16, bf16, "narrow C"),
+              (4, 17, 40, 8, f32, f32, "groups of 5"),
+              (4, 17, 40, 8, bf16, f32, "groups of 5")]
+    errs["group_norm_silu"] = 0.0
+    bad = 0
+    log(f"[check] GroupNorm: clusters of up to {limit} blocks co-schedule on this card")
+    for b, s, c, g, dtype, pdtype, case in cases + forced:
+        n = b * s * c
+        buf = (torch.randn(n + 1, generator=gen, device=dev) * 2 + 0.5).to(dtype)
+        x = buf[1:].view(b, s, c) if case == "offset" else buf[:n].view(b, s, c)
+        plan = group_norm_plan(b, s, c, g, dtype, pdtype, x.data_ptr() % 16 == 0, limit)
+        want_variant = {"largest cluster": plan.cluster == limit and plan.resident,
+                        "re-read": not plan.resident, "offset": plan.vec == 1,
+                        "narrow C": plan.vec == 1}.get(case, True)
+        for silu in (True, False):
+            w = (1 + 0.1 * torch.randn(c, generator=gen, device=dev)).to(pdtype)
+            bias = (0.1 * torch.randn(c, generator=gen, device=dev)).to(pdtype)
+            err, ok = close(group_norm_silu(x, w, bias, g, 1e-5, silu),
+                            group_norm_silu_plain(x, w, bias, g, 1e-5, silu), dtype)
+            ok = ok and want_variant
+            errs["group_norm_silu"] = max(errs["group_norm_silu"], err)
+            bad += not ok
+            log(f"[check] group_norm_silu B={b} S={s} C={c} G={g} x={str(dtype)[6:]} "
+                f"scale={str(pdtype)[6:]} silu={silu} {case}: plan=({plan.slice_channels} ch x "
+                f"{plan.slices}, cluster {plan.cluster} x {plan.chunk_rows} rows, "
+                f"{plan.threads} threads, vec {plan.vec}, resident {plan.resident}, "
+                f"{plan.smem} B) max_abs_err={err:.3e} tol(rtol,atol)={TOL[dtype]} "
+                f"{'ok' if ok else 'FAIL'}")
+    log(f"[check] {2 * len(cases + forced)} GroupNorm cases")
+    return bad
+
+
+KERNEL_CLASSES = (("group_norm_silu", ("group_norm_silu_kernel",)),
                   ("flash_attention", ("flash_fwd",)),
                   ("convolution", ("conv", "xmma", "cudnn", "implicit", "gemm", "cutlass")),
                   ("fft", ("fft",)))
@@ -270,18 +350,21 @@ def profile_breakdown(bundle, cond, gen):
         log("[profile] the profiler recorded no device time: breakdown not measured")
         return
     classes = {name: 0.0 for name, _ in KERNEL_CLASSES} | {"other": 0.0}
+    counts = dict.fromkeys(classes, 0)
     for e in kernels:
         name = next((n for n, keys in KERNEL_CLASSES if any(k in e.key.lower() for k in keys)),
                     "other")
         classes[name] += e.self_device_time_total / 1e3
+        counts[name] += e.count
     log(f"[profile] dpmpp_2m-10 + GL 32, batch {BATCH}: wall {wall_ms:.3f} ms under the "
         f"profiler, device kernels {total_ms:.3f} ms (busy share {total_ms / wall_ms:.3f}); "
-        f"by class (ms): {json.dumps({k: round(v, 3) for k, v in classes.items()})}")
+        f"by class (ms): {json.dumps({k: round(v, 3) for k, v in classes.items()})}; "
+        f"kernels by class: {json.dumps(counts)} (10 UNet evals and one decode)")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} x  {e.key[:110]}")
 
 
-TRAIN_CLASSES = (("group_norm_silu", ("gn_partial", "gn_finalize", "gn_apply")),
+TRAIN_CLASSES = (("group_norm_silu", ("group_norm_silu_kernel",)),
                  ("flash_fwd", ("flash_fwd",)),
                  ("flash_bwd_dkdv", ("flash_bwd_dkdv",)),
                  ("flash_bwd_dq", ("flash_bwd_dq",)),
@@ -385,7 +468,7 @@ def main():
         flash_attention_bwd_dkdv,
         flash_attention_bwd_dkdv_plain,
         flash_attention_bwd_dq,
-        flash_attention_bwd_dq_plain,
+        flash_attention_bwd_dq_delta_plain,
         flash_attention_plain,
     )
     from tqdne_tpu_torch.train.loop import Trainer
@@ -418,10 +501,14 @@ def main():
     cond = torch.randn(BATCH, 5, generator=gen, device=dev)
     gn_calls, fa_calls = [], []
 
-    def gn_hook(mod, args):
-        x = args[0]
-        gn_calls.append((x.dtype, mod.weight.dtype, x[0, 0].numel(), x.shape[1], mod.groups,
+    def gn_recorder(sink):
+        def hook(mod, args):
+            x = args[0]
+            sink.append((x.dtype, mod.weight.dtype, x[0, 0].numel(), x.shape[1], mod.groups,
                          mod.silu))
+        return hook
+
+    gn_hook = gn_recorder(gn_calls)
 
     def fa_hook(mod, args):
         x = args[0]
@@ -443,33 +530,30 @@ def main():
         dec_gn = list(gn_calls)
     for h in hooks:
         h.remove()
+    # the training path's: the bf16 train step's UNet and frozen encoder (no update here)
+    config, state, (train_step, eval_step), ae_t, model_shape, schedule = training_setup(
+        dev, torch.bfloat16)
+    train_gn, enc_gn = [], []
+    hooks = [m.register_forward_pre_hook(gn_recorder(train_gn)) for m in state.model.modules()
+             if isinstance(m, Norm32)]
+    hooks += [m.register_forward_pre_hook(gn_recorder(enc_gn)) for m in ae_t.encoder.modules()
+              if isinstance(m, Norm32)]
+    with torch.no_grad():
+        edm_step_loss(state.model, {"signal": torch.zeros(2, 128, 128, 3, device=dev),
+                                    "cond": torch.zeros(2, 5, device=dev)}, autoencoder=ae_t)
+    for h in hooks:
+        h.remove()
     log(f"[shapes] UNet eval: {len(unet_gn)} GroupNorm calls, {len(unet_fa)} attention calls; "
-        f"decode: {len(dec_gn)} GroupNorm calls")
-    if (len(unet_gn), len(unet_fa)) != (51, 6):
+        f"decode: {len(dec_gn)} GroupNorm calls; train step: {len(train_gn)} UNet and "
+        f"{len(enc_gn)} encoder GroupNorm calls, dtype pairs "
+        f"{sorted({(str(x)[6:], str(p)[6:]) for x, p, *_ in train_gn + enc_gn})}")
+    if (len(unet_gn), len(unet_fa), len(train_gn)) != (51, 6, 51):
         fail(f"expected 45 + 6 GroupNorm and 6 attention calls per UNet eval, got "
-             f"{len(unet_gn)} and {len(unet_fa)}")
+             f"{len(unet_gn)} and {len(unet_fa)} ({len(train_gn)} in training)")
 
     # ---- 2. kernels against their plain versions ------------------------------
-    errs = {"group_norm_silu": 0.0}
-    bad = 0
-    # every (S, C, G) of the path, in f32 and in each (x, scale) dtype pair the
-    # path gives that shape: bf16/bf16 in the UNet, bf16/f32 in the decoder
-    gn_pairs = {}
-    for x_dtype, p_dtype, s, c, g, _ in unet_gn + dec_gn:
-        gn_pairs.setdefault((s, c, g), {(torch.float32, torch.float32)}).add((x_dtype, p_dtype))
-    for (s, c, g), pairs in sorted(gn_pairs.items()):
-        for dtype, pdtype in sorted(pairs, key=str):
-            for silu in (True, False):
-                x = (torch.randn(BATCH, s, c, generator=gen, device=dev) * 2 + 0.5).to(dtype)
-                w = (1 + 0.1 * torch.randn(c, generator=gen, device=dev)).to(pdtype)
-                b = (0.1 * torch.randn(c, generator=gen, device=dev)).to(pdtype)
-                err, ok = close(group_norm_silu(x, w, b, g, 1e-5, silu),
-                                group_norm_silu_plain(x, w, b, g, 1e-5, silu), dtype)
-                errs["group_norm_silu"] = max(errs["group_norm_silu"], err)
-                bad += not ok
-                log(f"[check] group_norm_silu B={BATCH} S={s} C={c} G={g} "
-                    f"x={str(dtype)[6:]} scale={str(pdtype)[6:]} silu={silu}: "
-                    f"max_abs_err={err:.3e} tol(rtol,atol)={TOL[dtype]} {'ok' if ok else 'FAIL'}")
+    errs = {}
+    bad = check_group_norm_kernels(gen, dev, errs, unet_gn + dec_gn + train_gn + enc_gn)
     bad += check_flash_kernels(gen, dev, errs)
     torch.cuda.synchronize()
     if bad:
@@ -566,15 +650,6 @@ def main():
         fail(f"a kernel of the path was never launched: {launches}")
 
     # ---- 4b. the main training path: Trainer.fit, bf16, batch 128 -------------
-    config, state, (train_step, eval_step), ae, model_shape, schedule = training_setup(
-        dev, torch.bfloat16)
-    enc_gn = []
-    hooks = [m.register_forward_pre_hook(lambda mod, args: enc_gn.append(1))
-             for m in ae.encoder.modules() if isinstance(m, Norm32)]
-    with torch.no_grad():
-        ae.encode(torch.zeros(1, 128, 128, 3, device=dev))
-    for h in hooks:
-        h.remove()
     t0 = time.perf_counter()
     dataset = ArrayDataset(synthetic_arrays(TRAIN_SAMPLES, t=config.t, seed=SEED),
                            config.make_representation(), cut=config.t, cond=True, split="full")
@@ -651,8 +726,11 @@ def main():
                     library_ms=device_ms(library, names=names), issue_ms=issue,
                     issue_min_ms=issue_min, library_kernels=sorted(set(names)))
 
-    def gn_row(dtype, pdtype, s, c, g, silu, calls):
-        x = torch.randn(BATCH, s, c, generator=gen, device=dev).to(dtype)
+    def summed(rows, key):  # the kernel's work in one UNet eval (plus one decode) or step
+        return sum((1 if key == "one" else r[key]) * r["calls"] for r in rows)
+
+    def gn_row(dtype, pdtype, s, c, g, silu, calls, batch=BATCH):
+        x = torch.randn(batch, s, c, generator=gen, device=dev).to(dtype)
         w = torch.ones(c, device=dev, dtype=pdtype)
         b = torch.zeros(c, device=dev, dtype=pdtype)
         # torch's group_norm takes the (B, C, S) view and parameters in x's dtype
@@ -661,7 +739,7 @@ def main():
             (lambda: F.group_norm(xt, g, wx, bx, 1e-5))
         nbytes = 2 * x.numel() * x.element_size() + 2 * c * w.element_size()
         return dict(
-            shape=[BATCH, s, c], groups=g, silu=silu, dtype=str(dtype)[6:],
+            shape=[batch, s, c], groups=g, silu=silu, dtype=str(dtype)[6:],
             scale_dtype=str(pdtype)[6:], calls=calls,
             **timed(lambda: group_norm_silu(x, w, b, g, 1e-5, silu),
                     lambda: group_norm_silu_plain(x, w, b, g, 1e-5, silu), lib),
@@ -682,9 +760,17 @@ def main():
 
     gn_rows = [gn_row(*key, calls=unet_gn.count(key)) for key in dict.fromkeys(unet_gn)]
     gn_rows += [gn_row(*key, calls=dec_gn.count(key)) for key in dict.fromkeys(dec_gn)]
+    step_gn = train_gn + enc_gn  # one bf16 train step's GroupNorm calls, at batch 128
+    gn_train_rows = [gn_row(*key, calls=step_gn.count(key), batch=TRAIN_BATCH)
+                     for key in dict.fromkeys(step_gn)]
     fa_rows = [fa_row(*key, calls=unet_fa.count(key)) for key in dict.fromkeys(unet_fa)]
-    for row in gn_rows + fa_rows:
+    for row in gn_rows + gn_train_rows + fa_rows:
         log(f"[time] {json.dumps(row)}")
+    for label, rows in (("one UNet eval and one decode, batch 32", gn_rows),
+                        ("one train step's UNet and encoder, batch 128", gn_train_rows)):
+        log(f"[time] group_norm_silu over {label}: " + json.dumps(
+            {k: summed(rows, k) for k in ("ms", "bound_ms", "plain_ms", "library_ms",
+                                          "issue_ms")} | {"calls": summed(rows, "one")}))
     # for the record (no main-path calls): the forward at the training batch, and at a
     # classifier-like 256 tokens, where the tensor cores first carry real work
     for batch, length, d in ((TRAIN_BATCH, 16, 128), (BATCH, 256, 64)):
@@ -743,21 +829,32 @@ def main():
                         lambda: flash_attention_bwd_dkdv_plain(q, k, v, do, lse, delta, causal),
                         library),
                 **bound(6 * elems * size + rows_bytes, 8 * batch * h * pairs * d, dtype)),
-            # reads q, k, v, dO, lse, delta; writes dQ; products S, dP, dQ
+            # reads q, k, v, dO, O, lse; writes dQ, delta; products S, dP, dQ and dO * O;
+            # attention_delta_ms: the plain delta this kernel replaces, for the record
             "flash_attention_bwd_dq": dict(
                 kernel="flash_attention_bwd_dq", **common,
-                **timed(lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta, causal),
-                        lambda: flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal),
+                **timed(lambda: flash_attention_bwd_dq(q, k, v, do, out, lse, causal),
+                        lambda: flash_attention_bwd_dq_delta_plain(q, k, v, do, out, lse,
+                                                                   causal),
                         library),
-                **bound(5 * elems * size + rows_bytes, 6 * batch * h * pairs * d, dtype)),
+                attention_delta_ms=device_ms(lambda: attention_delta(do, out)),
+                **bound(6 * elems * size + rows_bytes, 6 * batch * h * pairs * d + 2 * elems,
+                        dtype)),
         }
 
     bwd = [bwd_rows(*key, calls=unet_fa.count(key)) for key in dict.fromkeys(unet_fa)]
     for row in bwd:
         for r in row.values():
             log(f"[time] {json.dumps(r)}")
+    for row in bwd:
+        dq_row, dkdv_row = row["flash_attention_bwd_dq"], row["flash_attention_bwd_dkdv"]
+        log(f"[time] flash backward {dq_row['shape']}: dQ + dK/dV "
+            f"{1e3 * (dq_row['ms'] + dkdv_row['ms']):.2f} us against SDPA's whole backward "
+            f"{1e3 * dq_row['library_ms']:.2f} us; the plain attention_delta alone "
+            f"{1e3 * dq_row['attention_delta_ms']:.2f} us")
     classifier_like = bwd_rows(torch.bfloat16, 256, 4, 64, False, 0, batch=BATCH)
-    log(f"[time] {json.dumps(classifier_like['flash_attention_bwd_dkdv'])}")  # for the record
+    for r in classifier_like.values():  # for the record
+        log(f"[time] {json.dumps(r)}")
 
     big = next(iter(BatchLoader(dataset, 2 * TRAIN_BATCH, device=dev, keys=("signal", "cond"),
                                 prefetch=0)))
@@ -771,9 +868,6 @@ def main():
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if not math.isfinite(big_loss):
         fail("the batch-256 train step gave a non-finite loss")
-
-    def summed(rows, key):  # the kernel's work in one UNet eval (plus one decode) or step
-        return sum(r[key] * r["calls"] for r in rows)
 
     kernels = []
     for name, rows, source, replaces in (
@@ -811,9 +905,17 @@ def main():
                 f"SDPA backward, which computes dq, dk and dv together",
             launches_per_run={"train": train_counts[name]},
         ))
-    for entry in kernels:  # the kernels rebuilt on the tensor cores
-        if entry["name"] in ("flash_attention", "flash_attention_bwd_dkdv"):
-            entry["redesigned"] = "bf16 tensor cores (mma.sync m16n8k16); FMA loops in f32"
+    redesigned = {
+        "group_norm_silu": "one launch: a thread-block cluster over row chunks of whole-group "
+                           "channel slices, each chunk staged once with 16-byte loads, "
+                           "statistics merged through distributed shared memory",
+        "flash_attention": "bf16 tensor cores (mma.sync m16n8k16); FMA loops in f32",
+        "flash_attention_bwd_dkdv": "bf16 tensor cores (mma.sync m16n8k16); FMA loops in f32",
+        "flash_attention_bwd_dq": "bf16 tensor cores (mma.sync m16n8k16) with delta = "
+                                  "rowsum(dO * O) folded in; FMA loops in f32",
+    }
+    for entry in kernels:
+        entry["redesigned"] = redesigned[entry["name"]]
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)

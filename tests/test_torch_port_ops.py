@@ -131,14 +131,15 @@ def test_flash_attention_gradients_match_jax_kernels(rng, l, h, d, causal):
 
 
 def test_flash_backward_wrappers_match_autograd_of_the_einsum(rng):
-    """The two backward wrappers, called directly with the forward's lse and
-    delta = rowsum(dO * O), equal autograd through the plain einsum forward."""
+    """The two backward wrappers, called directly with the forward's output
+    and lse (dQ first, which also returns delta = rowsum(dO * O)), equal
+    autograd through the plain einsum forward."""
     q, k, v, g = (torch.from_numpy(rng.standard_normal((2, 20, 2, 16)).astype(np.float32))
                   for _ in range(4))
     out, lse = flash_attention(q, k, v, True, return_lse=True)
-    delta = attention_delta(g, out)
+    dq, delta = flash_attention_bwd_dq(q, k, v, g, out, lse, True)
+    torch.testing.assert_close(delta, attention_delta(g, out), rtol=0, atol=0)
     dk, dv = flash_attention_bwd_dkdv(q, k, v, g, lse, delta, True)
-    dq = flash_attention_bwd_dq(q, k, v, g, lse, delta, True)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     want = torch.autograd.grad(flash_attention_plain(*leaves, True), leaves, g)
     for got, w in zip((dq, dk, dv), want):
@@ -275,7 +276,8 @@ def _imports(path: Path):
 
 
 def test_port_imports_no_jax():
-    files = sorted((ROOT / "tqdne_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "tqdne_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                ROOT / "chip_ab.py"]
     assert len(files) > 10
     banned = []
     for path in files:

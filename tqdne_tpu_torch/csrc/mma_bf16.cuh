@@ -1,10 +1,11 @@
 // Building blocks of the bf16 tensor-core flash kernels (flash_attention.cu and
 // flash_attention_bwd.cu): 16-byte cp.async staging of strided (B, L, H, D) operands with
 // zero fill, ldmatrix fragment loads, the m16n8k16 bf16 mma with f32 accumulators, and the
-// hi/lo split that turns an f32 accumulator tile into bf16 A fragments.
+// hi/lo split that turns an f32 accumulator tile into bf16 A fragments.  group_norm.cu takes
+// its cp.async and device helpers.
 //
-// Tiling shared by both kernels: a block is 4 warps, and each warp owns one 16-row tile (16
-// queries in the forward, 16 keys in the dK/dV backward) of one batch*head.  A "stage" is 64
+// Tiling shared by the flash kernels: a block is 4 warps, and each warp owns one 16-row tile
+// (16 queries in the forward and dQ, 16 keys in dK/dV) of one batch*head.  A "stage" is 64
 // rows of one operand in shared memory: with WPH warps per head it holds HPB = 4 / WPH heads
 // of ROWS = 16 * WPH consecutive positions each.  WPH = 1 serves L <= 16 (the UNet's 16 tokens:
 // four heads a block, one tile each), WPH = 4 longer sequences (four warps share each staged

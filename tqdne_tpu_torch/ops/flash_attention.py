@@ -6,20 +6,21 @@
 an optional causal mask and, on request, the per-row base-2 log-sum-exp (as a
 ``(B, H, L)`` float32 tensor).  It is a ``torch.autograd.Function``, as the
 JAX function is a ``custom_vjp``: the forward saves q, k, v, the output and
-the lse; the backward computes delta = rowsum(dO * O) in f32 and then dK, dV
-and dQ from the saved lse.
+the lse; the backward first forms dQ and delta = rowsum(dO * O) in f32 (one
+call), then dK and dV from the saved lse and that delta.
 
 - On CUDA tensors each of the three launches a hand-written kernel, or
   raises: the forward ``csrc/flash_attention.cu`` (replaces
   ``tqdne_tpu/ops/flash_attention.py:_attention_kernel``), the backward
-  ``csrc/flash_attention_bwd.cu`` (replaces ``_bwd_dkdv_kernel`` and
-  ``_bwd_dq_kernel``).  The sources say what bounds each and how it is built.
-  In bf16 the forward and dK/dV run on the tensor cores, in variants that
-  ``tensor_core_plan`` picks from the shapes, strides and pointers; in f32
-  they, and dQ in both dtypes, run FMA loops.
+  ``csrc/flash_attention_bwd.cu`` (replaces ``_bwd_dq_kernel``, with the
+  delta the JAX package computes beside it, and ``_bwd_dkdv_kernel``).  The
+  sources say what bounds each and how it is built.  In bf16 all three run
+  on the tensor cores, in variants that ``tensor_core_plan`` picks from the
+  shapes, strides and pointers; in f32 they run FMA loops.
 - On CPU tensors they run the plain versions: ``flash_attention_plain`` (the
   einsum of ``tqdne_tpu/nn/attention.py:qkv_attention``),
-  ``flash_attention_bwd_dkdv_plain`` and ``flash_attention_bwd_dq_plain``.
+  ``flash_attention_bwd_dq_delta_plain`` (``attention_delta``, then
+  ``flash_attention_bwd_dq_plain``) and ``flash_attention_bwd_dkdv_plain``.
 
 ``flash_attention.launches``, ``flash_attention_bwd_dkdv.launches`` and
 ``flash_attention_bwd_dq.launches`` count kernel launches.
@@ -126,7 +127,7 @@ def _check(name: str, *tensors):
 
 
 def _check_rows(name: str, q, *rows):
-    """lse and delta: contiguous (B, H, L) float32 on q's device."""
+    """lse (and delta): contiguous (B, H, L) float32 on q's device."""
     b, length, h, _ = q.shape
     for t in rows:
         if t.shape != (b, h, length) or t.dtype != torch.float32 or t.device != q.device \
@@ -233,26 +234,36 @@ def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal: bool = False):
     return dk, dv
 
 
-def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False):
-    """dQ over (B, L, H, D) from the saved base-2 lse and delta; input dtype."""
+def flash_attention_bwd_dq(q, k, v, do, out, lse, causal: bool = False):
+    """(dQ, delta) over (B, L, H, D) from the forward's output and base-2
+    lse: one kernel forms delta = rowsum(dO * O) as the (B, H, L) float32 rows
+    that ``flash_attention_bwd_dkdv`` reads, and dQ in the input dtype."""
     if not _on_device("flash_attention_bwd_dq", q):
-        return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal)
-    _check("flash_attention_bwd_dq", q, k, v, do)
-    _check_rows("flash_attention_bwd_dq", q, lse, delta)
+        return flash_attention_bwd_dq_delta_plain(q, k, v, do, out, lse, causal)
+    _check("flash_attention_bwd_dq", q, k, v, do, out)
+    _check_rows("flash_attention_bwd_dq", q, lse)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    err = _kernel("flash_attention_bwd", "tq_flash_attention_bwd_dq", 7, 12)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), *_launch_args(q), *_strides(q, k, v, do),
-        _prescale(q.shape[-1]), int(causal), *_stream(q))
+    delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
+    strides = _strides(q, k, v, do, out)
+    err = _kernel("flash_attention_bwd", "tq_flash_attention_bwd_dq", 8, 15, 3)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), *_launch_args(q), *strides, _prescale(q.shape[-1]),
+        int(causal), *_stream(q), *_plan(strides, q, k, v, do, out))
     if err:
         raise RuntimeError(f"flash_attention_bwd_dq: kernel launch failed with CUDA error {err}")
     flash_attention_bwd_dq.launches += 1
-    return dq
+    return dq, delta
 
 
 def attention_delta(do, out):
     """delta = rowsum(dO * O) in f32, as the (B, H, L) rows the backward reads."""
     return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_dq_delta_plain(q, k, v, do, out, lse, causal: bool = False):
+    """The plain version of ``flash_attention_bwd_dq``: delta, then dQ."""
+    delta = attention_delta(do, out)
+    return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal), delta
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -269,9 +280,8 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         if grad.stride(-1) != 1:
             grad = grad.contiguous()
-        delta = attention_delta(grad, out)
+        dq, delta = flash_attention_bwd_dq(q, k, v, grad, out, lse, ctx.causal)
         dk, dv = flash_attention_bwd_dkdv(q, k, v, grad, lse, delta, ctx.causal)
-        dq = flash_attention_bwd_dq(q, k, v, grad, lse, delta, ctx.causal)
         return dq, dk, dv, None
 
 

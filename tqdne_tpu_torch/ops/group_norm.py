@@ -6,7 +6,9 @@ statistics with eps inside the rsqrt, output cast back to the input dtype.
 
 - On a CUDA tensor it launches the hand-written kernel in
   ``csrc/group_norm.cu`` (replaces ``tqdne_tpu/ops/group_norm.py:_gn_silu_kernel``;
-  bytes bound it, see the source for the design), or raises.
+  bytes bound it, see the source for the design), or raises: one launch a
+  call, in the variant ``group_norm_plan`` picks from the shape, the dtypes
+  and the alignment, and no scratch memory.
 - On a CPU tensor it runs ``group_norm_silu_plain``, the two-pass PyTorch
   version of the JAX module's ``_reference``.
 
@@ -21,6 +23,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -29,10 +33,16 @@ from tqdne_tpu_torch.ops import cuda_build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # (x, scale/bias) dtype pairs the kernel is built for: the f32 models, the
-# bf16 UNet with its norms cast, and bf16 decoder activations with f32 norms
+# bf16 UNet with its norms cast, and bf16 activations with f32 norms
 _DTYPE_PAIRS = {(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
                 (torch.bfloat16, torch.float32)}
-_ROWS_PER_THREAD = 16  # rows of one channel each thread reduces and normalises
+MAX_SMEM = 232448  # bytes of shared memory a block may use on sm_90 (227 KB)
+MAX_CLUSTER = 16  # blocks of a thread-block cluster, non-portable above 8
+TARGET_CHUNK = 64 * 1024  # bytes of x a block stages: two or three blocks an SM
+MIN_SEGMENT = 64  # bytes of a row a slice reads at least: two full 32-byte sectors
+THREADS = 256  # a block's threads, more only where a slice has more vector columns
+SMS = 132  # streaming multiprocessors of an H100 SXM
+BLOCKS = 2 * SMS  # slices stay narrow while fewer blocks would run
 
 
 def group_norm_silu_plain(x, scale, bias, groups: int = 32, eps: float = 1e-5,
@@ -50,22 +60,124 @@ def group_norm_silu_plain(x, scale, bias, groups: int = 32, eps: float = 1e-5,
     return out.reshape(shape).to(x.dtype)
 
 
+class GroupNormPlan(NamedTuple):
+    """The launch variant of the GroupNorm kernel (``csrc/group_norm.cu``).
+
+    - ``slice_channels``: channels a block owns (whole groups); ``slices``
+      = C / slice_channels;
+    - ``cluster``: blocks of one (sample, slice), each ``chunk_rows`` rows;
+    - ``rows_per_pass``: threads that share a vector column; a block has
+      rows_per_pass * slice_channels / vec of them at work, ``threads`` in
+      all (a multiple of 32);
+    - ``vec``: elements a thread loads at once, 16 bytes' worth where x, y
+      and C are 16-byte aligned, else 1;
+    - ``resident``: the chunk stays in shared memory (x read from HBM once);
+      else every pass reads it again, from L2;
+    - ``smem``: bytes of dynamic shared memory a block uses.
+    """
+
+    slice_channels: int
+    slices: int
+    cluster: int
+    chunk_rows: int
+    rows_per_pass: int
+    threads: int
+    vec: int
+    resident: bool
+    smem: int
+
+
+def _smem(esize, vec, cs, gsize, chunk_rows, rpp, threads, cluster, resident):
+    """``smem_bytes`` of ``csrc/group_norm.cu``: the staged chunk, the
+    partial sums (one row of cs a warp where the lanes of a column fold by
+    shuffles, else one a row slot), channel totals, and 5 + 3 * cluster
+    floats a group."""
+    stage = -(-chunk_rows * cs * esize // 16) * 16 if resident else 0
+    red_rows = threads // 32 if 32 % (cs // vec) == 0 else rpp
+    return stage + 4 * (red_rows * cs + cs + (5 + 3 * cluster) * (cs // gsize))
+
+
+def _threads(cs, vec, chunk_rows):
+    """(rows_per_pass, threads) of a block over chunks of ``chunk_rows``."""
+    rpp = max(1, min(THREADS // (cs // vec), chunk_rows))
+    return rpp, -(-rpp * (cs // vec) // 32) * 32
+
+
+@functools.cache
+def group_norm_plan(b: int, s: int, c: int, g: int, x_dtype, p_dtype, aligned: bool,
+                    max_cluster: int = MAX_CLUSTER) -> GroupNormPlan:
+    """The kernel's variant for a (B, S, C) call with G groups.
+
+    A slice is the fewest whole groups that read ``MIN_SEGMENT`` bytes of a
+    row, widened while each (sample, slice) stays under ``TARGET_CHUNK``
+    bytes and at least ``BLOCKS`` slices remain.  The rows of a slice split
+    into a cluster of chunks of about ``TARGET_CHUNK`` bytes, or more where
+    fewer blocks than SMs would run, up to ``max_cluster`` blocks (the
+    largest cluster the card co-schedules); where a chunk would still not
+    fit in shared memory it is read again from L2 instead of staged
+    (``resident`` False).
+    """
+    if (x_dtype, p_dtype) not in _DTYPE_PAIRS:
+        raise TypeError(f"group_norm_silu: unsupported dtypes {x_dtype}, {p_dtype}")
+    if c % g or s < 1 or b < 1:
+        raise ValueError(f"group_norm_silu: unsupported shape {(b, s, c)} with {g} groups")
+    esize = 4 if x_dtype == torch.float32 else 2
+    vec = 16 // esize if aligned and c * esize % 16 == 0 else 1
+    gsize = c // g
+    unit = math.lcm(gsize, vec)
+    widths = [w for w in range(unit, c + 1, unit) if c % w == 0]
+    cs = next((w for w in widths if w * esize >= MIN_SEGMENT), widths[-1])
+    for w in widths:
+        if w > cs and s * w * esize <= TARGET_CHUNK and b * (c // w) >= BLOCKS \
+                and w // vec <= THREADS:
+            cs = w
+    slab = s * cs * esize
+
+    def fits(cluster):
+        rows = -(-s // cluster)
+        return _smem(esize, vec, cs, gsize, rows, *_threads(cs, vec, rows), cluster,
+                     True) <= MAX_SMEM
+
+    # chunks of about TARGET_CHUNK bytes, and at least one block for each of 132 SMs
+    want = max(-(-slab // TARGET_CHUNK), -(-SMS // (b * (c // cs))))
+    cluster = max(1, min(want, max_cluster, s))
+    while not fits(cluster) and cluster < min(max_cluster, s):
+        cluster += 1
+    resident = fits(cluster)
+    chunk_rows = -(-s // cluster)
+    cluster = -(-s // chunk_rows)  # no block without rows
+    rpp, threads = _threads(cs, vec, chunk_rows)
+    return GroupNormPlan(cs, c // cs, cluster, chunk_rows, rpp, threads, vec, resident,
+                         _smem(esize, vec, cs, gsize, chunk_rows, rpp, threads, cluster,
+                               resident))
+
+
 @functools.cache
 def _lib():
     lib = cuda_build.load("group_norm")
     fn = lib.tq_group_norm_silu
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float] + \
-        [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float] + \
+        [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def cluster_limit(device: int) -> int:
+    """The largest cluster (up to 16 blocks of 512 threads and 227 KB of shared memory)
+    that the card co-schedules, read once per device."""
+    limit = ctypes.c_int(0)
+    err = cuda_build.load("group_norm").tq_group_norm_cluster_limit(
+        ctypes.c_int(device), ctypes.byref(limit))
+    if err or limit.value < 1:
+        raise RuntimeError(f"group_norm_silu: no cluster co-schedules (CUDA error {err})")
+    return limit.value
 
 
 def _launch(x, scale, bias, groups: int, eps: float, apply_silu: bool):
     shape = x.shape
     b, c = shape[0], shape[-1]
     s = x.numel() // (b * c) if b * c else 0
-    if (x.dtype, scale.dtype) not in _DTYPE_PAIRS:
-        raise TypeError(f"group_norm_silu: unsupported dtypes {x.dtype}, {scale.dtype}")
     if scale.dtype != bias.dtype or scale.shape != (c,) or bias.shape != (c,):
         raise ValueError("group_norm_silu: scale and bias must be (C,) of one dtype")
     if scale.device != x.device or bias.device != x.device:
@@ -74,17 +186,16 @@ def _launch(x, scale, bias, groups: int, eps: float, apply_silu: bool):
         raise ValueError("group_norm_silu: inputs must be contiguous")
     if c % groups or c > 1024 or s < 1:
         raise ValueError(f"group_norm_silu: unsupported shape {tuple(shape)} with {groups} groups")
-    rows_per_iter = max(1, 256 // c)
-    rows_per_chunk = rows_per_iter * _ROWS_PER_THREAD
-    nchunks = -(-s // rows_per_chunk)
+    device = x.device.index or 0
+    plan = group_norm_plan(b, s, c, groups, x.dtype, scale.dtype, x.data_ptr() % 16 == 0,
+                           cluster_limit(device))
     out = torch.empty_like(x)
-    partial = torch.empty(b * nchunks * groups * 3, dtype=torch.float32, device=x.device)
-    stats = torch.empty(b * groups * 2, dtype=torch.float32, device=x.device)
     err = _lib()(
-        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), partial.data_ptr(),
-        stats.data_ptr(), _DTYPE_CODES[x.dtype], _DTYPE_CODES[scale.dtype], b, s, c, groups,
-        eps, int(apply_silu), rows_per_iter, rows_per_chunk, x.device.index or 0,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        _DTYPE_CODES[x.dtype], _DTYPE_CODES[scale.dtype], b, s, c, groups, eps,
+        int(apply_silu), plan.slice_channels, plan.cluster, plan.chunk_rows,
+        plan.rows_per_pass, plan.threads, plan.vec, int(plan.resident), device,
+        torch._C._cuda_getCurrentRawStream(device),
     )
     if err:
         raise RuntimeError(f"group_norm_silu: kernel launch failed with CUDA error {err}")
