@@ -7,39 +7,47 @@ Phases (any failure exits non-zero and prints no result line):
 1. build the three CUDA sources of ``tqdne_tpu_torch/csrc`` (one nvcc each,
    in parallel);
 2. hold each kernel against its plain PyTorch version on the card: GroupNorm
-   (+SiLU) at every (S, C) that sampling's UNet and decoder and training's
-   UNet and encoder give it, in f32 and in each (x, scale) dtype pair the
-   bf16 paths give that shape, SiLU on and off, at batch 32 and 128, and in
-   cases that force the launch plan's other variants (the largest cluster
-   the card co-schedules, chunks re-read from L2, element loads, groups of 5
-   channels); the flash forward (output and base-2 log-sum-exp) and the two
-   flash backward kernels (dQ with delta = rowsum(dO * O), then dK/dV with
-   that delta), f32 and bf16, causal and not, at the main paths'
-   (32, 16, 4, 128) and (128, 16, 4, 128), at every L in (16, 17, 100, 256,
-   508) x D in (32, 64, 128) with q, k and v as strided views of one fused
-   (B, L, 3, H, D) projection, and at the variants the bf16 tensor-core
-   kernels take for other layouts: D = 40 (zero-padded to its head block of
-   64), D = 12 (2-byte loads and stores) and views one element into their
-   buffers (2-byte loads);
+   (+SiLU) at every (S, C) that sampling's UNet and decoder, training's UNet
+   and encoder and the evaluation classifier's encoder give it, in f32 and in
+   each (x, scale) dtype pair the bf16 paths give that shape, SiLU on and
+   off, at batch 32 and 128, and in cases that force the launch plan's other
+   variants (the largest cluster the card co-schedules, chunks re-read from
+   L2, element loads, groups of 5 channels); the flash forward (output and
+   base-2 log-sum-exp) and the two flash backward kernels (dQ with delta =
+   rowsum(dO * O), then dK/dV with that delta), f32 and bf16, causal and not,
+   at the main paths' (32, 16, 4, 128), (128, 16, 4, 128) and the
+   classifier's (32, 256, 4, 64), at every L in (16, 17, 100, 256, 508) x D in
+   (32, 64, 128) with q, k and v as strided views of one fused (B, L, 3, H, D)
+   projection, and at the variants the bf16 tensor-core kernels take for
+   other layouts: D = 40 (zero-padded to its head block of 64), D = 12 (2-byte
+   loads and stores) and views one element into their buffers (2-byte loads);
 3. full-width flagship sampling in f32, 2 Heun steps, once through the
    kernels and once through the plain versions: the decoded spectrograms
-   must agree (TF32 off); then one full-width f32 training step (frozen
+   must agree (TF32 off); the full-width f32 classifier the same way (its
+   embeddings and logits); then one full-width f32 training step (frozen
    encoder, EDM loss, backward) with the same injected draws both ways: the
    loss and every parameter gradient must agree;
 4. the main paths, each with the launch counters set to 0 just before it and
    read just after: sampling (``build_inference`` + ``generate`` at full width
    in bf16, batch 32, Heun-25 then dpmpp_2m-10, each with 32 Griffin-Lim
    iterations, seeded random weights; waveforms must be finite
-   (32, 3, 4064)), and training (``Trainer.fit`` through ``BatchLoader`` over
+   (32, 3, 4064)), training (``Trainer.fit`` through ``BatchLoader`` over
    in-memory synthetic waveforms, bf16 compute over f32 parameters, batch
-   128, 30 steps; the loss must be finite); the counts must be exact;
+   128, 30 steps; the loss must be finite), serving (the HTTP server of
+   ``tqdne_tpu_torch.serving`` on loopback over the dpmpp_2m-10 bundle: rounds
+   of concurrent requests, a seeded request twice bit-identical and another
+   seed different, coalescing) and evaluation (two ``evaluate_batch`` calls
+   at the evaluate CLI's Heun-25 and Griffin-Lim 128 with the full-width
+   bf16 classifier, then ``report_from_arrays``: FID, IS and ASD finite); the
+   counts must be exact;
 5. timings on the card: each kernel at the main paths' shapes beside its
    bound, its plain version and a PyTorch yardstick call (and, for the
-   record, the bf16 flash forward at (128, 16, 4, 128) and the forward and
-   backward at a classifier-like (32, 256, 4, 64)), GroupNorm per UNet eval
-   and per train step, end-to-end
-   waveforms/s and training samples/s, a profiled sampling run and a profiled
-   train step by kernel class, and one train step at the recipe's batch 256.
+   record, the bf16 flash forward at (128, 16, 4, 128)), GroupNorm per UNet
+   eval, per train step and per classifier forward, end-to-end waveforms/s
+   (through the server too, with request latencies and one round of JSON
+   responses) and training samples/s, a profiled sampling run, a profiled
+   classifier forward and a profiled train step by kernel class, and one
+   train step at the recipe's batch 256.
 
 Prints the card's name and power limit and a ``{"kernels": [...]}`` line,
 then, last, ``{"ok": true, "device": {...}}``.
@@ -47,6 +55,7 @@ then, last, ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
@@ -54,6 +63,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -67,6 +77,11 @@ TRAIN_BATCH = 128  # the training benchmark's batch (bench_train.py)
 TRAIN_STEPS = 30
 TRAIN_E2E_RUNS, TRAIN_E2E_STEPS = 3, 8  # timed train_step windows for [train-e2e]
 TRAIN_SAMPLES = 512  # synthetic waveforms in memory: 4 batches per epoch
+SERVE_CLIENTS, SERVE_ROWS, SERVE_ROUNDS = 16, 4, 3  # concurrent requests of 4 rows, 3 rounds
+SERVE_DELAY_MS = 15.0  # the serve CLI's micro-batching window
+SERVE_FULL_CLIENTS, SERVE_FULL_ROUNDS = 4, 2  # concurrent requests of a full batch, 2 rounds
+EVAL_BATCHES = 2  # evaluate_batch calls at batch 32 (Heun-25, Griffin-Lim 128)
+CLASSIFIER_SEED = SEED + 2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor / f32 vector
 GN_OPS_PER_ELEM = {True: 10, False: 7}  # moments 2, normalise+affine 4 (+1 store), SiLU 3
@@ -204,7 +219,8 @@ def check_flash_kernels(gen, dev, errs: dict) -> int:
     bad = 0
     bf16_share = {"flash_attention": 0.0, "flash_attention_bwd_dkdv": 0.0,
                   "flash_attention_bwd_dq": 0.0}
-    flash_cases = [(BATCH, 16, 4, 128, "separate"), (TRAIN_BATCH, 16, 4, 128, "fused")]
+    flash_cases = [(BATCH, 16, 4, 128, "separate"), (TRAIN_BATCH, 16, 4, 128, "fused"),
+                   (BATCH, 256, 4, 64, "fused")]
     flash_cases += [(4, length, 4, d, "fused") for length in (16, 17, 100, 256, 508)
                     for d in (32, 64, 128)]
     flash_cases += [(4, 100, 4, 40, "fused"), (4, 17, 2, 12, "fused"), (4, 100, 2, 64, "offset")]
@@ -335,20 +351,20 @@ KERNEL_CLASSES = (("group_norm_silu", ("group_norm_silu_kernel",)),
                   ("fft", ("fft",)))
 
 
-def profile_breakdown(bundle, cond, gen):
-    """Device time of one generate() by kernel class, from torch.profiler."""
+def profile_breakdown(fn, label: str, tag: str = "profile") -> dict | None:
+    """Device time of one ``fn()`` by kernel class, from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        bundle.generate(cond, generator=gen)
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels = device_kernels(prof)
     total_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if not total_ms:
-        log("[profile] the profiler recorded no device time: breakdown not measured")
-        return
+        log(f"[{tag}] the profiler recorded no device time: breakdown not measured")
+        return None
     classes = {name: 0.0 for name, _ in KERNEL_CLASSES} | {"other": 0.0}
     counts = dict.fromkeys(classes, 0)
     for e in kernels:
@@ -356,12 +372,13 @@ def profile_breakdown(bundle, cond, gen):
                     "other")
         classes[name] += e.self_device_time_total / 1e3
         counts[name] += e.count
-    log(f"[profile] dpmpp_2m-10 + GL 32, batch {BATCH}: wall {wall_ms:.3f} ms under the "
-        f"profiler, device kernels {total_ms:.3f} ms (busy share {total_ms / wall_ms:.3f}); "
-        f"by class (ms): {json.dumps({k: round(v, 3) for k, v in classes.items()})}; "
-        f"kernels by class: {json.dumps(counts)} (10 UNet evals and one decode)")
+    log(f"[{tag}] {label}: wall {wall_ms:.3f} ms under the profiler, device kernels "
+        f"{total_ms:.3f} ms (busy share {total_ms / wall_ms:.3f}); by class (ms): "
+        f"{json.dumps({k: round(v, 3) for k, v in classes.items()})}; kernels by class: "
+        f"{json.dumps(counts)}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} x  {e.key[:110]}")
+        log(f"[{tag}]   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} x  {e.key[:110]}")
+    return dict(wall_ms=wall_ms, device_ms=total_ms, busy_share=total_ms / wall_ms, **classes)
 
 
 TRAIN_CLASSES = (("group_norm_silu", ("group_norm_silu_kernel",)),
@@ -426,6 +443,296 @@ def train_profile(step, label: str):
     return dict(wall_ms=wall_ms, device_ms=total_ms, busy_share=total_ms / wall_ms, **classes)
 
 
+@contextlib.contextmanager
+def plain_versions():
+    """Run the models' GroupNorm and attention through the plain versions."""
+    from tqdne_tpu_torch.nn import attention as attention_mod
+    from tqdne_tpu_torch.nn import layers as layers_mod
+    from tqdne_tpu_torch.ops.flash_attention import flash_attention_plain
+    from tqdne_tpu_torch.ops.group_norm import group_norm_silu_plain
+
+    saved = layers_mod.group_norm_silu, attention_mod.flash_attention
+    layers_mod.group_norm_silu, attention_mod.flash_attention = (group_norm_silu_plain,
+                                                                 flash_attention_plain)
+    try:
+        yield
+    finally:
+        layers_mod.group_norm_silu, attention_mod.flash_attention = saved
+
+
+def post(url: str, payload: dict) -> tuple[int, dict, float]:
+    """(status, JSON body, seconds) of one POST."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            status, body = r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        status, body = e.code, json.loads(e.read())
+    return status, body, time.perf_counter() - t0
+
+
+def waveforms_of(status: int, body: dict):
+    """The waveforms of a /generate reply, b64 or JSON, as numpy."""
+    import base64
+
+    import numpy as np
+
+    if status != 200:
+        fail(f"/generate answered {status}: {body}")
+    if "waveforms_b64" in body:
+        return np.frombuffer(base64.b64decode(body["waveforms_b64"]), "<f4").reshape(body["shape"])
+    return np.array(body["waveforms"], np.float32)
+
+
+def serve_round(url: str, rows: list, fmt: str, clients: int, per_request: int) -> dict:
+    """``clients`` concurrent requests of ``per_request`` rows each: the
+    round's rows, wall seconds and waveforms/s, and each request's latency."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    payloads = [{"conditions": [rows[(per_request * i + j) % len(rows)]
+                                for j in range(per_request)],
+                 "format": fmt} for i in range(clients)]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(clients) as pool:
+        replies = list(pool.map(lambda p: post(url, p), payloads))
+    wall = time.perf_counter() - t0
+    for status, body, _ in replies:
+        wave = waveforms_of(status, body)
+        if wave.shape != (per_request, 3, 4064) or not np.isfinite(wave).all():
+            fail(f"served waveforms {wave.shape}, finite {bool(np.isfinite(wave).all())}")
+    rows_done = clients * per_request
+    return dict(format=fmt, rows=rows_done, seconds=wall, waveforms_per_s=rows_done / wall,
+                latencies=[r[2] for r in replies])
+
+
+def percentile(values, q: float) -> float:
+    values = sorted(values)
+    return values[min(len(values) - 1, max(0, math.ceil(q * len(values)) - 1))]
+
+
+def serve_split(label: str, rounds: list, batches: int, issue: list, gen_issue: float,
+                gen_total: float):
+    """Split the gap between ``generate``'s rate and the server's over
+    ``rounds`` into four measured factors whose product it is: batch fill
+    (BATCH over rows a batch), the device owner's slow-down (its seconds
+    issuing a batch in the server over ``generate``'s issue seconds alone),
+    the device tail a synchronised ``generate`` waits for (its issue over its
+    total seconds) and the device owner's idle share (1 over the share of the
+    window it spends issuing)."""
+    rows, wall = sum(r["rows"] for r in rounds), sum(r["seconds"] for r in rounds)
+    issue_mean, busy = sum(issue) / len(issue), sum(issue) / wall
+    factors = dict(fill=BATCH * batches / rows, owner_slowdown=issue_mean / gen_issue,
+                   device_tail=gen_issue / gen_total, owner_idle=1 / busy)
+    log(f"[serve-split] {label}: {rows / wall:.2f} waveforms/s ({rows} rows over "
+        f"{wall:.4f} s), {rows / batches:.2f} rows a batch of {BATCH} ({batches} batches); "
+        f"device owner issues a batch in {issue_mean:.4f} s (generate alone {gen_issue:.4f} s "
+        f"issue, {gen_total:.4f} s with its device tail) and is busy {busy:.3f} of the "
+        f"window; generate / server {(BATCH / gen_total) / (rows / wall):.3f} = "
+        + " x ".join(f"{k} {v:.3f}" for k, v in factors.items()))
+
+
+def serve_path(bundle, per_batch: tuple[int, int]) -> tuple[int, int]:
+    """The serving path: the HTTP server on loopback over ``bundle``, warmed
+    up as the serve CLI does, then, with the launch counters set to 0 just
+    before and read just after: SERVE_ROUNDS rounds of SERVE_CLIENTS
+    concurrent b64 requests (rows of ``examples/demo_conditioning.csv``,
+    normalised by the server as the CLI does), SERVE_FULL_ROUNDS rounds of
+    SERVE_FULL_CLIENTS requests of a full batch each, one seeded request
+    twice plus another seed, and two unseeded requests queued together so
+    that they share one batch.  Then one JSON round and ``bundle.generate``'s
+    rate in the same process.  The seeded and the coalesced rows must equal,
+    bit for bit, a direct ``bundle.sampler`` call at the same seed on the
+    card.  ``per_batch``: the (GroupNorm, flash) launches of one device
+    batch.  Returns the counted launches."""
+    from argparse import Namespace
+
+    import numpy as np
+
+    from tqdne_tpu_torch import serving
+    from tqdne_tpu_torch.cli.generate_waveforms import normalize, read_conditioning
+    from tqdne_tpu_torch.ops.flash_attention import flash_attention
+    from tqdne_tpu_torch.ops.group_norm import group_norm_silu
+    from tqdne_tpu_torch.utils import fold_seed
+
+    csv = Path(__file__).resolve().parent / "examples" / "demo_conditioning.csv"
+    rows = read_conditioning(Namespace(csv=str(csv))).tolist()
+    batcher = serving.Microbatcher.from_bundle(bundle, BATCH, max_delay_ms=SERVE_DELAY_MS)
+    batcher.generate(np.zeros((1, len(serving.FEATURES)), np.float32), seed=0)  # warm-up
+    issue, run_fn = [], batcher.run_fn  # the device owner's seconds in run, per batch
+
+    def timed_run(seed, cond):
+        t0 = time.perf_counter()
+        out = run_fn(seed, cond)
+        issue.append(time.perf_counter() - t0)
+        return out
+
+    batcher.run_fn = timed_run
+    server = serving.make_server(batcher, normalize, {"config": "latent_edm"}, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/generate"
+    pair = [normalize(np.array(rows[i * SERVE_ROWS:(i + 1) * SERVE_ROWS])).astype(np.float32)
+            for i in range(2)]
+    try:
+        torch.cuda.synchronize()
+        group_norm_silu.launches = flash_attention.launches = 0
+        batches0, rows0 = batcher.batches_run, batcher.rows_served
+        rounds = [serve_round(url, rows, "b64", SERVE_CLIENTS, SERVE_ROWS)
+                  for _ in range(SERVE_ROUNDS)]
+        mixed_batches, mixed_issue = batcher.batches_run - batches0, issue[:]
+        full_rounds = [serve_round(url, rows, "b64", SERVE_FULL_CLIENTS, BATCH)
+                       for _ in range(SERVE_FULL_ROUNDS)]
+        full_issue = issue[len(mixed_issue):]
+        seeded = [waveforms_of(*post(url, {"conditions": rows[:SERVE_ROWS], "seed": seed,
+                                           "format": "b64"})[:2]) for seed in (7, 7, 8)]
+        # two unseeded requests queued under the batcher's lock, so the device
+        # owner packs them into one batch, at the next draw of its counter
+        counter, pair_batches0 = batcher._counter, batcher.batches_run
+        with batcher._cv:
+            pending = [batcher.submit(cond) for cond in pair]
+        for p in pending:
+            if not p.done.wait(300) or p.error is not None:
+                fail(f"coalesced request: done {p.done.is_set()}, error {p.error!r}")
+        coalesced = np.concatenate([p.out for p in pending])
+        pair_batches = batcher.batches_run - pair_batches0
+        counts = (group_norm_silu.launches, flash_attention.launches)
+        batches, served = batcher.batches_run - batches0, batcher.rows_served - rows0
+        json_round = serve_round(url, rows, "json", SERVE_CLIENTS, SERVE_ROWS)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+        batcher.shutdown()
+    requests = ((SERVE_CLIENTS * SERVE_ROUNDS + SERVE_FULL_CLIENTS * SERVE_FULL_ROUNDS)
+                + len(seeded) + len(pending))
+    want_rows = (SERVE_ROWS * (SERVE_CLIENTS * SERVE_ROUNDS + len(seeded) + len(pending))
+                 + BATCH * SERVE_FULL_CLIENTS * SERVE_FULL_ROUNDS)
+    rates = [r["waveforms_per_s"] for r in rounds]
+    latencies = [t for r in rounds for t in r["latencies"]]
+    run = bundle.sampler(BATCH)  # the same function on the main thread, outside the count
+    direct_seeded = run(fold_seed(7, 0), normalize(np.array(rows[:SERVE_ROWS])))
+    direct_pair = run(fold_seed(0, counter), np.concatenate(pair))
+    direct_seeded = direct_seeded[:SERVE_ROWS].cpu().numpy()
+    direct_pair = direct_pair[:2 * SERVE_ROWS].cpu().numpy()
+    repeat_equal = bool(np.array_equal(seeded[0], seeded[1]))
+    other_differs = not np.array_equal(seeded[0], seeded[2])
+    seeded_direct = bool(np.array_equal(seeded[0], direct_seeded))
+    pair_direct = bool(np.array_equal(coalesced, direct_pair))
+    log(f"[serve] {SERVE_ROUNDS} rounds of {SERVE_CLIENTS} concurrent b64 requests x "
+        f"{SERVE_ROWS} rows over loopback HTTP (dpmpp_2m-10 + GL 32, batch {BATCH}, bf16, "
+        f"window {SERVE_DELAY_MS} ms): waveforms/s per round {[round(r, 2) for r in rates]}, "
+        f"all rows over all rounds' time "
+        f"{sum(r['rows'] for r in rounds) / sum(r['seconds'] for r in rounds):.2f}; request "
+        f"latency p50 {percentile(latencies, 0.5):.4f} s p95 {percentile(latencies, 0.95):.4f} s; "
+        f"{mixed_batches} batches for {SERVE_CLIENTS * SERVE_ROUNDS} requests")
+    full_rates = [r["waveforms_per_s"] for r in full_rounds]
+    log(f"[serve] {SERVE_FULL_ROUNDS} rounds of {SERVE_FULL_CLIENTS} concurrent b64 requests x "
+        f"{BATCH} rows (every batch full): waveforms/s per round "
+        f"{[round(r, 2) for r in full_rates]}, all rows over all rounds' time "
+        f"{sum(r['rows'] for r in full_rounds) / sum(r['seconds'] for r in full_rounds):.2f}; "
+        f"request latency p50 {percentile([t for r in full_rounds for t in r['latencies']], 0.5):.4f} s")
+    log(f"[serve] counted window: batches_run {batches} for {requests} requests, rows_served "
+        f"{served}; launches group_norm_silu={counts[0]} flash_attention={counts[1]} (batches x "
+        f"{per_batch}); seeded repeat bit-identical {repeat_equal}, another seed differs "
+        f"{other_differs}; served seeded rows bit-identical to a direct sampler call "
+        f"{seeded_direct}; two unseeded requests in {pair_batches} batch, bit-identical to a "
+        f"direct sampler call at the counter's seed {pair_direct}")
+    log(f"[serve] one round of JSON responses: {json_round['waveforms_per_s']:.2f} waveforms/s "
+        f"({json_round['seconds']:.4f} s), request latency p50 "
+        f"{percentile(json_round['latencies'], 0.5):.4f} s p95 "
+        f"{percentile(json_round['latencies'], 0.95):.4f} s")
+    if not (repeat_equal and other_differs):
+        fail("a repeated seeded request must be bit-identical and another seed must differ")
+    if not (seeded_direct and pair_direct and pair_batches == 1):
+        fail("served rows must equal a direct sampler call at the same seed, bit for bit, and "
+             "two requests queued together must share one batch")
+    if batches >= requests or served != want_rows:
+        fail(f"serving: {batches} batches for {requests} requests, {served} rows served "
+             f"(want {want_rows})")
+    if counts != (batches * per_batch[0], batches * per_batch[1]):
+        fail(f"serving launches {counts} != {batches} batches x {per_batch}")
+    cond = torch.as_tensor(normalize(np.array(rows[:BATCH])), dtype=torch.float32)
+    gen = torch.Generator(device=bundle.device).manual_seed(SEED)
+    secs, issued = [], []
+    for _ in range(E2E_RUNS):
+        t0 = time.perf_counter()
+        bundle.generate(cond.to(bundle.device), generator=gen)
+        issued.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    log(f"[serve] bundle.generate in the same process, batch {BATCH}: "
+        f"{BATCH / statistics.median(secs):.2f} waveforms/s (median of {E2E_RUNS}, seconds "
+        f"{[round(t, 4) for t in secs]}, of which issuing {[round(t, 4) for t in issued]})")
+    gen_issue, gen_total = statistics.median(issued), statistics.median(secs)
+    serve_split(f"{SERVE_CLIENTS} clients x {SERVE_ROWS} rows", rounds, mixed_batches,
+                mixed_issue, gen_issue, gen_total)
+    serve_split(f"{SERVE_FULL_CLIENTS} clients x {BATCH} rows", full_rounds,
+                SERVE_FULL_CLIENTS * SERVE_FULL_ROUNDS, full_issue, gen_issue, gen_total)
+    return counts
+
+
+def evaluate_path(bundle, classifier, per_batch: tuple[int, int]) -> tuple[int, int]:
+    """The evaluation path: EVAL_BATCHES ``evaluate_batch`` calls at batch 32
+    over in-memory synthetic waveforms, with the launch counters set to 0
+    just before and read just after, then ``report_from_arrays`` over their
+    outputs; FID, IS and ASD must be finite.  ``per_batch``: the (GroupNorm,
+    flash) launches of one batch.  Returns the counted launches."""
+    import numpy as np
+
+    from tqdne_tpu_torch.cli.evaluate import evaluate_batch
+    from tqdne_tpu_torch.data.dataset import ArrayDataset, synthetic_arrays
+    from tqdne_tpu_torch.eval.report import report_from_arrays
+    from tqdne_tpu_torch.ops.flash_attention import flash_attention
+    from tqdne_tpu_torch.ops.group_norm import group_norm_silu
+    from tqdne_tpu_torch.utils import fold_seed
+
+    n = EVAL_BATCHES * BATCH
+    data = ArrayDataset(synthetic_arrays(n, t=bundle.t, seed=SEED), bundle.representation,
+                        cut=bundle.t, cond=True, split="full")
+    with torch.no_grad():  # the classifier's cuDNN plans at batch 32, outside the count
+        classifier.embed_and_logits(torch.zeros(BATCH, 128, 128, 3, device=bundle.device))
+    torch.cuda.synchronize()
+    group_norm_silu.launches = flash_attention.launches = 0
+    parts, wall_ms = [], []
+    for i in range(EVAL_BATCHES):
+        batch = data.load_batch(np.arange(i * BATCH, (i + 1) * BATCH))
+        generator = torch.Generator(device=bundle.device).manual_seed(fold_seed(SEED, i * BATCH))
+        t0 = time.perf_counter()
+        out = evaluate_batch(bundle, classifier, batch, generator, BATCH)
+        torch.cuda.synchronize()
+        wall_ms.append(1e3 * (time.perf_counter() - t0))
+        parts.append({k: v.cpu().numpy() for k, v in out.items()}
+                     | {"target_waveform": batch["waveform"]})
+    counts = (group_norm_silu.launches, flash_attention.launches)
+    arrays = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    arrays |= {k: data.get_feature(k)[:n] for k in ("magnitude", "hypocentral_distance")}
+    report = report_from_arrays(arrays)
+    finite = all(math.isfinite(v) for v in (report["fid"], report["inception_score"],
+                                            *report["asd_frechet_per_channel"],
+                                            *report["mse_per_channel"]))
+    log(f"[evaluate] {EVAL_BATCHES} evaluate_batch calls (Heun-25 + GL 128, batch {BATCH}, "
+        f"bf16, classifier bf16): wall ms per batch {[round(t, 3) for t in wall_ms]}; launches "
+        f"group_norm_silu={counts[0]} flash_attention={counts[1]} (batches x {per_batch}); "
+        f"report over {n} waveforms: fid {report['fid']:.6e}, inception_score "
+        f"{report['inception_score']:.6f}, asd_frechet_per_channel "
+        f"{report['asd_frechet_per_channel']}, mse_per_channel {report['mse_per_channel']}, "
+        f"classifier accuracy target/predicted {report['classifier_accuracy_target']:.4f} / "
+        f"{report['classifier_accuracy_predicted']:.4f} (random weights: the values only "
+        f"show that the path runs)")
+    if not finite or arrays["predicted_waveform"].shape != (n, 3, bundle.t):
+        fail("evaluation: a non-finite statistic or a wrong waveform shape")
+    if counts != (EVAL_BATCHES * per_batch[0], EVAL_BATCHES * per_batch[1]):
+        fail(f"evaluation launches {counts} != {EVAL_BATCHES} batches x {per_batch}")
+    return counts
+
+
 def training_setup(dev, dtype):
     """The bench_train.py configuration: the full-width flagship UNet and
     frozen 64-channel autoencoder with seeded random weights, computing in
@@ -455,8 +762,7 @@ def main():
         sys.exit(2)
 
     from tqdne_tpu_torch.cli.common import build_inference
-    from tqdne_tpu_torch.nn import attention as attention_mod
-    from tqdne_tpu_torch.nn import layers as layers_mod
+    from tqdne_tpu_torch.cli.evaluate import load_classifier
     from tqdne_tpu_torch.nn.attention import AttentionBlock
     from tqdne_tpu_torch.nn.layers import Norm32
     from tqdne_tpu_torch.ops import cuda_build
@@ -510,10 +816,14 @@ def main():
 
     gn_hook = gn_recorder(gn_calls)
 
-    def fa_hook(mod, args):
-        x = args[0]
-        fa_calls.append((x.dtype, x[0, 0].numel(), mod.num_heads, x.shape[1] // mod.num_heads,
+    def fa_recorder(sink):
+        def hook(mod, args):
+            x = args[0]
+            sink.append((x.dtype, x[0, 0].numel(), mod.num_heads, x.shape[1] // mod.num_heads,
                          mod.use_causal_mask))
+        return hook
+
+    fa_hook = fa_recorder(fa_calls)
 
     unet, ae = main_bundle.unet.to(torch.bfloat16), main_bundle.autoencoder
     hooks = [m.register_forward_pre_hook(gn_hook) for m in unet.modules() if isinstance(m, Norm32)]
@@ -543,17 +853,35 @@ def main():
                                     "cond": torch.zeros(2, 5, device=dev)}, autoencoder=ae_t)
     for h in hooks:
         h.remove()
+    # the evaluation path's: the full-width bf16 classifier (seeded random weights)
+    classifier = load_classifier(dtype=torch.bfloat16, device=dev, init_seed=CLASSIFIER_SEED)
+    clf_gn, clf_fa = [], []
+    hooks = [m.register_forward_pre_hook(gn_recorder(clf_gn)) for m in classifier.modules()
+             if isinstance(m, Norm32)]
+    hooks += [m.register_forward_pre_hook(fa_recorder(clf_fa)) for m in classifier.modules()
+              if isinstance(m, AttentionBlock)]
+    with torch.no_grad():
+        classifier.embed_and_logits(torch.zeros(2, 128, 128, 3, device=dev))
+    for h in hooks:
+        h.remove()
     log(f"[shapes] UNet eval: {len(unet_gn)} GroupNorm calls, {len(unet_fa)} attention calls; "
         f"decode: {len(dec_gn)} GroupNorm calls; train step: {len(train_gn)} UNet and "
         f"{len(enc_gn)} encoder GroupNorm calls, dtype pairs "
         f"{sorted({(str(x)[6:], str(p)[6:]) for x, p, *_ in train_gn + enc_gn})}")
+    log(f"[shapes] classifier forward: {len(clf_gn)} GroupNorm calls (S, C, silu): "
+        f"{sorted(collections.Counter((s, c, silu) for *_, s, c, _, silu in clf_gn).items())}, "
+        f"dtype pairs {sorted({(str(x)[6:], str(p)[6:]) for x, p, *_ in clf_gn})}; "
+        f"{len(clf_fa)} attention calls {sorted(set(clf_fa), key=str)}")
     if (len(unet_gn), len(unet_fa), len(train_gn)) != (51, 6, 51):
         fail(f"expected 45 + 6 GroupNorm and 6 attention calls per UNet eval, got "
              f"{len(unet_gn)} and {len(unet_fa)} ({len(train_gn)} in training)")
+    if (len(clf_gn), len(clf_fa)) != (18, 2):
+        fail(f"expected 18 GroupNorm and 2 attention calls per classifier forward, got "
+             f"{len(clf_gn)} and {len(clf_fa)}")
 
     # ---- 2. kernels against their plain versions ------------------------------
     errs = {}
-    bad = check_group_norm_kernels(gen, dev, errs, unet_gn + dec_gn + train_gn + enc_gn)
+    bad = check_group_norm_kernels(gen, dev, errs, unet_gn + dec_gn + train_gn + enc_gn + clf_gn)
     bad += check_flash_kernels(gen, dev, errs)
     torch.cuda.synchronize()
     if bad:
@@ -565,11 +893,7 @@ def main():
     noise = torch.randn(4, *f32_bundle.model_shape, generator=gen, device=dev)
     with torch.no_grad():
         with_kernels = f32_bundle.sample(cond[:4], noise=noise)
-        with contextlib.ExitStack() as stack:
-            stack.callback(setattr, layers_mod, "group_norm_silu", layers_mod.group_norm_silu)
-            stack.callback(setattr, attention_mod, "flash_attention", attention_mod.flash_attention)
-            layers_mod.group_norm_silu = group_norm_silu_plain
-            attention_mod.flash_attention = flash_attention_plain
+        with plain_versions():
             plain = f32_bundle.sample(cond[:4], noise=noise)
     scale = plain.abs().max().item()
     slice_err = (with_kernels - plain).abs().max().item()
@@ -578,6 +902,22 @@ def main():
     if not (torch.isfinite(with_kernels).all() and slice_err <= 1e-4 * scale):
         fail("the f32 slice through the kernels disagrees with the plain versions")
     del f32_bundle
+
+    # the full-width f32 classifier (embeddings and logits), kernels vs plain versions
+    clf32 = load_classifier(dtype=torch.float32, device=dev, init_seed=CLASSIFIER_SEED)
+    spectrograms = torch.rand(8, 128, 128, 3, generator=gen, device=dev) * 2 - 1
+    with torch.no_grad():
+        with_kernels = clf32.embed_and_logits(spectrograms)
+        with plain_versions():
+            plain = clf32.embed_and_logits(spectrograms)
+    for name, got, want in zip(("embeddings", "logits"), with_kernels, plain):
+        peak, err = want.abs().max().item(), (got - want).abs().max().item()
+        log(f"[classifier-f32] {name} {tuple(want.shape)}, batch 8: kernels vs plain "
+            f"max_abs_err={err:.3e} (peak {peak:.3e}, tol 1e-4 * peak)")
+        if not (torch.isfinite(got).all() and err <= 1e-4 * peak):
+            fail(f"the f32 classifier's {name} through the kernels disagree with the plain "
+                 "versions")
+    del clf32
 
     # one full-width f32 train step, kernels vs plain versions, same draws
     _, f32_state, _, f32_ae, model_shape, _ = training_setup(dev, torch.float32)
@@ -600,11 +940,7 @@ def main():
                              if p.grad is not None}, launched
 
     k_loss, k_grads, k_launched = loss_and_grads()
-    with contextlib.ExitStack() as stack:
-        stack.callback(setattr, layers_mod, "group_norm_silu", layers_mod.group_norm_silu)
-        stack.callback(setattr, attention_mod, "flash_attention", attention_mod.flash_attention)
-        layers_mod.group_norm_silu = group_norm_silu_plain  # autograd through the plain ops
-        attention_mod.flash_attention = flash_attention_plain
+    with plain_versions():  # autograd through the plain ops
         p_loss, p_grads, p_launched = loss_and_grads()
     worst, worst_name = 0.0, ""
     for name, want in p_grads.items():
@@ -694,6 +1030,20 @@ def main():
     shutil.rmtree(workdir, ignore_errors=True)
     launches = {k: launches.get(k, 0) + v for k, v in train_counts.items()}
 
+    # ---- 4c. the serving path: the HTTP server over the dpmpp_2m-10 bundle -----
+    per_serve_batch = (len(unet_gn) * 10 + len(dec_gn), len(unet_fa) * 10)
+    path_counts = {"serve": serve_path(bundles["dpmpp_2m-10"], per_serve_batch)}
+
+    # ---- 4d. the evaluation path: evaluate_batch + report_from_arrays ----------
+    eval_bundle = build_inference(dtype=torch.bfloat16, num_steps=25, solver="heun", device=dev,
+                                  init_seed=SEED)  # the evaluate CLI's defaults: GL 128
+    per_eval_batch = (len(unet_gn) * 49 + len(dec_gn) + 2 * len(clf_gn),
+                      len(unet_fa) * 49 + 2 * len(clf_fa))
+    path_counts["evaluate"] = evaluate_path(eval_bundle, classifier, per_eval_batch)
+    del eval_bundle
+    for which, name in enumerate(("group_norm_silu", "flash_attention")):
+        launches[name] += sum(c[which] for c in path_counts.values())
+
     # ---- 5. timings --------------------------------------------------------------
     for name, bundle in bundles.items():
         for _ in range(E2E_RUNS - 1):
@@ -708,7 +1058,8 @@ def main():
     gl_ms = cuda_ms(lambda: main_bundle.representation.invert_representation(rep, generator=gen),
                     reps=3, warmup=1)
     log(f"[e2e] de-normalise + Griffin-Lim 32 on {BATCH} x 3 spectrograms: {gl_ms:.3f} ms")
-    profile_breakdown(bundles["dpmpp_2m-10"], cond, gen)
+    profile_breakdown(lambda: bundles["dpmpp_2m-10"].generate(cond, generator=gen),
+                      f"dpmpp_2m-10 + GL 32, batch {BATCH} (10 UNet evals and one decode)")
 
     def bound(nbytes, ops, dtype):
         """Least time for the work: bytes over HBM rate vs operations over peak."""
@@ -764,17 +1115,31 @@ def main():
     gn_train_rows = [gn_row(*key, calls=step_gn.count(key), batch=TRAIN_BATCH)
                      for key in dict.fromkeys(step_gn)]
     fa_rows = [fa_row(*key, calls=unet_fa.count(key)) for key in dict.fromkeys(unet_fa)]
-    for row in gn_rows + gn_train_rows + fa_rows:
+    # the classifier's, one forward at batch 32: the new (32, 256, 256) GroupNorm with
+    # SiLU on and off, and the forward at 256 tokens
+    clf_gn_rows = [gn_row(*key, calls=clf_gn.count(key)) for key in dict.fromkeys(clf_gn)]
+    clf_fa_rows = [fa_row(*key, calls=clf_fa.count(key)) for key in dict.fromkeys(clf_fa)]
+    for row in gn_rows + gn_train_rows + fa_rows + clf_gn_rows + clf_fa_rows:
         log(f"[time] {json.dumps(row)}")
-    for label, rows in (("one UNet eval and one decode, batch 32", gn_rows),
-                        ("one train step's UNet and encoder, batch 128", gn_train_rows)):
-        log(f"[time] group_norm_silu over {label}: " + json.dumps(
-            {k: summed(rows, k) for k in ("ms", "bound_ms", "plain_ms", "library_ms",
-                                          "issue_ms")} | {"calls": summed(rows, "one")}))
-    # for the record (no main-path calls): the forward at the training batch, and at a
-    # classifier-like 256 tokens, where the tensor cores first carry real work
-    for batch, length, d in ((TRAIN_BATCH, 16, 128), (BATCH, 256, 64)):
-        log(f"[time] {json.dumps(fa_row(torch.bfloat16, length, 4, d, False, 0, batch))}")
+    clf_sums = {}
+    for label, name, rows in (
+            ("one UNet eval and one decode, batch 32", "group_norm_silu", gn_rows),
+            ("one train step's UNet and encoder, batch 128", "group_norm_silu", gn_train_rows),
+            ("one classifier forward, batch 32", "group_norm_silu", clf_gn_rows),
+            ("one classifier forward, batch 32", "flash_attention", clf_fa_rows)):
+        sums = {k: summed(rows, k) for k in ("ms", "bound_ms", "plain_ms", "library_ms",
+                                             "issue_ms")} | {"calls": summed(rows, "one")}
+        log(f"[time] {name} over {label}: " + json.dumps(sums))
+        if label.startswith("one classifier"):
+            clf_sums[name] = sums
+    # for the record (no main-path calls): the forward at the training batch
+    log(f"[time] {json.dumps(fa_row(torch.bfloat16, 16, 4, 128, False, 0, TRAIN_BATCH))}")
+    spectrograms = torch.rand(BATCH, 128, 128, 3, generator=gen, device=dev) * 2 - 1
+    for _ in range(2):
+        with torch.no_grad():
+            profile_breakdown(lambda: classifier.embed_and_logits(spectrograms),
+                              f"classifier forward (embed_and_logits), batch {BATCH}, bf16",
+                              tag="eval-profile")
 
     # training: samples/s of train_step on a resident batch, a profiled step,
     # the backward kernels per call, and one step at the recipe's batch 256
@@ -888,7 +1253,10 @@ def main():
             per=f"all calls of one UNet eval{' and one decode' if which == 0 else ''}, "
                 f"batch {BATCH}, bf16",
             launches_per_run={**{run: counts[run][which] for run in counts},
-                              "train": train_counts[name]},
+                              "train": train_counts[name],
+                              **{run: c[which] for run, c in path_counts.items()}},
+            classifier_forward=clf_sums[name] | {"per": f"one classifier forward, batch {BATCH}, "
+                                                        f"bf16"},
         ))
     for name, line in (("flash_attention_bwd_dkdv", 209), ("flash_attention_bwd_dq", 274)):
         rows = [row[name] for row in bwd]

@@ -1,7 +1,8 @@
 """Model, loader and sampler assembly for the flagship ``latent_edm`` recipe:
-the port of ``tqdne_tpu/cli/common.py`` (``InferenceBundle``,
-``build_inference``, ``parse_dtype``, ``ensure_dataset``, ``make_loaders``,
-``build_unet``, ``build_autoencoder`` and the flags the train CLI reads).
+the port of ``tqdne_tpu/cli/common.py`` (``InferenceBundle`` with its
+fixed-batch ``sampler`` for serving, ``build_inference``, ``parse_dtype``,
+``ensure_dataset``, ``make_loaders``, ``build_unet``, ``build_autoencoder``,
+``dataset_feature_stats`` and the flags the train CLI reads).
 
 Weights come from ``.pt`` state dicts written by
 ``python -m tqdne_tpu_torch.utils.convert`` from the JAX package's flax
@@ -14,6 +15,7 @@ from __future__ import annotations
 import logging
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from tqdne_tpu_torch import configs
@@ -28,6 +30,7 @@ from tqdne_tpu_torch.utils import randomize_, resolve_device
 logger = logging.getLogger("tqdne_tpu_torch")
 
 RECIPES = ("latent_edm",)  # the ported recipes; the others come with later slices
+RUN_NAME = "Latent-EDM-32x32x8-LogSpectrogram"  # the flagship run's name under outputs/
 DTYPES = {"f32": torch.float32, "float32": torch.float32, "bf16": torch.bfloat16,
           "bfloat16": torch.bfloat16}
 TINY_CHANNELS = 32  # model_channels of the --tiny UNet and autoencoder
@@ -164,10 +167,44 @@ class InferenceBundle:
     def generate(self, cond: torch.Tensor, *, noise=None, init_phase=None,
                  generator=None) -> torch.Tensor:
         """Normalised conditioning (B, 5) -> waveforms (B, 3, t), f32."""
-        signal = self.sample(cond, noise=noise, generator=generator)
+        return self.invert(self.sample(cond, noise=noise, generator=generator),
+                           init_phase=init_phase, generator=generator)
+
+    def invert(self, signal: torch.Tensor, *, init_phase=None, generator=None) -> torch.Tensor:
+        """Decoded channels-last signal (B, F, frames, C) -> waveforms (B, 3, t)
+        through Griffin-Lim on the signal's device."""
         wave = self.representation.invert_representation(
             signal.movedim(-1, 1), init_phase=init_phase, generator=generator)
         return wave[..., : self.t]
+
+    def padded_cond(self, cond, batch_size: int) -> torch.Tensor:
+        """Normalised conditioning rows (n <= batch_size, 5) on the bundle's
+        device, padded with zero rows to ``batch_size``.  From the host they
+        cross through pinned memory without waiting on the device."""
+        cond = torch.as_tensor(np.asarray(cond, np.float32))
+        pad = batch_size - len(cond)
+        if pad < 0:
+            raise ValueError(f"{len(cond)} conditioning rows exceed the batch of {batch_size}")
+        if pad:
+            cond = torch.cat([cond, cond.new_zeros(pad, cond.shape[1])])
+        if self.device.type == "cuda":
+            return cond.pin_memory().to(self.device, non_blocking=True)
+        return cond.to(self.device)
+
+    def sampler(self, batch_size: int):
+        """``run(seed, cond) -> waveforms`` at one fixed device batch (the JAX
+        ``jit_sample`` with the inversion folded in): up to ``batch_size``
+        normalised conditioning rows, padded with zero rows, so each seeded
+        result is independent of how requests were packed.  The noise and
+        Griffin-Lim's initial phase come from a ``torch.Generator`` on the
+        bundle's device seeded with ``seed`` (``utils.fold_seed`` makes one
+        from a request seed and an offset).  Returns the (batch_size, 3, t)
+        f32 waveforms on the device, without synchronising."""
+        def run(seed: int, cond) -> torch.Tensor:
+            generator = torch.Generator(device=self.device).manual_seed(seed)
+            return self.generate(self.padded_cond(cond, batch_size), generator=generator)
+
+        return run
 
 
 @torch.no_grad()
@@ -206,3 +243,13 @@ def build_inference(recipe_key: str = "latent_edm", *, unet_weights=None, ae_wei
             module.to(memory_format=torch.channels_last)
     return InferenceBundle(config, representation, unet, autoencoder, model_shape,
                            num_steps=num_steps, solver=solver, device=device)
+
+
+def dataset_feature_stats(config) -> np.ndarray:
+    """(5, 2) [mean, std] of the raw conditioning features of the dataset:
+    the normalisation derived from data instead of the published table."""
+    import h5py
+
+    with h5py.File(config.datapath, "r", locking=False) as f:
+        columns = [f[key][:] for key in config.features_keys]
+    return np.array([[float(c.mean()), float(c.std())] for c in columns])

@@ -1,0 +1,132 @@
+"""Long-lived HTTP generation service on a GPU: the port of
+``tqdne_tpu/cli/serve.py`` for the flagship ``latent_edm`` recipe.
+
+Builds the same ``InferenceBundle`` as ``cli.generate_waveforms``, keeps the
+weights on the device, warms the sampler up (the first call builds the CUDA
+kernels with nvcc and picks cuDNN's algorithms) and then serves coalesced
+micro-batches over HTTP (``tqdne_tpu_torch/serving.py``):
+
+    python -m tqdne_tpu_torch.cli.serve --unet-weights unet.pt --ae-weights ae.pt --port 8000
+    curl -s localhost:8000/generate -d '{"conditions": [{"hypocentral_distance": 50,
+      "magnitude": 5.5, "vs30": 400, "hypocentre_depth": 20, "azimuthal_gap": 100}]}'
+
+Without weights files the models take seeded random weights (smoke runs).
+The consistency and distillation solvers, ``--spatial`` and ``--int8`` are
+not ported yet, and refused.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+
+import numpy as np
+import torch
+
+from tqdne_tpu_torch import configs, serving
+from tqdne_tpu_torch.cli import common
+from tqdne_tpu_torch.cli.generate_waveforms import SUMMARY_STATISTICS
+
+logger = logging.getLogger("tqdne_tpu_torch.serve")
+
+# the JAX serve options that later slices of the port bring
+NOT_PORTED = {"--solver consistency": "the few-eval samplers slice",
+              "--solver distill": "the few-eval samplers slice",
+              "--spatial": "the parallelism slice", "--int8": "the int8 slice"}
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser("tqdne_tpu_torch.cli.serve",
+                                     description=__doc__.split("\n\n")[0])
+    parser.add_argument("--workdir", type=str, default=".",
+                        help="working directory (its dataset feeds --stats-from-dataset)")
+    parser.add_argument("--config", type=str, default="latent_edm")
+    parser.add_argument("--unet-weights", type=str, default=None,
+                        help="UNet state dict (.pt) from tqdne_tpu_torch.utils.convert "
+                             "(default: seeded random weights)")
+    parser.add_argument("--ae-weights", type=str, default=None,
+                        help="autoencoder state dict (.pt) from tqdne_tpu_torch.utils.convert "
+                             "(default: seeded random weights)")
+    parser.add_argument("--solver", type=str, default="heun",
+                        choices=["heun", "dpmpp_2m", "consistency", "distill"])
+    parser.add_argument("--num_steps", "--num-steps", type=int, default=25)
+    parser.add_argument("--batch_size", "--batch-size", type=int, default=32,
+                        help="device batch size: requests are padded/coalesced to it")
+    parser.add_argument("--max-delay-ms", type=float, default=15.0,
+                        help="micro-batching window: how long a partial batch "
+                             "waits for more requests before launching")
+    parser.add_argument("--dtype", type=str, default="bf16", choices=["f32", "bf16"])
+    parser.add_argument("--gl-iters", type=int, default=32,
+                        help="Griffin-Lim iterations (serving default 32, the JAX "
+                             "package's measured knee; 128 for the reference's)")
+    parser.add_argument("--tiny", action="store_true",
+                        help="32-channel UNet and autoencoder")
+    parser.add_argument("--stats-from-dataset", action="store_true",
+                        help="normalize conditioning with the workdir dataset's stats "
+                             "instead of the published summary table")
+    parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--host", type=str, default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=8000)
+    parser.add_argument("--spatial", type=int, default=0, help="not ported yet")
+    parser.add_argument("--int8", action="store_true", help="not ported yet")
+    args = parser.parse_args(argv)
+    asked = {"--solver consistency": args.solver == "consistency",
+             "--solver distill": args.solver == "distill",
+             "--spatial": args.spatial > 1, "--int8": args.int8}
+    for option, later_slice in NOT_PORTED.items():
+        if asked[option]:
+            raise SystemExit(f"{option} is not ported yet: it comes with {later_slice}")
+    return args
+
+
+def build_server(args):
+    """(server, batcher) after the warm-up, ready for ``serve_forever``."""
+    bundle = common.build_inference(
+        args.config, unet_weights=args.unet_weights, ae_weights=args.ae_weights,
+        dtype=common.parse_dtype(args.dtype), num_steps=args.num_steps, solver=args.solver,
+        gl_iters=args.gl_iters, device=args.device, tiny=args.tiny)
+    if args.unet_weights is None or args.ae_weights is None:
+        logger.warning("no weights file for the UNet or the autoencoder: serving seeded "
+                       "random weights")
+    stats = (common.dataset_feature_stats(configs.LatentSpectrogramConfig(workdir=args.workdir))
+             if args.stats_from_dataset else SUMMARY_STATISTICS)
+
+    def normalize(cond_raw: np.ndarray) -> np.ndarray:
+        return (cond_raw - stats[:, 0]) / stats[:, 1]
+
+    batcher = serving.Microbatcher.from_bundle(bundle, args.batch_size,
+                                               max_delay_ms=args.max_delay_ms)
+    # warm up BEFORE binding the port so /healthz readiness is truthful
+    print(f"warming up {args.config} sampler (batch {args.batch_size}, "
+          f"{args.num_steps} steps, {args.solver})...", flush=True)
+    batcher.generate(np.zeros((1, len(serving.FEATURES)), np.float32), seed=0)
+
+    device = bundle.device
+    info = {
+        "config": args.config, "solver": args.solver, "num_steps": args.num_steps,
+        "batch_size": args.batch_size, "dtype": args.dtype,
+        "t": bundle.t, "channels": bundle.config.channels,
+        "features": list(serving.FEATURES),
+        "devices": [torch.cuda.get_device_name(device) if device.type == "cuda"
+                    else str(device)],
+        "spatial": 0, "int8": False,
+    }
+    return serving.make_server(batcher, normalize, info, host=args.host, port=args.port), batcher
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+    server, batcher = build_server(args)
+    print(f"serving on http://{args.host}:{server.server_address[1]}", flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+        batcher.shutdown()
+
+
+if __name__ == "__main__":
+    main()

@@ -29,7 +29,7 @@ from tqdne_tpu_torch.train.state import TrainState, cosine_annealing, make_optim
 from tqdne_tpu_torch.train.steps import make_edm_steps
 from tqdne_tpu_torch.utils import init_like_flax_, resolve_device
 
-RUN_NAME = "Latent-EDM-32x32x8-LogSpectrogram"
+RUN_NAME = common.RUN_NAME
 EPOCHS, BATCH, LR = 200, 256, 1e-4
 # the JAX package's recipes (tqdne_tpu/cli/train.py:RECIPES); only latent_edm is ported
 JAX_RECIPES = ("1d_edm", "1d_autoencoder", "1d_latent_edm", "autoencoder", "edm", "latent_edm",

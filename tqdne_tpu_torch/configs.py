@@ -1,8 +1,10 @@
-"""Configuration and architecture presets of the flagship latent-EDM slice.
+"""Configuration and architecture presets of the flagship latent-EDM slice
+and its evaluation classifier.
 
 The port's own copy of what it needs from ``tqdne_tpu/configs.py``: the
-conditioning feature names, the ``LatentSpectrogramConfig`` fields and the
-2D UNet / autoencoder presets, with the same values.
+conditioning feature names, the ``LatentSpectrogramConfig`` fields, the
+magnitude and distance bins, ``SpectrogramClassificationConfig`` and the 2D
+UNet / autoencoder / classifier-encoder presets, with the same values.
 """
 
 from __future__ import annotations
@@ -46,6 +48,39 @@ class LatentSpectrogramConfig:
 
         return LogSpectrogram(stft_channels=self.stft_channels, hop_size=self.hop_size,
                               n_iter=self.griffin_lim_iters, length=self.t)
+
+
+# canonical magnitude / distance bins of the classifier and the per-bin report
+MAG_BINS: tuple[float, ...] = (4, 4.75, 5, 5.5, 6.5, 7.5, 9.1)
+DIST_BINS: tuple[float, ...] = (0, 75, 100, 125, 150, 175, 200)
+
+
+@dataclasses.dataclass
+class SpectrogramClassificationConfig(LatentSpectrogramConfig):
+    """Magnitude x distance bin classification on the flagship's
+    log-spectrograms (the JAX config's representation fields)."""
+
+    mag_bins: tuple[float, ...] = MAG_BINS
+    dist_bins: tuple[float, ...] = DIST_BINS
+
+    @property
+    def num_classes(self) -> int:
+        return (len(self.mag_bins) - 1) * (len(self.dist_bins) - 1)
+
+
+def get_classifier_encoder_config(config, out_channels: int = 256) -> dict:
+    return {
+        "in_channels": config.channels,
+        "model_channels": 64,
+        "out_channels": out_channels,
+        "channel_mult": (1, 2, 4, 4),
+        "attention_resolutions": (8,),
+        "num_res_blocks": 2,
+        "dims": 2,
+        "conv_kernel_size": 3,
+        "num_heads": 4,
+        "dropout": 0.1,
+    }
 
 
 def get_2d_autoencoder_configs(config) -> tuple[dict, dict]:

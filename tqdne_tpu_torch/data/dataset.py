@@ -54,12 +54,17 @@ def _row_gather(file_idx: np.ndarray):
 
 
 class _Batches:
-    """``load_batch`` over a table with ``waveforms``, ``normalized_features``
-    and ``indices_valid_waveforms`` columns (HDF5 datasets or arrays), for
-    the rows ``indices`` of a split."""
+    """``load_batch`` and ``get_feature`` over a ``table`` with ``waveforms``,
+    ``normalized_features``, ``indices_valid_waveforms`` and one column per
+    raw feature (an HDF5 file or a dict of arrays), for the rows ``indices``
+    of a split."""
 
     def __len__(self) -> int:
         return len(self.indices)
+
+    def get_feature(self, key: str) -> np.ndarray:
+        """A raw conditioning feature (e.g. ``magnitude``) over the split."""
+        return np.asarray(self.table[key][:])[self.indices]
 
     def load_batch(self, batch_indices: np.ndarray, keys: tuple[str, ...] | None = None) -> dict:
         """A batch (split-relative indices) as a dict of numpy arrays.
@@ -98,7 +103,7 @@ class Dataset(_Batches):
         self.representation = representation
         self.cut = cut
         self.use_conditioning = cond
-        self.file = h5py.File(datapath, "r", locking=False)
+        self.file = self.table = h5py.File(datapath, "r", locking=False)
         self.waveforms = self.file["waveforms"]
         self.cond = self.file["normalized_features"] if cond else None
         self.valid = self.file["indices_valid_waveforms"]
@@ -117,6 +122,7 @@ class ArrayDataset(_Batches):
         self.representation = representation
         self.cut = cut
         self.use_conditioning = cond
+        self.table = arrays
         self.waveforms = arrays["waveforms"]
         self.cond = arrays["normalized_features"] if cond else None
         self.valid = arrays["indices_valid_waveforms"]

@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -73,7 +74,17 @@ def build(names=SOURCES) -> dict[str, Path]:
     return {name: library_path(name) for name in names}
 
 
+_LOAD_LOCK = threading.Lock()
+
+
 @functools.cache
-def load(name: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu`` (built on first use)."""
+def _load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build([name])[name]))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The built library of ``csrc/<name>.cu`` (built on first use).  Threads
+    that launch a kernel for the first time at once build and load it once:
+    the first holds the lock while it builds, the others then get its library."""
+    with _LOAD_LOCK:
+        return _load(name)

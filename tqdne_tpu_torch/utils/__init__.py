@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -9,6 +10,14 @@ def append_dims(x: torch.Tensor, target_ndim: int) -> torch.Tensor:
     """Append trailing singleton dims so ``x`` broadcasts against a
     ``target_ndim``-dimensional tensor."""
     return x.reshape(x.shape + (1,) * (target_ndim - x.ndim))
+
+
+def fold_seed(seed: int, offset: int) -> int:
+    """A 63-bit generator seed from a request seed and an offset: the port's
+    ``jax.random.fold_in(jax.random.key(seed), offset)``.  A negative seed
+    is taken modulo 2**64, as ``SeedSequence`` takes no negative entropy."""
+    return int(np.random.SeedSequence([seed % 2**64, offset]).generate_state(1, np.uint64)[0]
+               >> 1)
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:

@@ -23,6 +23,7 @@ arrays as extension type 1) with the ``msgpack`` package, without flax:
 from __future__ import annotations
 
 import argparse
+import json
 from pathlib import Path
 
 import numpy as np
@@ -105,6 +106,16 @@ def load_flax_train_state(state, params: dict, ema_params: dict, mu: dict, nu: d
                 "exp_avg_sq": moments[1][name].to(p.device, p.dtype),
             }
     state.step = int(count)
+
+
+def read_manifest(path) -> dict:
+    """The ``hparams`` of a ``weights/*.manifest.json`` (for the classifier:
+    ``encoder``, a module config, and ``num_classes``), with the JSON lists of
+    a module config back as tuples, so a module is built at its artifact's
+    own widths."""
+    hparams = json.loads(Path(path).read_text())["hparams"]
+    return {key: {k: tuple(v) if isinstance(v, list) else v for k, v in value.items()}
+            if isinstance(value, dict) else value for key, value in hparams.items()}
 
 
 def convert_file(src, dst) -> dict[str, torch.Tensor]:
