@@ -8,15 +8,18 @@ Phases (any failure exits non-zero and prints no result line):
    in parallel);
 2. hold each kernel against its plain PyTorch version on the card: GroupNorm
    (+SiLU) at every (S, C) that sampling's UNet and decoder, training's UNet
-   and encoder and the evaluation classifier's encoder give it, in f32 and in
-   each (x, scale) dtype pair the bf16 paths give that shape, SiLU on and
-   off, at batch 32 and 128, and in cases that force the launch plan's other
+   and encoder, the evaluation classifier's encoder and the autoencoder and
+   classifier recipes' train steps give it (read off one forward of each), in
+   f32 and in each (x, scale) dtype pair the bf16 paths give that shape, SiLU
+   on and off, at batch 32, 64 and 128, and in cases that force the launch
+   plan's other
    variants (the largest cluster the card co-schedules, chunks re-read from
    L2, element loads, groups of 5 channels); the flash forward (output and
    base-2 log-sum-exp) and the two flash backward kernels (dQ with delta =
    rowsum(dO * O), then dK/dV with that delta), f32 and bf16, causal and not,
-   at the main paths' (32, 16, 4, 128), (128, 16, 4, 128) and the
-   classifier's (32, 256, 4, 64), at every L in (16, 17, 100, 256, 508) x D in
+   at the main paths' (32, 16, 4, 128), (128, 16, 4, 128), the classifier's
+   (32, 256, 4, 64) and its training step's (64, 256, 4, 64), at every L in
+   (16, 17, 100, 256, 508) x D in
    (32, 64, 128) with q, k and v as strided views of one fused (B, L, 3, H, D)
    projection, and at the variants the bf16 tensor-core kernels take for
    other layouts: D = 40 (zero-padded to its head block of 64), D = 12 (2-byte
@@ -24,16 +27,27 @@ Phases (any failure exits non-zero and prints no result line):
 3. full-width flagship sampling in f32, 2 Heun steps, once through the
    kernels and once through the plain versions: the decoded spectrograms
    must agree (TF32 off); the full-width f32 classifier the same way (its
-   embeddings and logits); then one full-width f32 training step (frozen
-   encoder, EDM loss, backward) with the same injected draws both ways: the
-   loss and every parameter gradient must agree;
+   embeddings and logits); then one full-width f32 train step of each recipe
+   (the flagship's frozen encoder, EDM loss and backward; the autoencoder's
+   reconstruction and KL; the classifier's weighted cross-entropy through two
+   attention blocks) with the same injected draws, in eval mode, both ways:
+   the loss to 1e-5 relative and every parameter gradient to 1e-3 of its
+   peak, with every flash backward through the kernels;
 4. the main paths, each with the launch counters set to 0 just before it and
    read just after: sampling (``build_inference`` + ``generate`` at full width
    in bf16, batch 32, Heun-25 then dpmpp_2m-10, each with 32 Griffin-Lim
    iterations, seeded random weights; waveforms must be finite
    (32, 3, 4064)), training (``Trainer.fit`` through ``BatchLoader`` over
    in-memory synthetic waveforms, bf16 compute over f32 parameters, batch
-   128, 30 steps; the loss must be finite), serving (the HTTP server of
+   128, 30 steps; the loss must be finite), the recipes over the same 512
+   waveforms (the autoencoder recipe, AdamW, batch 128, 20 steps; the
+   classifier recipe, batch 64, 21 steps and one validation pass whose macro
+   metrics must be finite; the precompute core over the waveforms with that
+   autoencoder, then 30 flagship steps from the cached moments through
+   ``DeviceResidentLoader``, with no encoder launch; 30 flagship steps with
+   the representation on the device; the non-finite guard: a NaN batch
+   leaves every parameter, the Adam moments and the update count as they
+   were, the next clean batch moves them), serving (the HTTP server of
    ``tqdne_tpu_torch.serving`` on loopback over the dpmpp_2m-10 bundle: rounds
    of concurrent requests, a seeded request twice bit-identical and another
    seed different, coalescing) and evaluation (two ``evaluate_batch`` calls
@@ -45,9 +59,14 @@ Phases (any failure exits non-zero and prints no result line):
    record, the bf16 flash forward at (128, 16, 4, 128)), GroupNorm per UNet
    eval, per train step and per classifier forward, end-to-end waveforms/s
    (through the server too, with request latencies and one round of JSON
-   responses) and training samples/s, a profiled sampling run, a profiled
-   classifier forward and a profiled train step by kernel class, and one
-   train step at the recipe's batch 256.
+   responses) and training samples/s, the guarded and the cached-latent
+   flagship step against the plain flagship step in alternated single steps
+   (issue and wall ms, device ms and launches of one profiled step), each
+   recipe step's samples/s beside the flagship step's in alternate windows,
+   the classifier train step's kernels at (64, 256, 4, 64) and its GroupNorm
+   shapes, a profiled sampling run, a profiled classifier forward, and a
+   profiled train step of the flagship, the classifier and the autoencoder
+   by kernel class, and one train step at the recipe's batch 256.
 
 Prints the card's name and power limit and a ``{"kernels": [...]}`` line,
 then, last, ``{"ok": true, "device": {...}}``.
@@ -57,6 +76,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import json
 import math
 import shutil
@@ -77,6 +97,11 @@ TRAIN_BATCH = 128  # the training benchmark's batch (bench_train.py)
 TRAIN_STEPS = 30
 TRAIN_E2E_RUNS, TRAIN_E2E_STEPS = 3, 8  # timed train_step windows for [train-e2e]
 TRAIN_SAMPLES = 512  # synthetic waveforms in memory: 4 batches per epoch
+CLF_TRAIN_BATCH = 64  # the classifier recipe's batch
+AE_STEPS = 20  # Trainer.fit steps of the autoencoder recipe: 5 epochs of 4 batches
+CLF_STEPS = 21  # of the classifier recipe: 3 epochs of 7 batches of its 460 rows, one validation
+GUARD_N = 3  # skip_nonfinite of the guard's check and timing
+STEP_PAIRS = 16  # alternated single-step pairs of the guard's and the cached step's cost
 SERVE_CLIENTS, SERVE_ROWS, SERVE_ROUNDS = 16, 4, 3  # concurrent requests of 4 rows, 3 rounds
 SERVE_DELAY_MS = 15.0  # the serve CLI's micro-batching window
 SERVE_FULL_CLIENTS, SERVE_FULL_ROUNDS = 4, 2  # concurrent requests of a full batch, 2 rounds
@@ -198,9 +223,10 @@ def qkv_views(b, length, h, d, dtype, layout, gen, dev):
                  for _ in range(3))
 
 
-def check_flash_kernels(gen, dev, errs: dict) -> int:
+def check_flash_kernels(gen, dev, errs: dict, path_cases: list = ()) -> int:
     """The flash forward and both backward kernels against their plain
-    versions, f32 and bf16, causal and not: at the main paths' shapes, at
+    versions, f32 and bf16, causal and not: at the main paths' shapes (and
+    the (B, L, H, D) of ``path_cases``, read off a forward), at
     every L x D of the redesigned bf16 kernels' two variants as fused-qkv
     views, and in the layouts that take their narrow loads.  Records the
     largest errors in ``errs``; returns the number of failed checks."""
@@ -221,6 +247,7 @@ def check_flash_kernels(gen, dev, errs: dict) -> int:
                   "flash_attention_bwd_dq": 0.0}
     flash_cases = [(BATCH, 16, 4, 128, "separate"), (TRAIN_BATCH, 16, 4, 128, "fused"),
                    (BATCH, 256, 4, 64, "fused")]
+    flash_cases += [(*case, "fused") for case in dict.fromkeys(path_cases)]
     flash_cases += [(4, length, 4, d, "fused") for length in (16, 17, 100, 256, 508)
                     for d in (32, 64, 128)]
     flash_cases += [(4, 100, 4, 40, "fused"), (4, 17, 2, 12, "fused"), (4, 100, 2, 64, "offset")]
@@ -276,11 +303,13 @@ def check_flash_kernels(gen, dev, errs: dict) -> int:
     return bad
 
 
-def check_group_norm_kernels(gen, dev, errs: dict, path_calls: list) -> int:
+def check_group_norm_kernels(gen, dev, errs: dict, path_calls: list,
+                             batches=(BATCH, TRAIN_BATCH)) -> int:
     """GroupNorm (+SiLU) against its plain version: at every (S, C, G) of
     ``path_calls`` (sampling's UNet and decoder, training's UNet and
-    encoder), in f32 and in each (x, scale) dtype pair the paths give that
-    shape, SiLU on and off, at the sampling and the training batch; then
+    encoder, the autoencoder and classifier recipes'), in f32 and in each
+    (x, scale) dtype pair the paths give that shape, SiLU on and off, at
+    each of ``batches`` (the paths' batch sizes); then
     cases that force the plan's other variants: the largest cluster the card
     co-schedules, the re-read variant, element loads (views one element into
     their buffers, a C of 12 in bf16) and groups of 5 channels.  Records the
@@ -297,7 +326,7 @@ def check_group_norm_kernels(gen, dev, errs: dict, path_calls: list) -> int:
     pairs = {}
     for x_dtype, p_dtype, s, c, g, _ in path_calls:
         pairs.setdefault((s, c, g), {(f32, f32)}).add((x_dtype, p_dtype))
-    cases = [(b, s, c, g, dtype, pdtype, "path") for b in (BATCH, TRAIN_BATCH)
+    cases = [(b, s, c, g, dtype, pdtype, "path") for b in batches
              for (s, c, g), found in sorted(pairs.items())
              for dtype, pdtype in sorted(found, key=str)]
     def takes_largest(s):
@@ -412,6 +441,7 @@ def train_profile(step, label: str):
     left_out = sorted({e.key for e in prof.key_averages()
                        if e.device_type == DeviceType.CUDA} - {e.key for e in kernels})
     total_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    launched = sum(e.count for e in kernels)
     if not total_ms:
         log("[train-profile] the profiler recorded no device time: breakdown not measured")
         return None
@@ -433,14 +463,98 @@ def train_profile(step, label: str):
         classes[kernel_class(k.name)] -= k.duration / 1e3
         classes[GN_BWD_CLASS] += k.duration / 1e3
     log(f"[train-profile] {label}: wall {wall_ms:.3f} ms under the profiler, device kernels "
-        f"{total_ms:.3f} ms (busy share {total_ms / wall_ms:.3f}; device-side ranges left out: "
-        f"{left_out}); {len(ranges)} GroupNorm "
+        f"{total_ms:.3f} ms in {launched} launches (busy share {total_ms / wall_ms:.3f}; "
+        f"device-side ranges left out: {left_out}); {len(ranges)} GroupNorm "
         f"backward ranges holding {len(found)} kernels; by class (ms): "
         f"{json.dumps({k: round(v, 3) for k, v in classes.items()})}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"[train-profile]   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} x  "
             f"{e.key[:110]}")
-    return dict(wall_ms=wall_ms, device_ms=total_ms, busy_share=total_ms / wall_ms, **classes)
+    return dict(wall_ms=wall_ms, device_ms=total_ms, busy_share=total_ms / wall_ms,
+                launches=launched, **classes)
+
+
+def step_costs(fn) -> tuple[float, float]:
+    """(issue ms, wall ms) of one call of ``fn`` started on an idle device:
+    the host's time to return from it, and to the end of its device work."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t0)
+
+
+def paired_steps(label: str, step, base, base_profile: dict | None) -> dict:
+    """``step`` against ``base`` in single calls alternated (base step step
+    base base step ...), so that both see the same host state: each side's
+    median issue and wall ms, the median of the pairs' wall differences, and
+    one profiled ``step`` (device ms, launches) beside ``base_profile``.
+    Windows of several steps each cannot resolve a few percent on a host
+    whose speed drifts between windows."""
+    step()
+    base()
+    costs = {"step": [], "base": []}
+    for i in range(STEP_PAIRS):
+        for name in ("base", "step") if i % 2 == 0 else ("step", "base"):
+            costs[name].append(step_costs(step if name == "step" else base))
+    med = {name: {"issue_ms": statistics.median(c[0] for c in v),
+                  "wall_ms": statistics.median(c[1] for c in v)} for name, v in costs.items()}
+    diffs = [s[1] - b[1] for s, b in zip(costs["step"], costs["base"])]
+    out = dict(label=label, pairs=STEP_PAIRS, step=med["step"], base=med["base"],
+               wall_diff_ms=statistics.median(diffs),
+               wall_diff_quartiles=statistics.quantiles(diffs, n=4),
+               step_wins=sum(d < 0 for d in diffs))
+    profiled = train_profile(step, label)
+    if profiled is not None and base_profile is not None:
+        out |= {"device_ms": [profiled["device_ms"], base_profile["device_ms"]],
+                "launches": [profiled["launches"], base_profile["launches"]]}
+    log(f"[paired] {json.dumps(out)}")
+    return out
+
+
+def guard_update_cost(state, windows: int = 8, calls: int = 20) -> dict:
+    """The guard's own cost on an optimizer update: ``apply_updates`` (fused
+    Adam, schedule, EMA) over stand-in gradients of ``state``'s model, armed
+    and disarmed in alternate windows of ``calls`` calls (a b b a ...).  Per
+    call, the median over the windows of the host's issue ms (the loop
+    before it waits on the device) and of the wall ms to the end of the
+    device work.  The state is restored afterwards."""
+    from tqdne_tpu_torch.train.state import apply_updates
+
+    saved = copy.deepcopy(state.state_dict())
+    params = [p for p in state.model.parameters() if p.requires_grad]
+    gen = torch.Generator(device=params[0].device).manual_seed(SEED)
+    # in each parameter's own layout (channels-last convolutions), as autograd leaves them
+    grads = [torch.empty_like(p).normal_(0.0, 1e-3, generator=gen) for p in params]
+
+    def update():
+        for p, g in zip(params, grads):
+            p.grad = g
+        apply_updates(state, 0.999)
+
+    costs = {"armed": [], "disarmed": []}
+    arms = {"armed": GUARD_N, "disarmed": 0}
+    for i in range(windows + 1):  # window 0 warms both up and is not kept
+        for name in ("disarmed", "armed") if i % 2 == 0 else ("armed", "disarmed"):
+            state.skip_nonfinite = arms[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                update()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            if i:
+                costs[name].append((1e3 * (t1 - t0) / calls,
+                                    1e3 * (time.perf_counter() - t0) / calls))
+    state.skip_nonfinite = 0
+    state.load_state_dict(saved)
+    out = {name: {"issue_ms": statistics.median(c[0] for c in v),
+                  "wall_ms": statistics.median(c[1] for c in v)} for name, v in costs.items()}
+    out |= {k: out["armed"][k] - out["disarmed"][k] for k in ("issue_ms", "wall_ms")}
+    log(f"[guard] apply_updates of the flagship UNet, {windows} alternate windows of {calls} "
+        f"calls: {json.dumps(out)}")
+    return out
 
 
 @contextlib.contextmanager
@@ -756,18 +870,156 @@ def training_setup(dev, dtype):
     return config, state, (train_step, eval_step), ae, model_shape, schedule
 
 
+def launch_counters():
+    """Every kernel wrapper's launch counter (``fn.launches``)."""
+    from tqdne_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd_dkdv,
+        flash_attention_bwd_dq,
+    )
+    from tqdne_tpu_torch.ops.group_norm import group_norm_silu
+
+    return group_norm_silu, flash_attention, flash_attention_bwd_dkdv, flash_attention_bwd_dq
+
+
+def want_launches(gn: int = 0, fa: int = 0, bwd: int = 0) -> dict:
+    """The launches a path must count: GroupNorm, flash forward, and each backward kernel."""
+    return {"group_norm_silu": gn, "flash_attention": fa, "flash_attention_bwd_dkdv": bwd,
+            "flash_attention_bwd_dq": bwd}
+
+
+def counted_fit(label: str, steps, state, loader, *, max_steps: int, want: dict,
+                want_gn_bwd: int, val_loader=None, eval_every: int = 10**6,
+                metric_postprocess=None, lr_schedule=None):
+    """``Trainer.fit`` of ``state`` up to step ``max_steps``, with every launch
+    counter and the GroupNorm plain-backward count set to 0 just before and
+    read just after: they must equal ``want`` and ``want_gn_bwd``, every
+    logged training loss must be finite and the checkpoint written.  Returns
+    (counts, metric rows)."""
+    from tqdne_tpu_torch.ops.group_norm import group_norm_silu
+    from tqdne_tpu_torch.train.loop import Trainer
+
+    workdir = Path(__file__).resolve().parent / "build" / f"chip_smoke_{label}"
+    shutil.rmtree(workdir, ignore_errors=True)
+    trainer = Trainer(*steps, workdir, device="cuda", max_epochs=10**4, max_steps=max_steps,
+                      log_every=10, seed=SEED, checkpoint_every_epochs=10**6,
+                      eval_every_epochs=eval_every, lr_schedule=lr_schedule,
+                      metric_postprocess=metric_postprocess)
+    kernels = launch_counters()
+    torch.cuda.synchronize()
+    for fn in kernels:
+        fn.launches = 0
+    group_norm_silu.backward_calls = 0
+    t0 = time.perf_counter()
+    trainer.fit(state, loader, val_loader, resume=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = {fn.__name__: fn.launches for fn in kernels}
+    gn_bwd = group_norm_silu.backward_calls
+    rows = [json.loads(line) for line in (workdir / "metrics.jsonl").open()]
+    losses = [r["training/loss"] for r in rows if "training/loss" in r]
+    traintime = [r["traintime"] for r in rows if "traintime" in r][-1:] or [0.0]
+    log(f"[{label}] Trainer.fit to step {state.step} in {fit_s:.2f} s (checkpoint included), "
+        f"logged losses {losses}, traintime {traintime[0]:.3f} s; launches "
+        f"{counts}, GroupNorm plain backward calls {gn_bwd}")
+    if state.step != max_steps or not losses or not all(map(math.isfinite, losses)):
+        fail(f"{label}: step {state.step} (want {max_steps}), losses {losses}")
+    if counts != want or gn_bwd != want_gn_bwd:
+        fail(f"{label}: launches {counts} (GroupNorm backward {gn_bwd}) != expected {want} "
+             f"({want_gn_bwd})")
+    if not (workdir / "checkpoints" / "last" / f"{max_steps}.pt").exists():
+        fail(f"{label}: no checkpoint written")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return counts, rows
+
+
+def check_step_vs_plain(label: str, module, loss_fn, want_bwd: tuple[int, int],
+                        min_grads: int):
+    """One f32 step's loss and every parameter gradient of ``module``
+    through the kernels against the plain versions (same inputs and draws):
+    the loss to 1e-5 relative, each gradient to 1e-3 of its peak, with
+    ``want_bwd`` (dK/dV, dQ) backward launches through the kernels and none
+    through the plain versions."""
+    from tqdne_tpu_torch.ops.flash_attention import flash_attention_bwd_dkdv, flash_attention_bwd_dq
+
+    def run():
+        module.zero_grad(set_to_none=True)
+        before = (flash_attention_bwd_dkdv.launches, flash_attention_bwd_dq.launches)
+        loss = loss_fn()
+        loss.backward()
+        launched = (flash_attention_bwd_dkdv.launches - before[0],
+                    flash_attention_bwd_dq.launches - before[1])
+        return loss.item(), {n: p.grad.clone() for n, p in module.named_parameters()
+                             if p.grad is not None}, launched
+
+    k_loss, k_grads, k_launched = run()
+    with plain_versions():  # autograd through the plain ops
+        p_loss, p_grads, p_launched = run()
+    worst, worst_name = 0.0, ""
+    for name, want in p_grads.items():
+        ratio = (k_grads[name] - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+    log(f"[{label}] f32 train step: loss kernels {k_loss:.8e} plain {p_loss:.8e} (rel "
+        f"{loss_rel:.3e}, tol 1e-5); {len(p_grads)} parameter gradients, worst max_abs_err / "
+        f"peak {worst:.3e} at {worst_name} (tol 1e-3); backward launches dkdv/dq kernels "
+        f"{k_launched} plain {p_launched}")
+    module.zero_grad(set_to_none=True)
+    if (set(k_grads) != set(p_grads) or len(p_grads) < min_grads or loss_rel > 1e-5
+            or worst > 1e-3 or k_launched != want_bwd or p_launched != (0, 0)
+            or not math.isfinite(k_loss)):
+        fail(f"{label}: the f32 train step through the kernels disagrees with the plain "
+             "versions")
+
+
+def rates_beside(label: str, step, batch_size: int, flagship) -> tuple[float, float]:
+    """Samples/s of ``step`` (``batch_size`` samples a call) and of the
+    flagship train step, in alternating windows of TRAIN_E2E_STEPS calls:
+    the median of TRAIN_E2E_RUNS windows each."""
+    step()
+    flagship()
+    torch.cuda.synchronize()
+    rates = {"recipe": [], "flagship": []}
+    for _ in range(TRAIN_E2E_RUNS):
+        for name, fn, n in (("recipe", step, batch_size), ("flagship", flagship, TRAIN_BATCH)):
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_E2E_STEPS):
+                fn()
+            torch.cuda.synchronize()
+            rates[name].append(n * TRAIN_E2E_STEPS / (time.perf_counter() - t0))
+    mine, ref = statistics.median(rates["recipe"]), statistics.median(rates["flagship"])
+    log(f"[recipe-e2e] {label}: {mine:.2f} samples/s (windows "
+        f"{[round(r, 2) for r in rates['recipe']]}) beside the flagship step's [train-e2e] "
+        f"{ref:.2f} ({[round(r, 2) for r in rates['flagship']]}) in alternate windows of "
+        f"{TRAIN_E2E_STEPS} steps; ratio {mine / ref:.4f}")
+    return mine, ref
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         sys.exit(2)
 
-    from tqdne_tpu_torch.cli.common import build_inference
+    import numpy as np
+
+    from tqdne_tpu_torch import configs
+    from tqdne_tpu_torch.cli.common import build_autoencoder, build_inference
     from tqdne_tpu_torch.cli.evaluate import load_classifier
+    from tqdne_tpu_torch.cli.precompute_latents import latent_moments
+    from tqdne_tpu_torch.data.dataset import (
+        ArrayDataset,
+        CachedLatentsDataset,
+        ClassificationDataset,
+        synthetic_arrays,
+    )
+    from tqdne_tpu_torch.data.pipeline import BatchLoader, DeviceResidentLoader
+    from tqdne_tpu_torch.data.representation import Identity
+    from tqdne_tpu_torch.models.classifier import Classifier
     from tqdne_tpu_torch.nn.attention import AttentionBlock
-    from tqdne_tpu_torch.nn.layers import Norm32
+    from tqdne_tpu_torch.nn.layers import Norm32, set_compute_dtype
     from tqdne_tpu_torch.ops import cuda_build
-    from tqdne_tpu_torch.data.dataset import ArrayDataset, synthetic_arrays
-    from tqdne_tpu_torch.data.pipeline import BatchLoader
+    from tqdne_tpu_torch.ops.representation import device_representation_fn
     from tqdne_tpu_torch.ops.flash_attention import (
         attention_delta,
         flash_attention,
@@ -777,9 +1029,22 @@ def main():
         flash_attention_bwd_dq_delta_plain,
         flash_attention_plain,
     )
-    from tqdne_tpu_torch.train.loop import Trainer
-    from tqdne_tpu_torch.train.steps import edm_step_loss
     from tqdne_tpu_torch.ops.group_norm import group_norm_silu, group_norm_silu_plain
+    from tqdne_tpu_torch.train.state import (
+        TrainState,
+        applied_updates,
+        cosine_annealing,
+        make_optimizer,
+    )
+    from tqdne_tpu_torch.train.steps import (
+        autoencoder_losses,
+        classifier_outputs,
+        edm_step_loss,
+        make_autoencoder_steps,
+        make_classifier_steps,
+        make_edm_steps,
+    )
+    from tqdne_tpu_torch.utils import init_like_flax_, randomize_
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -878,11 +1143,46 @@ def main():
     if (len(clf_gn), len(clf_fa)) != (18, 2):
         fail(f"expected 18 GroupNorm and 2 attention calls per classifier forward, got "
              f"{len(clf_gn)} and {len(clf_fa)}")
+    # the recipes' training paths, one forward each in train mode: the full-width
+    # autoencoder (moments, then decode) and the classifier, bf16 over f32 parameters
+    ae_train = init_like_flax_(build_autoencoder(config, torch.bfloat16)[0], SEED + 3)
+    clf_config = configs.SpectrogramClassificationConfig()
+    clf_train = init_like_flax_(set_compute_dtype(Classifier(
+        configs.get_classifier_encoder_config(clf_config), clf_config.num_classes),
+        torch.bfloat16), CLASSIFIER_SEED + 1)
+    ae_gn, clf_train_gn, clf_train_fa = [], [], []
+    hooks = []
+    for module in (ae_train, clf_train):
+        module.to(dev, memory_format=torch.channels_last).train()
+        sink = ae_gn if module is ae_train else clf_train_gn
+        hooks += [m.register_forward_pre_hook(gn_recorder(sink)) for m in module.modules()
+                  if isinstance(m, Norm32)]
+    hooks += [m.register_forward_pre_hook(fa_recorder(clf_train_fa)) for m in clf_train.modules()
+              if isinstance(m, AttentionBlock)]
+    with torch.no_grad():
+        zeros = torch.zeros(2, 128, 128, 3, device=dev)
+        autoencoder_losses(ae_train, {"signal": zeros})
+        classifier_outputs(clf_train, {"signal": zeros, "label": torch.zeros(2, device=dev)},
+                           torch.ones(clf_config.num_classes))
+    for h in hooks:
+        h.remove()
+    log(f"[shapes] autoencoder train step: {len(ae_gn)} GroupNorm calls (S, C): "
+        f"{sorted(collections.Counter((s, c) for *_, s, c, _, _ in ae_gn).items())}; classifier "
+        f"train step: {len(clf_train_gn)} GroupNorm calls, {len(clf_train_fa)} attention calls "
+        f"{sorted(set(clf_train_fa), key=str)}, at batch {CLF_TRAIN_BATCH}; dtype pairs "
+        f"{sorted({(str(x)[6:], str(p)[6:]) for x, p, *_ in ae_gn + clf_train_gn})}")
+    if (len(ae_gn), len(clf_train_gn), len(clf_train_fa)) != (len(enc_gn) + len(dec_gn), 18, 2):
+        fail(f"expected {len(enc_gn)} + {len(dec_gn)} GroupNorm calls per autoencoder step and "
+             f"18 GroupNorm and 2 attention calls per classifier step, got {len(ae_gn)}, "
+             f"{len(clf_train_gn)} and {len(clf_train_fa)}")
 
     # ---- 2. kernels against their plain versions ------------------------------
     errs = {}
-    bad = check_group_norm_kernels(gen, dev, errs, unet_gn + dec_gn + train_gn + enc_gn + clf_gn)
-    bad += check_flash_kernels(gen, dev, errs)
+    bad = check_group_norm_kernels(
+        gen, dev, errs, unet_gn + dec_gn + train_gn + enc_gn + clf_gn + ae_gn + clf_train_gn,
+        batches=(BATCH, CLF_TRAIN_BATCH, TRAIN_BATCH))
+    bad += check_flash_kernels(gen, dev, errs, [(CLF_TRAIN_BATCH, length, h, d)
+                                                for _, length, h, d, _ in clf_train_fa])
     torch.cuda.synchronize()
     if bad:
         fail(f"{bad} kernel checks disagree with the plain versions")
@@ -919,7 +1219,7 @@ def main():
                  "versions")
     del clf32
 
-    # one full-width f32 train step, kernels vs plain versions, same draws
+    # one full-width f32 train step of each recipe, kernels vs plain versions, same draws
     _, f32_state, _, f32_ae, model_shape, _ = training_setup(dev, torch.float32)
     unet32 = f32_state.model.eval()  # no dropout: the two passes see the same function
     n32 = 8
@@ -928,34 +1228,23 @@ def main():
     draws = {"ae_eps": torch.randn(n32, *model_shape, generator=gen, device=dev),
              "sigma_eps": torch.randn(n32, generator=gen, device=dev),
              "noise": torch.randn(n32, *model_shape, generator=gen, device=dev)}
-
-    def loss_and_grads():
-        unet32.zero_grad(set_to_none=True)
-        before = (flash_attention_bwd_dkdv.launches, flash_attention_bwd_dq.launches)
-        loss = edm_step_loss(unet32, batch32, autoencoder=f32_ae, draws=draws)
-        loss.backward()
-        launched = (flash_attention_bwd_dkdv.launches - before[0],
-                    flash_attention_bwd_dq.launches - before[1])
-        return loss.item(), {n: p.grad.clone() for n, p in unet32.named_parameters()
-                             if p.grad is not None}, launched
-
-    k_loss, k_grads, k_launched = loss_and_grads()
-    with plain_versions():  # autograd through the plain ops
-        p_loss, p_grads, p_launched = loss_and_grads()
-    worst, worst_name = 0.0, ""
-    for name, want in p_grads.items():
-        ratio = (k_grads[name] - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
-        if ratio > worst:
-            worst, worst_name = ratio, name
-    loss_rel = abs(k_loss - p_loss) / abs(p_loss)
-    log(f"[slice-f32-train] batch {n32} f32 train step: loss kernels {k_loss:.8e} plain "
-        f"{p_loss:.8e} (rel {loss_rel:.3e}, tol 1e-5); {len(p_grads)} parameter gradients, "
-        f"worst max_abs_err / peak {worst:.3e} at {worst_name} (tol 1e-3); backward launches "
-        f"dkdv/dq kernels {k_launched} plain {p_launched}")
-    if (set(k_grads) != set(p_grads) or len(p_grads) < 100 or loss_rel > 1e-5 or worst > 1e-3
-            or k_launched != (6, 6) or p_launched != (0, 0) or not math.isfinite(k_loss)):
-        fail("the f32 train step through the kernels disagrees with the plain versions")
-    del f32_state, f32_ae, unet32, k_grads, p_grads
+    check_step_vs_plain("slice-f32-train", unet32,
+                        lambda: edm_step_loss(unet32, batch32, autoencoder=f32_ae, draws=draws),
+                        (6, 6), 100)
+    del f32_state, f32_ae, unet32
+    ae32 = randomize_(build_autoencoder(config, torch.float32)[0], SEED + 3)
+    ae32.to(dev, memory_format=torch.channels_last).eval()
+    check_step_vs_plain("ae-f32-train", ae32, lambda: autoencoder_losses(
+        ae32, {"signal": batch32["signal"]}, kl_weight=config.kl_weight,
+        draws={"ae_eps": draws["ae_eps"]})["loss"], (0, 0), 50)
+    clf32 = load_classifier(dtype=torch.float32, device=dev, init_seed=CLASSIFIER_SEED)
+    clf_batch32 = {"signal": batch32["signal"],
+                   "label": torch.randint(0, clf_config.num_classes, (n32,), generator=gen,
+                                          device=dev)}
+    class_weights = torch.rand(clf_config.num_classes, generator=gen, device=dev) + 0.5
+    check_step_vs_plain("classifier-f32-train", clf32, lambda: classifier_outputs(
+        clf32, clf_batch32, class_weights)[1]["loss"], (2, 2), 50)
+    del ae32, clf32
     torch.cuda.empty_cache()
 
     # ---- 4. the main path ------------------------------------------------------
@@ -987,48 +1276,144 @@ def main():
 
     # ---- 4b. the main training path: Trainer.fit, bf16, batch 128 -------------
     t0 = time.perf_counter()
-    dataset = ArrayDataset(synthetic_arrays(TRAIN_SAMPLES, t=config.t, seed=SEED),
-                           config.make_representation(), cut=config.t, cond=True, split="full")
+    arrays = synthetic_arrays(TRAIN_SAMPLES, t=config.t, seed=SEED)
+    representation = config.make_representation()
+    dataset = ArrayDataset(arrays, representation, cut=config.t, cond=True, split="full")
     loader = BatchLoader(dataset, TRAIN_BATCH, device=dev, keys=("signal", "cond"), seed=SEED)
     log(f"[train] {TRAIN_SAMPLES} synthetic waveforms in {time.perf_counter() - t0:.2f} s; "
         f"{len(loader)} batches of {TRAIN_BATCH} per epoch; encoder GroupNorm calls per "
         f"encode: {len(enc_gn)}")
-    workdir = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
-    shutil.rmtree(workdir, ignore_errors=True)
-    trainer = Trainer(train_step, eval_step, workdir, device=dev, max_epochs=1000,
-                      max_steps=TRAIN_STEPS, log_every=10, seed=SEED,
-                      checkpoint_every_epochs=10**6, lr_schedule=schedule)
+
+    def flagship_want(steps: int, encoder: bool = True) -> dict:
+        """The flagship step's launches: the UNet's, and the frozen encoder's GroupNorm."""
+        gn = len(unet_gn) + (len(enc_gn) if encoder else 0)
+        return want_launches(gn * steps, len(unet_fa) * steps, len(unet_fa) * steps)
+
+    train_counts, metric_rows = counted_fit(
+        "train", (train_step, eval_step), state, loader, max_steps=TRAIN_STEPS,
+        want=flagship_want(TRAIN_STEPS), want_gn_bwd=len(unet_gn) * TRAIN_STEPS,
+        lr_schedule=schedule)
+    launches = {k: launches.get(k, 0) + v for k, v in train_counts.items()}
+    recipe_counts = {}  # the recipe paths' launch counts, by run
+
+    # ---- 4e. the autoencoder recipe: Trainer.fit, AdamW, bf16, batch 128 -------
+    ae_loader = BatchLoader(ArrayDataset(arrays, representation, cut=config.t, split="full"),
+                            TRAIN_BATCH, device=dev, keys=("signal",), seed=SEED)
+    ae_schedule = cosine_annealing(1e-4, 300 * len(ae_loader))  # the recipe's 300 epochs
+    ae_state = TrainState(ae_train, make_optimizer("adamw", ae_train, 1e-4, 1e-4), ae_schedule)
+    ae_steps = make_autoencoder_steps(kl_weight=config.kl_weight, ema_decay=0.0)
+    recipe_counts["ae_train"], _ = counted_fit(
+        "ae-train", ae_steps, ae_state, ae_loader, max_steps=AE_STEPS,
+        want=want_launches(len(ae_gn) * AE_STEPS), want_gn_bwd=len(ae_gn) * AE_STEPS,
+        lr_schedule=ae_schedule)
+
+    # ---- 4f. the classifier recipe: Adam, bf16, batch 64, one validation pass ------
+    bins = clf_config.mag_bins, clf_config.dist_bins
+    clf_train_ds = ClassificationDataset(arrays, representation, *bins, cut=config.t,
+                                         split="train_validation")
+    clf_val_ds = ClassificationDataset(arrays, representation, *bins, cut=config.t, split="test")
+    clf_loader = BatchLoader(clf_train_ds, CLF_TRAIN_BATCH, device=dev, keys=("signal", "label"),
+                             seed=SEED)
+    clf_val = BatchLoader(clf_val_ds, min(CLF_TRAIN_BATCH, len(clf_val_ds)), shuffle=False,
+                          device=dev, keys=("signal", "label"))
+    clf_schedule = cosine_annealing(1e-4, 110 * len(clf_loader))  # the recipe's 110 epochs
+    clf_state = TrainState(clf_train, make_optimizer("adam", clf_train, 1e-4), clf_schedule)
+    clf_train_step, clf_eval_step, clf_post = make_classifier_steps(
+        clf_train_ds.get_class_weights(), ema_decay=0.0)
+    forwards = CLF_STEPS + len(clf_val)  # the train steps' and the one validation pass's
+    recipe_counts["classifier_train"], clf_rows = counted_fit(
+        "classifier-train", (clf_train_step, clf_eval_step), clf_state, clf_loader,
+        max_steps=CLF_STEPS, want=want_launches(len(clf_train_gn) * forwards,
+                                                len(clf_train_fa) * forwards,
+                                                len(clf_train_fa) * CLF_STEPS),
+        want_gn_bwd=len(clf_train_gn) * CLF_STEPS, val_loader=clf_val,
+        eval_every=CLF_STEPS // len(clf_loader), metric_postprocess=clf_post,
+        lr_schedule=clf_schedule)
+    val_rows = [r for r in clf_rows if "validation/loss" in r]
+    macro = {k: v for r in val_rows for k, v in r.items() if k.startswith("validation/macro")}
+    log(f"[classifier-train] {len(val_rows)} validation pass over {len(clf_val_ds)} test rows: "
+        f"{json.dumps({k: v for r in val_rows for k, v in r.items()})}")
+    if len(val_rows) != 1 or len(macro) != 4 or not all(map(math.isfinite, macro.values())):
+        fail(f"classifier recipe: {len(val_rows)} validation passes, macro metrics {macro}")
+
+    # ---- 4g. cached latents: the precompute core with that autoencoder, then the
+    # flagship step from the moments through DeviceResidentLoader (no encoder) -----
+    ae32 = build_autoencoder(config, torch.float32)[0]  # precompute_latents' f32 default
+    ae32.load_state_dict(ae_state.model.state_dict())
+    ae32.to(dev, memory_format=torch.channels_last).eval()
     torch.cuda.synchronize()
-    counters = (group_norm_silu, flash_attention, flash_attention_bwd_dkdv,
-                flash_attention_bwd_dq)
-    for fn in counters:
+    group_norm_silu.launches = 0
+    t0 = time.perf_counter()
+    mean, log_std = latent_moments(ae32, arrays["waveforms"], representation, cut=config.t,
+                                   device=dev)
+    pre_s, pre_gn = time.perf_counter() - t0, group_norm_silu.launches
+    finite = bool(np.isfinite(mean).all() and np.isfinite(log_std).all())
+    log(f"[precompute] latent moments of {TRAIN_SAMPLES} waveforms in {pre_s:.3f} s (f32, batch "
+        f"64): {mean.shape} finite {finite}; GroupNorm launches {pre_gn}")
+    if (mean.shape != (TRAIN_SAMPLES, *model_shape) or not finite
+            or pre_gn != len(enc_gn) * -(-TRAIN_SAMPLES // 64)):
+        fail(f"precompute: moments {mean.shape}, finite {finite}, GroupNorm launches {pre_gn}")
+    latent_keys = ("latent_mean", "latent_log_std", "cond")
+    cached_ds = CachedLatentsDataset(arrays, {"latent_mean": mean, "latent_log_std": log_std},
+                                     representation, split="full")
+    if not DeviceResidentLoader.fits(cached_ds, latent_keys):
+        fail("cached latents: the moments do not fit the device-resident budget")
+    cached_loader = DeviceResidentLoader(cached_ds, TRAIN_BATCH, keys=latent_keys, device=dev,
+                                         seed=SEED)
+    cached_steps = make_edm_steps(autoencoder=ae32, latent_moments=True)
+    recipe_counts["cached_latents"], _ = counted_fit(
+        "cached-latents", cached_steps, state, cached_loader, max_steps=state.step + TRAIN_STEPS,
+        want=flagship_want(TRAIN_STEPS, encoder=False), want_gn_bwd=len(unet_gn) * TRAIN_STEPS,
+        lr_schedule=schedule)
+
+    # ---- 4h. the representation on the device: the loader ships raw waveforms -----
+    wave_loader = BatchLoader(ArrayDataset(arrays, Identity(), cut=config.t, cond=True,
+                                           split="full"),
+                              TRAIN_BATCH, device=dev, keys=("waveform", "cond"), seed=SEED)
+    rep_steps = make_edm_steps(autoencoder=ae_t,
+                               device_representation=device_representation_fn(representation))
+    recipe_counts["device_representation"], _ = counted_fit(
+        "device-representation", rep_steps, state, wave_loader,
+        max_steps=state.step + TRAIN_STEPS, want=flagship_want(TRAIN_STEPS),
+        want_gn_bwd=len(unet_gn) * TRAIN_STEPS, lr_schedule=schedule)
+
+    # ---- 4i. the non-finite guard on the card: a NaN batch, then a clean one ------
+    tgen = torch.Generator(device=dev).manual_seed(SEED)
+    clean = next(iter(loader))
+    bad_batch = dict(clean, signal=torch.full_like(clean["signal"], float("nan")))
+    params = [p for p in state.model.parameters() if p.requires_grad]
+    before = [p.detach().clone() for p in params]
+    moments_before = state.optimizer.state[params[0]]["exp_avg"].clone()
+    count0, step0 = int(applied_updates(state.optimizer)), state.step
+    state.skip_nonfinite = GUARD_N
+    kernels = launch_counters()
+    for fn in kernels:
         fn.launches = 0
     group_norm_silu.backward_calls = 0
-    t0 = time.perf_counter()
-    trainer.fit(state, loader, resume=False)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    train_counts = {fn.__name__: fn.launches for fn in counters}
-    gn_bwd_calls = group_norm_silu.backward_calls
-    metric_rows = [json.loads(line) for line in (workdir / "metrics.jsonl").open()]
-    losses = [r["training/loss"] for r in metric_rows if "training/loss" in r]
-    log(f"[train] Trainer.fit: {state.step} steps of batch {TRAIN_BATCH} bf16 in {fit_s:.2f} s "
-        f"(checkpoint included), logged losses {losses}, traintime "
-        f"{metric_rows[-1]['traintime']:.3f} s; launches {train_counts}, GroupNorm plain backward "
-        f"calls {gn_bwd_calls}")
-    want_counts = {"group_norm_silu": (len(unet_gn) + len(enc_gn)) * TRAIN_STEPS,
-                   "flash_attention": len(unet_fa) * TRAIN_STEPS,
-                   "flash_attention_bwd_dkdv": len(unet_fa) * TRAIN_STEPS,
-                   "flash_attention_bwd_dq": len(unet_fa) * TRAIN_STEPS}
-    if state.step != TRAIN_STEPS or not losses or not all(map(math.isfinite, losses)):
-        fail(f"training: {state.step} steps, losses {losses}")
-    if train_counts != want_counts or gn_bwd_calls != len(unet_gn) * TRAIN_STEPS:
-        fail(f"training launches {train_counts} (GroupNorm backward {gn_bwd_calls}) != "
-             f"expected {want_counts} ({len(unet_gn) * TRAIN_STEPS})")
-    if not (workdir / "checkpoints" / "last" / f"{TRAIN_STEPS}.pt").exists():
-        fail("training: no checkpoint written")
-    shutil.rmtree(workdir, ignore_errors=True)
-    launches = {k: launches.get(k, 0) + v for k, v in train_counts.items()}
+    bad_loss = train_step(state, bad_batch, generator=tgen)["loss"].item()
+    held = (all(torch.equal(b, p) for b, p in zip(before, params))
+            and torch.equal(moments_before, state.optimizer.state[params[0]]["exp_avg"]))
+    after_bad = int(applied_updates(state.optimizer)), state.notfinite_count.item()
+    clean_loss = train_step(state, clean, generator=tgen)["loss"].item()
+    moved = sum(not torch.equal(b, p) for b, p in zip(before, params))
+    after_clean = int(applied_updates(state.optimizer)), state.notfinite_count.item()
+    state.skip_nonfinite = 0
+    recipe_counts["guard"] = {fn.__name__: fn.launches for fn in kernels}
+    log(f"[guard] skip_nonfinite={GUARD_N}: a NaN batch gave loss {bad_loss}, parameters and "
+        f"Adam moments held {held}, (updates applied, consecutive non-finite) {count0} -> "
+        f"{after_bad}; the next clean batch gave loss {clean_loss:.6e}, moved {moved} of "
+        f"{len(params)} parameter tensors, {after_clean}; step {step0} -> {state.step}; "
+        f"launches {recipe_counts['guard']}, GroupNorm plain backward calls "
+        f"{group_norm_silu.backward_calls}")
+    if (math.isfinite(bad_loss) or not held or after_bad != (count0, 1.0)
+            or not math.isfinite(clean_loss) or moved < len(params) // 2
+            or after_clean != (count0 + 1, 0.0) or state.step != step0 + 2):
+        fail("the non-finite guard did not hold a NaN step and apply the clean one")
+    if (recipe_counts["guard"] != flagship_want(2)
+            or group_norm_silu.backward_calls != 2 * len(unet_gn)):
+        fail(f"guard launches {recipe_counts['guard']} != {flagship_want(2)}")
+    for run_counts in recipe_counts.values():
+        launches = {k: launches[k] + v for k, v in run_counts.items()}
 
     # ---- 4c. the serving path: the HTTP server over the dpmpp_2m-10 bundle -----
     per_serve_batch = (len(unet_gn) * 10 + len(dec_gn), len(unet_fa) * 10)
@@ -1143,7 +1528,6 @@ def main():
 
     # training: samples/s of train_step on a resident batch, a profiled step,
     # the backward kernels per call, and one step at the recipe's batch 256
-    tgen = torch.Generator(device=dev).manual_seed(SEED)
     batch = next(iter(loader))
 
     def one_step(b=batch):
@@ -1165,7 +1549,41 @@ def main():
         f"{[round(r, 4) for r in secs]}); Trainer.fit ran {TRAIN_STEPS} steps at "
         f"{TRAIN_BATCH * TRAIN_STEPS / metric_rows[-1]['traintime']:.2f} samples/s of its "
         f"traintime")
-    train_profile(one_step, f"one train step, batch {TRAIN_BATCH}, bf16")
+    flagship_profile = train_profile(one_step, f"one train step, batch {TRAIN_BATCH}, bf16")
+
+    # the guard's cost and the cached-latent step against the flagship step in alternated
+    # single steps, each also profiled; then the recipes' steps beside the flagship step
+    recipe_batches = {name: next(iter(ld)) for name, ld in (
+        ("ae", ae_loader), ("classifier", clf_loader), ("cached", cached_loader),
+        ("waveform", wave_loader))}
+
+    def guarded_step():
+        state.skip_nonfinite = GUARD_N
+        one_step()
+        state.skip_nonfinite = 0
+
+    guard = paired_steps(f"the flagship step with the guard armed (skip_nonfinite={GUARD_N}), "
+                         f"batch {TRAIN_BATCH}, bf16", guarded_step, one_step, flagship_profile)
+    guard_update = guard_update_cost(state)
+    step_issue = guard["base"]["issue_ms"]
+    log(f"[guard] cost on the flagship step, batch {TRAIN_BATCH}, bf16: in its update "
+        f"{guard_update['issue_ms']:.4f} issue ms "
+        f"({100 * guard_update['issue_ms'] / step_issue:.3f}% of the step's {step_issue:.3f}) "
+        f"and {guard_update['wall_ms']:.4f} wall ms; median step pair difference "
+        f"{guard['wall_diff_ms']:.3f} ms; launches {guard.get('launches')}")
+    paired_steps(f"the flagship step from cached latents (no encoder), batch {TRAIN_BATCH}, bf16",
+                 lambda: cached_steps[0](state, recipe_batches["cached"], generator=tgen),
+                 one_step, flagship_profile)
+    for label, step, st, name, n in (
+            ("autoencoder recipe step (AdamW, no EMA), batch 128, bf16", ae_steps[0], ae_state,
+             "ae", TRAIN_BATCH),
+            ("classifier recipe step (Adam, no EMA), batch 64, bf16", clf_train_step, clf_state,
+             "classifier", CLF_TRAIN_BATCH),
+            ("flagship step from cached latents (no encoder), batch 128, bf16",
+             cached_steps[0], state, "cached", TRAIN_BATCH),
+            ("flagship step with the representation on the device, batch 128, bf16",
+             rep_steps[0], state, "waveform", TRAIN_BATCH)):
+        rates_beside(label, lambda: step(st, recipe_batches[name], generator=tgen), n, one_step)
 
     def bwd_rows(dtype, length, h, d, causal, calls, batch=TRAIN_BATCH):
         q, k, v = qkv_views(batch, length, h, d, dtype, "fused", gen, dev)
@@ -1217,9 +1635,36 @@ def main():
             f"{1e3 * (dq_row['ms'] + dkdv_row['ms']):.2f} us against SDPA's whole backward "
             f"{1e3 * dq_row['library_ms']:.2f} us; the plain attention_delta alone "
             f"{1e3 * dq_row['attention_delta_ms']:.2f} us")
-    classifier_like = bwd_rows(torch.bfloat16, 256, 4, 64, False, 0, batch=BATCH)
-    for r in classifier_like.values():  # for the record
-        log(f"[time] {json.dumps(r)}")
+    # the classifier recipe's train step at batch 64: its kernels per call, summed per
+    # step, and the step by kernel class
+    clf_fa_key = clf_train_fa[0]
+    clf_step_rows = {
+        "group_norm_silu": [gn_row(*key, calls=clf_train_gn.count(key), batch=CLF_TRAIN_BATCH)
+                            for key in dict.fromkeys(clf_train_gn)],
+        "flash_attention": [fa_row(*clf_fa_key, calls=len(clf_train_fa),
+                                   batch=CLF_TRAIN_BATCH)],
+        **{k: [v] for k, v in bwd_rows(*clf_fa_key, calls=len(clf_train_fa),
+                                       batch=CLF_TRAIN_BATCH).items()}}
+    clf_step_sums = {}
+    for name, rows in clf_step_rows.items():
+        for row in rows:
+            log(f"[time] classifier train step {json.dumps(row)}")
+        clf_step_sums[name] = {k: summed(rows, k) for k in ("ms", "bound_ms", "plain_ms",
+                                                            "library_ms", "issue_ms")}
+        clf_step_sums[name] |= {"calls": summed(rows, "one"),
+                                "per": f"one classifier train step, batch {CLF_TRAIN_BATCH}, bf16"}
+        log(f"[time] {name} over one classifier train step, batch {CLF_TRAIN_BATCH}: "
+            + json.dumps(clf_step_sums[name]))
+    dq_row = clf_step_rows["flash_attention_bwd_dq"][0]
+    dkdv_row = clf_step_rows["flash_attention_bwd_dkdv"][0]
+    log(f"[time] flash backward {dq_row['shape']}: dQ + dK/dV "
+        f"{1e3 * (dq_row['ms'] + dkdv_row['ms']):.2f} us against SDPA's whole backward "
+        f"{1e3 * dq_row['library_ms']:.2f} us (factor "
+        f"{(dq_row['ms'] + dkdv_row['ms']) / dq_row['library_ms']:.3f})")
+    train_profile(lambda: clf_train_step(clf_state, recipe_batches["classifier"], generator=tgen),
+                  f"one classifier train step, batch {CLF_TRAIN_BATCH}, bf16")
+    train_profile(lambda: ae_steps[0](ae_state, recipe_batches["ae"], generator=tgen),
+                  f"one autoencoder train step, batch {TRAIN_BATCH}, bf16")
 
     big = next(iter(BatchLoader(dataset, 2 * TRAIN_BATCH, device=dev, keys=("signal", "cond"),
                                 prefetch=0)))
@@ -1254,9 +1699,11 @@ def main():
                 f"batch {BATCH}, bf16",
             launches_per_run={**{run: counts[run][which] for run in counts},
                               "train": train_counts[name],
-                              **{run: c[which] for run, c in path_counts.items()}},
+                              **{run: c[which] for run, c in path_counts.items()},
+                              **{run: c[name] for run, c in recipe_counts.items()}},
             classifier_forward=clf_sums[name] | {"per": f"one classifier forward, batch {BATCH}, "
                                                         f"bf16"},
+            classifier_train_step=clf_step_sums[name],
         ))
     for name, line in (("flash_attention_bwd_dkdv", 209), ("flash_attention_bwd_dq", 274)):
         rows = [row[name] for row in bwd]
@@ -1271,7 +1718,9 @@ def main():
             library_ms=summed(rows, "library_ms"), issue_ms=summed(rows, "issue_ms"),
             per=f"all calls of one train step, batch {TRAIN_BATCH}, bf16; library_ms is the "
                 f"SDPA backward, which computes dq, dk and dv together",
-            launches_per_run={"train": train_counts[name]},
+            launches_per_run={"train": train_counts[name],
+                              **{run: c[name] for run, c in recipe_counts.items()}},
+            classifier_train_step=clf_step_sums[name],
         ))
     redesigned = {
         "group_norm_silu": "one launch: a thread-block cluster over row chunks of whole-group "

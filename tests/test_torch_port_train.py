@@ -388,7 +388,10 @@ def test_trainer_resume_is_exact_and_writes_the_jax_metric_keys(tmp_path):
 
 def test_train_cli_writes_metrics_and_a_checkpoint(tmp_path):
     """``latent_edm --synthetic 16 --tiny -b 4 --max-steps 2 --device cpu``
-    with a converted tiny autoencoder; unported options are refused."""
+    with a converted tiny autoencoder, then resumed for a third step with
+    the representation on the device and the non-finite guard armed;
+    ``--cached-latents`` without a sidecar, an autoencoder recipe with
+    cached latents and unported recipes are refused."""
     config = jconfigs.LatentSpectrogramConfig(workdir=str(tmp_path))
     ae, _, _ = jax_build_autoencoder(config, 2, model_channels=32)
     shapes = jax.eval_shape(lambda: ae.init({"params": jax.random.key(0),
@@ -408,8 +411,12 @@ def test_train_cli_writes_metrics_and_a_checkpoint(tmp_path):
     assert all(np.isfinite(r["training/loss"]) for r in rows if "training/loss" in r)
     assert any("validation/loss" in r for r in rows)
     assert (run / "checkpoints" / "last" / "2.pt").exists()
-    for flag in (["--cached-latents"], ["--device-representation"], ["--skip-nonfinite", "3"]):
-        with pytest.raises(SystemExit, match="not ported"):
-            train_cli.main(argv + flag)
+    state = train_cli.main([*argv[:-6], "--max-steps", "3", "--device-representation",
+                            "--skip-nonfinite", "3", *argv[-4:]])
+    assert state.step == 3 and (run / "checkpoints" / "last" / "3.pt").exists()
+    with pytest.raises(SystemExit, match="not found"):
+        train_cli.main(argv + ["--cached-latents"])
+    with pytest.raises(SystemExit, match="needs a latent"):
+        train_cli.main(["autoencoder", *argv[1:], "--cached-latents"])
     with pytest.raises(SystemExit, match="not ported"):
         train_cli.main(["edm", *argv[1:]])

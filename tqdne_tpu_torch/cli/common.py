@@ -1,13 +1,15 @@
-"""Model, loader and sampler assembly for the flagship ``latent_edm`` recipe:
-the port of ``tqdne_tpu/cli/common.py`` (``InferenceBundle`` with its
-fixed-batch ``sampler`` for serving, ``build_inference``, ``parse_dtype``,
+"""Model, loader and sampler assembly for the flagship chain: the port of
+``tqdne_tpu/cli/common.py`` (``InferenceBundle`` with its fixed-batch
+``sampler`` for serving, ``build_inference``, ``parse_dtype``,
 ``ensure_dataset``, ``make_loaders``, ``build_unet``, ``build_autoencoder``,
-``dataset_feature_stats`` and the flags the train CLI reads).
+``load_ae_state``, ``dataset_feature_stats`` and the flags the train CLI
+reads).
 
 Weights come from ``.pt`` state dicts written by
 ``python -m tqdne_tpu_torch.utils.convert`` from the JAX package's flax
-artifacts.  A model given no weights file gets seeded random weights
-(``utils.randomize_``), which is what smoke runs and tests use.
+artifacts, or from the port's own training runs under ``outputs/``.  A model
+given no weights file gets seeded random weights (``utils.randomize_``),
+which is what smoke runs and tests use.
 """
 
 from __future__ import annotations
@@ -19,18 +21,20 @@ import numpy as np
 import torch
 
 from tqdne_tpu_torch import configs
-from tqdne_tpu_torch.data.dataset import Dataset, make_synthetic_dataset
-from tqdne_tpu_torch.data.pipeline import BatchLoader
+from tqdne_tpu_torch.data.dataset import CachedLatentsDataset, Dataset, make_synthetic_dataset
+from tqdne_tpu_torch.data.pipeline import BatchLoader, DeviceResidentLoader
+from tqdne_tpu_torch.data.representation import Identity
 from tqdne_tpu_torch.models.autoencoder import AutoencoderKL
 from tqdne_tpu_torch.models.unet import UNet
 from tqdne_tpu_torch.nn.layers import set_compute_dtype
+from tqdne_tpu_torch.train.checkpoint import Checkpointer
 from tqdne_tpu_torch.train.steps import sample_latent_edm
 from tqdne_tpu_torch.utils import randomize_, resolve_device
 
 logger = logging.getLogger("tqdne_tpu_torch")
 
-RECIPES = ("latent_edm",)  # the ported recipes; the others come with later slices
 RUN_NAME = "Latent-EDM-32x32x8-LogSpectrogram"  # the flagship run's name under outputs/
+AE_NAME = "Autoencoder-32x32x4-LogSpectrogram"  # its frozen autoencoder's run
 DTYPES = {"f32": torch.float32, "float32": torch.float32, "bf16": torch.bfloat16,
           "bfloat16": torch.bfloat16}
 TINY_CHANNELS = 32  # model_channels of the --tiny UNet and autoencoder
@@ -57,6 +61,43 @@ def build_autoencoder(config, dtype=None, *, tiny: bool = False):
         enc_cfg = enc_cfg | {"model_channels": TINY_CHANNELS}
         dec_cfg = dec_cfg | {"model_channels": TINY_CHANNELS}
     return set_compute_dtype(AutoencoderKL(enc_cfg, dec_cfg), dtype), enc_cfg, dec_cfg
+
+
+def autoencoder_hparams(config, enc_cfg: dict, dec_cfg: dict) -> dict:
+    """What an autoencoder run stores in ``hparams.json`` (the JAX keys)."""
+    return {"kind": "autoencoder", "dims": enc_cfg.get("dims"), "encoder": enc_cfg,
+            "decoder": dec_cfg, "kl_weight": config.kl_weight}
+
+
+def load_ae_state(config, ae_name: str, enc_cfg: dict, dec_cfg: dict) -> dict:
+    """The frozen autoencoder's state dict from the port's run
+    ``outputs/<ae_name>/checkpoints``: its latest checkpoint's EMA weights.
+    Stored hyperparameters that differ from the autoencoder being built are
+    reported (an architecture that differs then fails to load)."""
+    ckptdir = Path(config.outputdir) / ae_name / "checkpoints"
+    ckpt = Checkpointer(ckptdir)
+    restored = ckpt.restore_latest_raw()
+    if restored is None:
+        raise FileNotFoundError(
+            f"frozen autoencoder not found under {ckptdir.parent} (train it first with "
+            f"`python -m tqdne_tpu_torch.cli.train autoencoder --workdir ...`, or pass "
+            f"--ae-weights)")
+    ckpt.verify_hyperparameters(autoencoder_hparams(config, enc_cfg, dec_cfg), strict=False)
+    logger.info("loaded frozen AE (EMA weights, step %d) from %s", restored[1], ckptdir)
+    return restored[0]["ema"]
+
+
+def frozen_autoencoder(config, dtype=None, *, tiny: bool = False, weights=None,
+                       ae_name: str = AE_NAME):
+    """The latent recipes' frozen autoencoder from the ``.pt`` state dict
+    ``weights``, or without one from the port's own run ``ae_name``; returns
+    (module, encoder config, decoder config) as ``build_autoencoder``."""
+    ae, enc_cfg, dec_cfg = build_autoencoder(config, dtype, tiny=tiny)
+    if weights is not None:
+        load_weights(ae, weights, 0)
+    else:
+        ae.load_state_dict(load_ae_state(config, ae_name, enc_cfg, dec_cfg))
+    return ae, enc_cfg, dec_cfg
 
 
 def build_unet(config, in_channels: int, out_channels: int, dtype=None, **overrides):
@@ -92,23 +133,37 @@ def ensure_dataset(config, synthetic_n: int | None):
 
 
 def make_loaders(config, batch_size: int, *, cond: bool, device, val_batch: int | None = None,
-                 keys=("signal", "cond")):
-    """Train and validation ``BatchLoader``s over the HDF5 dataset; returns
-    (train, validation, representation)."""
+                 keys=("signal", "cond"), host_representation: bool = True, latents_path=None):
+    """Train and validation loaders over the HDF5 dataset; returns (train,
+    validation, representation).
+
+    ``host_representation=False``: the datasets ship raw waveforms (the
+    step computes the signal on the device); the representation returned
+    is still the real one.  ``latents_path``: ``CachedLatentsDataset`` over
+    the precomputed moments, whose training columns go to the device once
+    (``DeviceResidentLoader``) when they fit."""
     representation = config.make_representation()
-    ds_train = Dataset(config.datapath, representation, cut=config.t, cond=cond, split="train")
-    ds_val = Dataset(config.datapath, representation, cut=config.t, cond=cond,
-                     split="validation")
+    ds_rep = representation if host_representation else Identity()
+
+    def make_ds(split):
+        if latents_path is not None:
+            return CachedLatentsDataset(config.datapath, latents_path, ds_rep, cut=config.t,
+                                        cond=cond, split=split)
+        return Dataset(config.datapath, ds_rep, cut=config.t, cond=cond, split=split)
+
+    ds_train, ds_val = make_ds("train"), make_ds("validation")
     vb = val_batch or max(1, min(batch_size, len(ds_val)))
-    train_loader = BatchLoader(ds_train, batch_size, device=device, keys=keys)
+    if latents_path is not None and DeviceResidentLoader.fits(ds_train, keys):
+        train_loader = DeviceResidentLoader(ds_train, batch_size, device=device, keys=keys)
+    else:
+        train_loader = BatchLoader(ds_train, batch_size, device=device, keys=keys)
     val_loader = BatchLoader(ds_val, vb, shuffle=False, drop_last=True, device=device, keys=keys)
     return train_loader, val_loader, representation
 
 
 def add_common_args(parser):
-    """The flags of ``tqdne_tpu.cli.common.add_common_args`` the train CLI reads,
-    plus ``--device`` and ``--ae-weights``; the JAX-only ones are accepted so
-    that they can be refused loudly."""
+    """The flags of ``tqdne_tpu.cli.common.add_common_args`` the train CLI
+    reads, plus ``--device`` and ``--ae-weights``."""
     parser.add_argument("--workdir", type=str, required=True,
                         help="working directory (data/ and outputs/ live here)")
     parser.add_argument("-b", "--batchsize", type=int, default=None)
@@ -119,9 +174,10 @@ def add_common_args(parser):
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--synthetic", type=int, default=0,
                         help="if no dataset exists, generate a synthetic one with N examples")
-    parser.add_argument("--ae-weights", type=str, required=True,
-                        help="frozen autoencoder state dict (.pt) from "
-                             "tqdne_tpu_torch.utils.convert")
+    parser.add_argument("--ae-weights", type=str, default=None,
+                        help="latent recipes: the frozen autoencoder's state dict (.pt, e.g. "
+                             "from tqdne_tpu_torch.utils.convert); default: the port's own "
+                             f"{AE_NAME} run in the workdir")
     parser.add_argument("--no-resume", action="store_true")
     parser.add_argument("--val-every", type=int, default=1,
                         help="validation-loss pass period in epochs")
@@ -129,11 +185,19 @@ def add_common_args(parser):
                         help="checkpoint period in epochs")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--tiny", action="store_true",
-                        help="shrink model widths for smoke runs (32-channel UNet and AE)")
-    # not ported yet: refused in cli.train
-    parser.add_argument("--cached-latents", action="store_true", help="not ported yet")
-    parser.add_argument("--device-representation", action="store_true", help="not ported yet")
-    parser.add_argument("--skip-nonfinite", type=int, default=0, help="not ported yet")
+                        help="shrink model widths for smoke runs (32-channel UNet and AE, "
+                             "16-channel classifier)")
+    parser.add_argument("--cached-latents", action="store_true",
+                        help="latent recipes: read the autoencoder's precomputed moments "
+                             "(tqdne_tpu_torch.cli.precompute_latents) instead of encoding "
+                             "every step")
+    parser.add_argument("--device-representation", action="store_true",
+                        help="compute the signal representation on the device inside the "
+                             "train step (the loader ships raw waveforms)")
+    parser.add_argument("--skip-nonfinite", type=int, default=0, metavar="N",
+                        help="apply no update for a step with NaN/inf gradients, and accept "
+                             "the update after N consecutive such steps, as optax "
+                             "apply_if_finite (0 = off)")
     return parser
 
 
@@ -219,8 +283,8 @@ def build_inference(recipe_key: str = "latent_edm", *, unet_weights=None, ae_wei
     ``tiny``: 32-channel UNet and autoencoder (the JAX ``--tiny`` widths).
     ``init_seed`` seeds the random weights of a model given no weights file.
     """
-    if recipe_key not in RECIPES:
-        raise SystemExit(f"recipe {recipe_key!r} is not ported yet (have: {RECIPES})")
+    if recipe_key != "latent_edm":
+        raise SystemExit(f"recipe {recipe_key!r} cannot be sampled yet (have: 'latent_edm')")
     if solver not in ("heun", "dpmpp_2m"):
         raise SystemExit(f"unknown solver {solver!r}; use 'heun' or 'dpmpp_2m'")
     device = resolve_device(device)

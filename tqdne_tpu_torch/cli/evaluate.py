@@ -12,9 +12,11 @@ classifier embedding, target/predicted classifier logits) and a
         --classifier-manifest weights/Classifier-LogSpectrogram-ema.manifest.json
 
 Weights are ``.pt`` state dicts from ``python -m tqdne_tpu_torch.utils.convert``.
-Without ``--classifier-weights`` the classifier datasets are skipped.  The
-dataset is HDF5 and needs ``h5py``; ``evaluate_batch`` is the per-batch work
-without the file.
+Without ``--classifier-weights`` the classifier is the port's own run
+``outputs/<--classifier-name>`` in the workdir, built at its stored widths;
+without either the classifier datasets are skipped.  The dataset is HDF5
+and needs ``h5py``; ``evaluate_batch`` is the per-batch work without the
+file.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from tqdne_tpu_torch.cli import common
 from tqdne_tpu_torch.data.dataset import Dataset
 from tqdne_tpu_torch.models.classifier import Classifier
 from tqdne_tpu_torch.nn.layers import set_compute_dtype
+from tqdne_tpu_torch.train.checkpoint import Checkpointer
 from tqdne_tpu_torch.utils import fold_seed, resolve_device
 from tqdne_tpu_torch.utils.convert import read_manifest
 
@@ -51,6 +54,31 @@ def load_classifier(weights=None, manifest=None, *, dtype=torch.bfloat16, device
     device = resolve_device(device)
     classifier = set_compute_dtype(Classifier(enc_cfg, num_classes), dtype)
     common.load_weights(classifier, weights, init_seed)
+    classifier.to(device).eval()
+    if device.type == "cuda":
+        classifier.to(memory_format=torch.channels_last)
+    return classifier
+
+
+def load_classifier_run(workdir, name: str, *, dtype=torch.bfloat16, device="cuda"):
+    """The classifier of the port's run ``outputs/<name>`` (its latest
+    checkpoint's EMA weights, the encoder at the widths its
+    ``hparams.json`` stores, else the preset), on ``device``, computing in
+    ``dtype``; None when the run has no checkpoint."""
+    config = configs.SpectrogramClassificationConfig(workdir=workdir)
+    ckpt = Checkpointer(config.outputdir / name / "checkpoints")
+    restored = ckpt.restore_latest_raw()
+    if restored is None:
+        return None
+    stored = ckpt.restore_hyperparameters() or {}
+    if "encoder" in stored:
+        enc_cfg = {k: tuple(v) if isinstance(v, list) else v for k, v in stored["encoder"].items()}
+        num_classes = int(stored.get("num_classes", config.num_classes))
+    else:
+        enc_cfg, num_classes = configs.get_classifier_encoder_config(config), config.num_classes
+    device = resolve_device(device)
+    classifier = set_compute_dtype(Classifier(enc_cfg, num_classes), dtype)
+    classifier.load_state_dict(restored[0]["ema"])
     classifier.to(device).eval()
     if device.type == "cuda":
         classifier.to(memory_format=torch.channels_last)
@@ -94,6 +122,9 @@ def main(argv=None):
                         help="UNet state dict (.pt) from tqdne_tpu_torch.utils.convert")
     parser.add_argument("--ae-weights", type=str, required=True,
                         help="autoencoder state dict (.pt) from tqdne_tpu_torch.utils.convert")
+    parser.add_argument("--classifier-name", type=str, default="Classifier-LogSpectrogram",
+                        help="the classifier's run under outputs/, read when no "
+                             "--classifier-weights is given")
     parser.add_argument("--classifier-weights", type=str, default=None,
                         help="classifier state dict (.pt) from tqdne_tpu_torch.utils.convert")
     parser.add_argument("--classifier-manifest", type=str, default=None,
@@ -125,13 +156,16 @@ def main(argv=None):
 
     classifier = None
     if not args.no_classifier:
-        if args.classifier_weights is None:
-            print("no --classifier-weights: skipping embedding/logit datasets "
-                  "(--no-classifier to silence)")
-        else:
+        if args.classifier_weights is not None:
             classifier = load_classifier(
                 args.classifier_weights, args.classifier_manifest, dtype=dtype,
                 device=bundle.device)
+        else:
+            classifier = load_classifier_run(args.workdir, args.classifier_name, dtype=dtype,
+                                             device=bundle.device)
+            if classifier is None:
+                print(f"no classifier checkpoint for {args.classifier_name} — skipping "
+                      "embedding/logit datasets (--no-classifier to silence)")
 
     bs = args.batchsize
     all_idx = np.arange(len(dataset))  # rank 0 of 1

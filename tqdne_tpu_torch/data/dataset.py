@@ -1,5 +1,6 @@
-"""Waveform datasets: the port of ``Dataset``, ``split_indices``,
-``_row_gather`` and ``make_synthetic_dataset`` in ``tqdne_tpu/data/dataset.py``.
+"""Waveform datasets: the port of ``Dataset``, ``CachedLatentsDataset``,
+``ClassificationDataset``, ``split_indices``, ``_row_gather`` and
+``make_synthetic_dataset`` in ``tqdne_tpu/data/dataset.py``.
 
 Storage contract of ``preprocessed_waveforms.h5``: ``waveforms`` (N, 3, T)
 float32, ``normalized_features`` (N, 5) float32, ``indices_valid_waveforms``
@@ -8,9 +9,10 @@ reference's: a seed-42 numpy permutation, 85/5/10 train/validation/test,
 plus "train_validation" and "full".
 
 Batches are read as sorted slabs and the representation is applied to the
-whole batch on the host.  ``h5py`` is imported where a file is opened, so
-``ArrayDataset`` (the same ``load_batch`` contract over arrays held in
-memory) works where ``h5py`` is not installed.
+whole batch on the host.  Every dataset reads either an HDF5 file (a path)
+or the same columns held in memory (a dict of arrays, as
+``synthetic_arrays`` returns); ``h5py`` is imported only where a file is
+opened, so the in-memory form works where ``h5py`` is not installed.
 """
 
 from __future__ import annotations
@@ -53,14 +55,38 @@ def _row_gather(file_idx: np.ndarray):
     return uniq, uinv[inv]
 
 
+def _open(source):
+    """(table, file): a dict of arrays as it is, or an HDF5 file opened for reading."""
+    if isinstance(source, dict):
+        return source, None
+    import h5py
+
+    file = h5py.File(source, "r", locking=False)
+    return file, file
+
+
 class _Batches:
-    """``load_batch`` and ``get_feature`` over a ``table`` with ``waveforms``,
+    """``load_batch`` and ``get_feature`` over a table with ``waveforms``,
     ``normalized_features``, ``indices_valid_waveforms`` and one column per
-    raw feature (an HDF5 file or a dict of arrays), for the rows ``indices``
-    of a split."""
+    raw feature (an HDF5 file or a dict of arrays), for the rows of a split."""
+
+    def __init__(self, source, representation, cut: int | None = None, cond: bool = False,
+                 split: str = "train"):
+        self.representation = representation
+        self.cut = cut
+        self.use_conditioning = cond
+        self.table, self.file = _open(source)
+        self.waveforms = self.table["waveforms"]
+        self.cond = self.table["normalized_features"] if cond else None
+        self.valid = self.table["indices_valid_waveforms"]
+        self.indices = split_indices(len(self.waveforms), split)
 
     def __len__(self) -> int:
         return len(self.indices)
+
+    def close(self):
+        if self.file is not None:
+            self.file.close()
 
     def get_feature(self, key: str) -> np.ndarray:
         """A raw conditioning feature (e.g. ``magnitude``) over the split."""
@@ -98,19 +124,7 @@ class Dataset(_Batches):
 
     def __init__(self, datapath: str | Path, representation, cut: int | None = None,
                  cond: bool = False, split: str = "train"):
-        import h5py
-
-        self.representation = representation
-        self.cut = cut
-        self.use_conditioning = cond
-        self.file = self.table = h5py.File(datapath, "r", locking=False)
-        self.waveforms = self.file["waveforms"]
-        self.cond = self.file["normalized_features"] if cond else None
-        self.valid = self.file["indices_valid_waveforms"]
-        self.indices = split_indices(len(self.waveforms), split)
-
-    def close(self):
-        self.file.close()
+        super().__init__(Path(datapath), representation, cut, cond, split)
 
 
 class ArrayDataset(_Batches):
@@ -119,14 +133,64 @@ class ArrayDataset(_Batches):
 
     def __init__(self, arrays: dict, representation, cut: int | None = None, cond: bool = False,
                  split: str = "train"):
-        self.representation = representation
-        self.cut = cut
-        self.use_conditioning = cond
-        self.table = arrays
-        self.waveforms = arrays["waveforms"]
-        self.cond = arrays["normalized_features"] if cond else None
-        self.valid = arrays["indices_valid_waveforms"]
-        self.indices = split_indices(len(self.waveforms), split)
+        super().__init__(arrays, representation, cut, cond, split)
+
+
+class CachedLatentsDataset(_Batches):
+    """A dataset whose batches carry the frozen autoencoder's precomputed
+    latent moments (``latent_mean``, ``latent_log_std``; written by
+    ``cli.precompute_latents``) beside the conditioning.  Rows of the
+    latents align with the dataset's storage order, so one split indexes
+    both; a latents table of another row count is refused."""
+
+    def __init__(self, source, latents, representation, *, cut: int | None = None,
+                 cond: bool = True, split: str = "train"):
+        super().__init__(source, representation, cut, cond, split)
+        self.latents, self.latents_file = _open(latents)
+        n_lat, n_wf = self.latents["latent_mean"].shape[0], self.waveforms.shape[0]
+        if n_lat != n_wf:
+            self.close()
+            raise ValueError(f"latents file has {n_lat} rows but the dataset has {n_wf} — "
+                             "re-run precompute_latents after rebuilding the dataset")
+
+    def close(self):
+        super().close()
+        if getattr(self, "latents_file", None) is not None:
+            self.latents_file.close()
+
+    def load_batch(self, batch_indices: np.ndarray, keys: tuple[str, ...] | None = None) -> dict:
+        out = super().load_batch(batch_indices, keys)
+        uniq, restore = _row_gather(self.indices[batch_indices])
+        for key in ("latent_mean", "latent_log_std"):
+            if keys is None or key in keys:
+                out[key] = np.asarray(self.latents[key][uniq][restore], np.float32)
+        return out
+
+
+class ClassificationDataset(_Batches):
+    """Magnitude x distance bin labels: label = dist_bin * (n_mag_bins - 1)
+    + mag_bin, with ``np.digitize`` over the raw features."""
+
+    def __init__(self, source, representation, mag_bins, dist_bins, cut: int | None = None,
+                 split: str = "train"):
+        super().__init__(source, representation, cut, False, split)
+        dist = np.asarray(self.table["hypocentral_distance"][:])
+        mag = np.asarray(self.table["magnitude"][:])
+        self.labels = ((np.digitize(dist, dist_bins) - 1) * (len(mag_bins) - 1)
+                       + np.digitize(mag, mag_bins) - 1)
+        self.num_classes = (len(mag_bins) - 1) * (len(dist_bins) - 1)
+
+    def get_class_weights(self) -> np.ndarray:
+        """Inverse-frequency class weights over the whole table, as the JAX
+        package takes them."""
+        return np.array([1.0 / max((self.labels == c).sum(), 1) for c in range(self.num_classes)],
+                        dtype=np.float32)
+
+    def load_batch(self, batch_indices: np.ndarray, keys: tuple[str, ...] | None = None) -> dict:
+        out = super().load_batch(batch_indices, keys)
+        if keys is None or "label" in keys:
+            out["label"] = self.labels[self.indices[batch_indices]].astype(np.int32)
+        return out
 
 
 def synthetic_arrays(n: int = 64, channels: int = 3, t: int = 4096, seed: int = 0) -> dict:

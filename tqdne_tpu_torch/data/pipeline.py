@@ -1,10 +1,16 @@
-"""Host input pipeline: the port of ``BatchLoader`` and ``to_channels_last`` in
-``tqdne_tpu/data/pipeline.py``.
+"""Input pipeline: the port of ``BatchLoader``, ``DeviceResidentLoader`` and
+``to_channels_last`` in ``tqdne_tpu/data/pipeline.py``.
 
-A background thread reads and prepares the next batches (slab read, the
-representation over the whole batch, the channels-last transpose) while the
-device steps; each batch lands on one explicit device.  A loader failure is
-re-raised in the training loop, not swallowed.
+``BatchLoader``: a background thread reads and prepares the next batches
+(slab read, the representation over the whole batch, the channels-last
+transpose) while the device steps; each batch lands on one explicit device.
+A loader failure is re-raised in the training loop, not swallowed.
+
+``DeviceResidentLoader``: the requested columns go to the device once and
+each batch is a gather there by an index tensor, so the host loader leaves
+the step's critical path (cached-latent training, whose columns are small).
+Both shuffle an epoch with ``default_rng(seed + epoch)``, so they give the
+same batches.
 """
 
 from __future__ import annotations
@@ -26,6 +32,16 @@ def to_channels_last(batch: dict) -> dict:
         if key in out and out[key].ndim >= 3:
             out[key] = np.ascontiguousarray(np.moveaxis(out[key], 1, -1))
     return out
+
+
+def _epoch_batches(n: int, batch_size: int, shuffle: bool, drop_last: bool,
+                   seed: int) -> list[np.ndarray]:
+    """One epoch's row indices per batch, shuffled by ``default_rng(seed)``."""
+    idx = np.arange(n)
+    if shuffle:
+        idx = np.random.default_rng(seed).permutation(idx)
+    end = n - (n % batch_size) if drop_last else n
+    return [idx[s : s + batch_size] for s in range(0, end, batch_size)]
 
 
 class BatchLoader:
@@ -56,12 +72,8 @@ class BatchLoader:
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _batch_indices(self) -> list[np.ndarray]:
-        n = len(self.dataset)
-        idx = np.arange(n)
-        if self.shuffle:
-            idx = np.random.default_rng(self.seed + self.epoch).permutation(idx)
-        end = n - (n % self.batch_size) if self.drop_last else n
-        return [idx[s : s + self.batch_size] for s in range(0, end, self.batch_size)]
+        return _epoch_batches(len(self.dataset), self.batch_size, self.shuffle, self.drop_last,
+                              self.seed + self.epoch)
 
     def _prepare(self, batch_idx: np.ndarray) -> dict:
         batch = self.dataset.load_batch(batch_idx, keys=self.keys)
@@ -111,3 +123,43 @@ class BatchLoader:
                 except queue.Empty:
                     pass
             thread.join()
+
+
+class DeviceResidentLoader:
+    """Epoch iterable whose batches are gathers on the device from a copy of
+    the requested dataset columns made once, at construction; shuffled with
+    ``drop_last``, as ``BatchLoader`` trains.
+
+    For small training sets (the flagship's cached latent moments): a step
+    then moves one index tensor to the device instead of a batch.  The
+    caller decides with ``fits()`` and keeps ``BatchLoader`` otherwise.
+    """
+
+    def __init__(self, dataset, batch_size: int, *, keys: tuple[str, ...], seed: int = 0,
+                 device: str | torch.device = "cuda"):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.seed = seed
+        self.device = resolve_device(device)
+        self.epoch = 0
+        host = dataset.load_batch(np.arange(len(dataset)), keys=keys)
+        host = to_channels_last({k: v for k, v in host.items() if k in keys})
+        self._resident = {k: torch.from_numpy(v).to(self.device) for k, v in host.items()}
+
+    @staticmethod
+    def fits(dataset, keys: tuple[str, ...], budget_bytes: int = 2 << 30) -> bool:
+        """Whether the requested columns fit the device-resident budget,
+        estimated from one row."""
+        row = dataset.load_batch(np.arange(1), keys=keys)
+        return sum(v.nbytes for k, v in row.items() if k in keys) * len(dataset) <= budget_bytes
+
+    def __len__(self) -> int:
+        return len(self.dataset) // self.batch_size
+
+    def __iter__(self) -> Iterator[dict]:
+        batches = _epoch_batches(len(self.dataset), self.batch_size, True, True,
+                                 self.seed + self.epoch)
+        self.epoch += 1
+        for batch_idx in batches:
+            idx = torch.from_numpy(batch_idx).to(self.device)
+            yield {k: v.index_select(0, idx) for k, v in self._resident.items()}

@@ -1,4 +1,4 @@
-"""Log-spectrogram representation: the port of ``LogSpectrogram`` in
+"""Representations: the port of ``LogSpectrogram`` and ``Identity`` in
 ``tqdne_tpu/data/representation.py``.
 
 Waveforms are (..., C, T) tensors (the storage layout); representations
@@ -13,6 +13,14 @@ import math
 import torch
 
 from tqdne_tpu_torch.ops import spectral
+
+
+class Identity:
+    """The waveform itself: what a dataset ships when the device computes
+    the representation inside the train step."""
+
+    def get_representation(self, waveform: torch.Tensor) -> torch.Tensor:
+        return waveform
 
 
 class LogSpectrogram:

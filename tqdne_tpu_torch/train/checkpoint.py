@@ -12,10 +12,14 @@ a resume checks the requested architecture against it.
 from __future__ import annotations
 
 import json
+import logging
 import os
 from pathlib import Path
 
 import torch
+
+logger = logging.getLogger("tqdne_tpu_torch")
+
 
 def _atomic_save(obj, path: Path) -> None:
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
@@ -65,14 +69,22 @@ class Checkpointer:
         steps = _steps(self._last)
         return steps[-1] if steps else None
 
-    def restore_latest(self, state) -> int | None:
-        """Load the newest checkpoint into ``state``; returns its step or None."""
+    def restore_latest_raw(self) -> tuple[dict, int] | None:
+        """The newest checkpoint as saved (``TrainState.state_dict()``: step,
+        model, ema, optimizer) and its step, without a state to load it
+        into, or None.  A finished run's weights are its ``ema``."""
         step = self.latest_step()
         if step is None:
             return None
-        state.load_state_dict(torch.load(self._last / f"{step}.pt", map_location="cpu",
-                                         weights_only=True))
-        return step
+        return torch.load(self._last / f"{step}.pt", map_location="cpu", weights_only=True), step
+
+    def restore_latest(self, state) -> int | None:
+        """Load the newest checkpoint into ``state``; returns its step or None."""
+        restored = self.restore_latest_raw()
+        if restored is None:
+            return None
+        state.load_state_dict(restored[0])
+        return restored[1]
 
     # -- hyperparameters-in-checkpoint ---------------------------------------
 
@@ -89,17 +101,21 @@ class Checkpointer:
             return json.loads(self.hparams_path.read_text())
         return None
 
-    def verify_hyperparameters(self, hparams: dict) -> bool:
-        """Compare against the stored hparams and raise on a mismatch (a resume
-        must not silently continue a different architecture).  True when
-        stored hparams exist and match."""
+    def verify_hyperparameters(self, hparams: dict, *, strict: bool = True) -> bool:
+        """Compare against the stored hparams; on a mismatch raise (strict: a
+        resume must not silently continue a different architecture) or
+        warn.  True when stored hparams exist and match."""
         stored = self.restore_hyperparameters()
         if stored is None:
             return False
         diffs = _dict_diff(stored, json.loads(json.dumps(hparams, default=str)))
         if diffs:
-            raise ValueError(f"checkpoint hyperparameters at {self.hparams_path} do not match "
-                             f"the requested configuration: {'; '.join(diffs[:8])}")
+            msg = (f"checkpoint hyperparameters at {self.hparams_path} do not match "
+                   f"the requested configuration: {'; '.join(diffs[:8])}")
+            if strict:
+                raise ValueError(msg)
+            logger.warning(msg)
+            return False
         return True
 
 

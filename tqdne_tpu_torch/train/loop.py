@@ -5,7 +5,8 @@ One process drives one device.  Validation runs the EMA module; checkpoints
 keep the best 3 by validation loss plus the last, with the epoch in
 ``progress.json``, so a resume is exact; metrics stream to ``metrics.jsonl``
 with the JAX package's keys (``training/loss``, ``traintime``, ``lr``,
-``validation/loss``).
+``validation/loss``).  Validation means may be vectors (per-class counts)
+that ``metric_postprocess`` turns into the scalars written.
 
 Randomness is per step, as the JAX loop folds the step into its root key:
 step ``n`` seeds the step's ``torch.Generator`` (the encoder's eps, the
@@ -52,13 +53,18 @@ class MetricWriter:
 
 class Trainer:
     """Epoch-based training loop over ``train_step``/``eval_step`` from
-    ``train.steps.make_edm_steps``."""
+    the factories of ``train.steps``.
+
+    ``metric_postprocess``: applied to the epoch's validation means before
+    they are written, e.g. per-class confusion counts into macro precision,
+    recall and F1, which are only right after aggregation."""
 
     def __init__(self, train_step: Callable, eval_step: Callable, workdir: str | Path, *,
                  device: str | torch.device = "cuda", max_epochs: int = 100,
                  max_steps: int | None = None, log_every: int = 50, eval_every_epochs: int = 1,
                  checkpoint_every_epochs: int = 1, seed: int = 0,
-                 lr_schedule: Callable | None = None, hparams: dict | None = None):
+                 lr_schedule: Callable | None = None, hparams: dict | None = None,
+                 metric_postprocess: Callable[[dict], dict] | None = None):
         self.train_step = train_step
         self.eval_step = eval_step
         self.workdir = Path(workdir)
@@ -72,6 +78,7 @@ class Trainer:
         self.seed = seed
         self.lr_schedule = lr_schedule
         self.hparams = hparams
+        self.metric_postprocess = metric_postprocess
         self.writer = MetricWriter(self.workdir)
         self.checkpointer = Checkpointer(self.workdir / "checkpoints")
         self.generator = torch.Generator(device=self.device)
@@ -176,8 +183,11 @@ class Trainer:
         for batch in val_loader:
             self.generator.manual_seed(step_seed(self.seed, 2**31 + n, 0))
             for k, v in self.eval_step(state, batch, generator=self.generator).items():
-                sums[k] = sums.get(k, 0.0) + float(v)
+                sums[k] = sums.get(k, 0.0) + v.detach().cpu().double().numpy()
             n += 1
         means = {k: v / max(n, 1) for k, v in sums.items()}
+        if self.metric_postprocess is not None:
+            means = self.metric_postprocess(means)
+        means = {k: float(v) for k, v in means.items()}
         self.writer.write(gstep, {f"validation/{k}": v for k, v in means.items()})
         return means

@@ -11,8 +11,9 @@ PyTorch key one to one.  This module owns every layout change:
   <norm>/GroupNorm_0/{scale,bias}        <norm>.{weight,bias}
   <fourier>/W                            <fourier>.W
 
-``load_flax_train_state`` carries a whole JAX train state (parameters, EMA
-and the optax Adam moments) over into the port's ``TrainState``.
+``load_flax_train_state`` carries a whole JAX train state (parameters, EMA,
+the optax Adam or AdamW moments and the non-finite guard's count) over into
+the port's ``TrainState``.
 
 It reads committed ``weights/*.msgpack`` artifacts (flax's msgpack layout,
 arrays as extension type 1) with the ``msgpack`` package, without flax:
@@ -87,25 +88,48 @@ def flax_to_state_dict(tree: dict) -> dict[str, torch.Tensor]:
     return sd
 
 
+def optax_state_fields(opt_state) -> tuple[dict, dict, int, int]:
+    """(mu, nu, count, notfinite_count) of an optax state: ``adam``'s or
+    ``adamw``'s chain (``scale_by_adam``'s moments and update count), bare or
+    inside ``apply_if_finite`` (its count of consecutive non-finite steps;
+    0 without the guard).  Read by field name, without optax."""
+    notfinite = int(getattr(opt_state, "notfinite_count", 0))
+    todo = [getattr(opt_state, "inner_state", opt_state)]
+    while todo:
+        node = todo.pop(0)
+        if hasattr(node, "mu") and hasattr(node, "nu"):
+            return node.mu, node.nu, int(node.count), notfinite
+        if isinstance(node, (tuple, list)):
+            todo.extend(node)
+    raise ValueError("no scale_by_adam state (mu, nu, count) in the optax state")
+
+
 def load_flax_train_state(state, params: dict, ema_params: dict, mu: dict, nu: dict,
-                          count: int) -> None:
-    """Carry a JAX ``TrainState`` with an optax Adam state over into the port's
-    ``train.state.TrainState`` in place: ``params`` and ``ema_params`` into
-    the live and EMA modules, Adam's ``mu``/``nu`` (trees shaped like the
-    params, numpy arrays) and its update ``count`` into the optimizer.  The
-    frozen Fourier ``W`` has no optimizer state in the port (its optax
-    moments stay zero, as its gradient is stopped)."""
+                          count: int, notfinite_count: int = 0, step: int | None = None) -> None:
+    """Carry a JAX ``TrainState`` with an optax Adam or AdamW state over into
+    the port's ``train.state.TrainState`` in place: ``params`` and
+    ``ema_params`` into the live and EMA modules, the moments ``mu``/``nu``
+    (trees shaped like the params, numpy arrays) and the update ``count``
+    into the optimizer, and ``apply_if_finite``'s ``notfinite_count`` into
+    the guard (``optax_state_fields`` reads all four off an optax state).
+    ``state.step`` becomes the JAX ``step``, by default ``count`` (a run
+    that never skipped an update).  The frozen Fourier ``W`` has no optimizer state in
+    the port (its optax moments stay zero, as its gradient is stopped)."""
     state.model.load_state_dict(flax_to_state_dict(params))
     state.ema.load_state_dict(flax_to_state_dict(ema_params))
     moments = flax_to_state_dict(mu), flax_to_state_dict(nu)
+    group = state.optimizer.param_groups[0]
     for name, p in state.model.named_parameters():
         if p.requires_grad:
+            # fused and capturable optimizers keep the count beside the parameter
+            on_param = group.get("fused") or group.get("capturable")
             state.optimizer.state[p] = {
-                "step": torch.tensor(float(count)),
+                "step": torch.tensor(float(count), device=p.device if on_param else None),
                 "exp_avg": moments[0][name].to(p.device, p.dtype),
                 "exp_avg_sq": moments[1][name].to(p.device, p.dtype),
             }
-    state.step = int(count)
+    state.step = int(count if step is None else step)
+    state.notfinite_count.fill_(notfinite_count)
 
 
 def read_manifest(path) -> dict:
