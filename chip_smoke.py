@@ -24,6 +24,12 @@ Phases (any failure exits non-zero and prints no result line):
    projection, and at the variants the bf16 tensor-core kernels take for
    other layouts: D = 40 (zero-padded to its head block of 64), D = 12 (2-byte
    loads and stores) and views one element into their buffers (2-byte loads);
+   and at the shapes of the EDM recipes beyond the flagship (``1d_edm``,
+   ``1d_autoencoder``, ``1d_latent_edm``, ``edm``): every GroupNorm (S, C)
+   of their samplers' UNet evals and decodes and of their train steps, at
+   batch 32 and 256 (1D) or 64 (``edm``), and the flash kernels at (32, 508,
+   4, 64), (256, 508, 4, 64), (32, 127, 4, 64), (256, 127, 4, 64), (32, 256,
+   4, 128) and (64, 256, 4, 128);
 3. full-width flagship sampling in f32, 2 Heun steps, once through the
    kernels and once through the plain versions: the decoded spectrograms
    must agree (TF32 off); the full-width f32 classifier the same way (its
@@ -32,7 +38,9 @@ Phases (any failure exits non-zero and prints no result line):
    reconstruction and KL; the classifier's weighted cross-entropy through two
    attention blocks) with the same injected draws, in eval mode, both ways:
    the loss to 1e-5 relative and every parameter gradient to 1e-3 of its
-   peak, with every flash backward through the kernels;
+   peak, with every flash backward through the kernels; the same for a
+   full-width f32 ``1d_edm`` and ``edm`` sample (batch 4) and one full-width
+   f32 train step of each of the four recipes beyond the flagship;
 4. the main paths, each with the launch counters set to 0 just before it and
    read just after: sampling (``build_inference`` + ``generate`` at full width
    in bf16, batch 32, Heun-25 then dpmpp_2m-10, each with 32 Griffin-Lim
@@ -52,7 +60,11 @@ Phases (any failure exits non-zero and prints no result line):
    of concurrent requests, a seeded request twice bit-identical and another
    seed different, coalescing) and evaluation (two ``evaluate_batch`` calls
    at the evaluate CLI's Heun-25 and Griffin-Lim 128 with the full-width
-   bf16 classifier, then ``report_from_arrays``: FID, IS and ASD finite); the
+   bf16 classifier, then ``report_from_arrays``: FID, IS and ASD finite), the
+   samplers of ``1d_edm``, ``1d_latent_edm`` and ``edm`` (``build_inference``
+   + ``generate`` in bf16 at batch 32, Heun-25 and dpmpp_2m-10, Griffin-Lim 32
+   for ``edm``; waveforms finite (32, 3, 4064)) and ``Trainer.fit`` of each of
+   the four recipes, 20 bf16 steps at its batch (256, or 64 for ``edm``); the
    counts must be exact;
 5. timings on the card: each kernel at the main paths' shapes beside its
    bound, its plain version and a PyTorch yardstick call (and, for the
@@ -66,7 +78,10 @@ Phases (any failure exits non-zero and prints no result line):
    the classifier train step's kernels at (64, 256, 4, 64) and its GroupNorm
    shapes, a profiled sampling run, a profiled classifier forward, and a
    profiled train step of the flagship, the classifier and the autoencoder
-   by kernel class, and one train step at the recipe's batch 256.
+   by kernel class, and one train step at the recipe's batch 256; then each
+   recipe beyond the flagship: samples/s on a resident batch, a profiled
+   step by kernel class, the 1D ``Norm32`` transposes of a ``1d_edm`` step,
+   and each kernel per call at its train step's and sampler's shapes.
 
 Prints the card's name and power limit and a ``{"kernels": [...]}`` line,
 then, last, ``{"ok": true, "device": {...}}``.
@@ -116,8 +131,16 @@ TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1.6e-2, 1e-3)}  # rtol, ato
 BWD_TOL = {torch.float32: (2e-3, 2e-4), torch.bfloat16: (1.6e-2, 1e-3)}
 
 
+T0 = time.perf_counter()
+
+
 def log(msg: str):
     print(msg, flush=True)
+
+
+def phase(name: str):
+    """Mark the start of a phase with the script's elapsed seconds."""
+    log(f"[phase] {name} at {time.perf_counter() - T0:.1f} s")
 
 
 def fail(msg: str):
@@ -160,37 +183,54 @@ def device_kernels(prof) -> list:
     return [e for e in events if e.device_type == DeviceType.CUDA and e.key not in ranges]
 
 
-def device_ms(fn, reps: int = 20, names: list | None = None) -> float:
-    """Device time per call: the summed durations of the CUDA kernels ``fn``
-    launches, from torch.profiler.  Event timing of back-to-back calls
-    measures the host's issue rate instead when a call's kernels are shorter
-    than its Python overhead, as they are at the UNet's shapes.  ``names``,
-    when given, receives the kernels' names.
+def sleep_cycles_per_ms() -> float:
+    """The clock cycles ``torch.cuda._sleep`` spins per millisecond."""
+    if not hasattr(sleep_cycles_per_ms, "rate"):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1000)
+        start.record()
+        torch.cuda._sleep(10**7)
+        end.record()
+        torch.cuda.synchronize()
+        sleep_cycles_per_ms.rate = 10**7 / start.elapsed_time(end)
+    return sleep_cycles_per_ms.rate
 
-    Now and then the profiler loses some or all of a window's device records,
-    which reads low, so three windows are taken and the time comes from those
-    with the most kernel records (their median)."""
-    from torch.profiler import ProfilerActivity, profile
 
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time per call of ``fn`` issued back to back: CUDA events around
+    ``reps`` calls queued behind a spin kernel (``torch.cuda._sleep``) that
+    holds the device until the host has issued them all, so the host's
+    overhead, which exceeds a call's kernels at the UNet's shapes, does not
+    show.  A window is kept only if the spin outlasted the host's issuing;
+    the median of three.  (torch.profiler's summed kernel durations read up
+    to 2.3x low late in this script, as if records were dropped: a fresh
+    process read the same kernels right.)"""
     fn()
     torch.cuda.synchronize()
-    windows = []
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        kernels = device_kernels(prof)
-        windows.append((sum(e.count for e in kernels),
-                        sum(e.self_device_time_total for e in kernels), kernels))
-    most = max(w[0] for w in windows)
-    if not most:
-        fail("torch.profiler recorded no device time in three windows")
-    full = sorted((w for w in windows if w[0] == most), key=lambda w: w[1])
-    _, total_us, kernels = full[len(full) // 2]
-    if names is not None:
-        names.extend(e.key[:80] for e in kernels)
-    return total_us / 1e3 / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    spin_ms = 2e3 * (time.perf_counter() - t0) + 1.0
+    torch.cuda.synchronize()
+    times = []
+    while len(times) < 3:
+        queued, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        queued.record()
+        t0 = time.perf_counter()
+        torch.cuda._sleep(int(spin_ms * sleep_cycles_per_ms()))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        issued_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        if queued.elapsed_time(start) > issued_ms:
+            times.append(start.elapsed_time(end) / reps)
+        else:
+            spin_ms *= 2
+            if spin_ms > 1e4:
+                fail("device_ms: the host could not queue the calls within 10 s of spin")
+    return statistics.median(times)
 
 
 def close(got, want, dtype, tol=TOL) -> tuple[float, bool]:
@@ -304,7 +344,7 @@ def check_flash_kernels(gen, dev, errs: dict, path_cases: list = ()) -> int:
 
 
 def check_group_norm_kernels(gen, dev, errs: dict, path_calls: list,
-                             batches=(BATCH, TRAIN_BATCH)) -> int:
+                             batches=(BATCH, TRAIN_BATCH), forced: bool = True) -> int:
     """GroupNorm (+SiLU) against its plain version: at every (S, C, G) of
     ``path_calls`` (sampling's UNet and decoder, training's UNet and
     encoder, the autoencoder and classifier recipes'), in f32 and in each
@@ -312,8 +352,9 @@ def check_group_norm_kernels(gen, dev, errs: dict, path_calls: list,
     each of ``batches`` (the paths' batch sizes); then
     cases that force the plan's other variants: the largest cluster the card
     co-schedules, the re-read variant, element loads (views one element into
-    their buffers, a C of 12 in bf16) and groups of 5 channels.  Records the
-    largest error in ``errs``; returns the number of failed checks."""
+    their buffers, a C of 12 in bf16) and groups of 5 channels (unless not
+    ``forced``).  Records the largest error in ``errs``; returns the number
+    of failed checks."""
     from tqdne_tpu_torch.ops.group_norm import (
         cluster_limit,
         group_norm_plan,
@@ -337,7 +378,7 @@ def check_group_norm_kernels(gen, dev, errs: dict, path_calls: list,
     largest = next((s for s in range(16384, 1 << 18, 1024) if takes_largest(s)), None)
     if largest is None:
         fail(f"no GroupNorm shape plans a resident cluster of {limit}")
-    forced = [(2, largest, 64, 32, bf16, bf16, "largest cluster"),
+    forced = [] if not forced else [(2, largest, 64, 32, bf16, bf16, "largest cluster"),
               (2, 65536, 64, 32, f32, f32, "re-read"),
               (BATCH, 1024, 128, 32, bf16, bf16, "offset"),
               (TRAIN_BATCH, 16384, 64, 32, bf16, f32, "offset"),
@@ -345,7 +386,7 @@ def check_group_norm_kernels(gen, dev, errs: dict, path_calls: list,
               (4, 100, 12, 4, bf16, bf16, "narrow C"),
               (4, 17, 40, 8, f32, f32, "groups of 5"),
               (4, 17, 40, 8, bf16, f32, "groups of 5")]
-    errs["group_norm_silu"] = 0.0
+    errs.setdefault("group_norm_silu", 0.0)
     bad = 0
     log(f"[check] GroupNorm: clusters of up to {limit} blocks co-schedule on this card")
     for b, s, c, g, dtype, pdtype, case in cases + forced:
@@ -374,21 +415,34 @@ def check_group_norm_kernels(gen, dev, errs: dict, path_calls: list,
     return bad
 
 
+OWN_KERNELS = ("group_norm_silu_kernel", "flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
 KERNEL_CLASSES = (("group_norm_silu", ("group_norm_silu_kernel",)),
                   ("flash_attention", ("flash_fwd",)),
                   ("convolution", ("conv", "xmma", "cudnn", "implicit", "gemm", "cutlass")),
                   ("fft", ("fft",)))
 
 
-def profile_breakdown(fn, label: str, tag: str = "profile") -> dict | None:
-    """Device time of one ``fn()`` by kernel class, from torch.profiler."""
+def profiled(fn):
+    """(profiler, wall ms) of one ``fn()``, and a note of how many of the
+    port's kernel launches in it (by the wrappers' counters) the profiler
+    kept a device record of: it drops records now and then."""
     from torch.profiler import ProfilerActivity, profile
 
+    before = sum(k.launches for k in launch_counters())
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    launched = sum(k.launches for k in launch_counters()) - before
+    recorded = sum(e.count for e in device_kernels(prof)
+                   if any(name in e.key for name in OWN_KERNELS))
+    return prof, wall_ms, f"the profiler kept {recorded} of {launched} kernel launches of the port"
+
+
+def profile_breakdown(fn, label: str, tag: str = "profile") -> dict | None:
+    """Device time of one ``fn()`` by kernel class, from torch.profiler."""
+    prof, wall_ms, kept = profiled(fn)
     kernels = device_kernels(prof)
     total_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if not total_ms:
@@ -402,7 +456,7 @@ def profile_breakdown(fn, label: str, tag: str = "profile") -> dict | None:
         classes[name] += e.self_device_time_total / 1e3
         counts[name] += e.count
     log(f"[{tag}] {label}: wall {wall_ms:.3f} ms under the profiler, device kernels "
-        f"{total_ms:.3f} ms (busy share {total_ms / wall_ms:.3f}); by class (ms): "
+        f"{total_ms:.3f} ms (busy share {total_ms / wall_ms:.3f}; {kept}); by class (ms): "
         f"{json.dumps({k: round(v, 3) for k, v in classes.items()})}; kernels by class: "
         f"{json.dumps(counts)}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
@@ -416,6 +470,7 @@ TRAIN_CLASSES = (("group_norm_silu", ("group_norm_silu_kernel",)),
                  ("flash_bwd_dq", ("flash_bwd_dq",)),
                  ("convolution_gemm", ("conv", "xmma", "cudnn", "implicit", "gemm", "cutlass",
                                        "wgrad", "dgrad")),
+                 ("copies_and_casts", ("direct_copy", "copy_kernel")),
                  ("optimizer_ema", ("multi_tensor", "foreach")))
 GN_BWD_CLASS = "group_norm_silu_backward_plain"
 
@@ -430,13 +485,8 @@ def train_profile(step, label: str):
     backward's kernels are found under its profiler range
     (``tq::group_norm_silu_backward``) and moved into their own class."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
+    prof, wall_ms, kept = profiled(step)
     kernels = device_kernels(prof)
     left_out = sorted({e.key for e in prof.key_averages()
                        if e.device_type == DeviceType.CUDA} - {e.key for e in kernels})
@@ -455,18 +505,34 @@ def train_profile(step, label: str):
         for child in ev.cpu_children:
             walk(child)
 
-    ranges = [ev for ev in prof.events()
-              if ev.name == "tq::group_norm_silu_backward" and ev.device_type == DeviceType.CPU]
+    cpu_events = [ev for ev in prof.events() if ev.device_type == DeviceType.CPU]
+    ranges = [ev for ev in cpu_events if ev.name == "tq::group_norm_silu_backward"]
     for ev in ranges:
         walk(ev)
     for k in found:
         classes[kernel_class(k.name)] -= k.duration / 1e3
         classes[GN_BWD_CLASS] += k.duration / 1e3
+    # the copies and casts of the backward: those under an autograd node's range (outside
+    # the plain GroupNorm backward, counted above), by the node that launched them
+    in_gn_bwd = {id(k) for k in found}
+    bwd_copies = collections.Counter()
+    for ev in cpu_events:
+        if ev.name.startswith("autograd::engine::evaluate_function: "):
+            found.clear()
+            walk(ev)
+            node = ev.name.split(": ", 1)[1]
+            for k in found:
+                if id(k) not in in_gn_bwd and kernel_class(k.name) == "copies_and_casts":
+                    bwd_copies[node] += k.duration / 1e3
+    copies_bwd = sum(bwd_copies.values())
     log(f"[train-profile] {label}: wall {wall_ms:.3f} ms under the profiler, device kernels "
         f"{total_ms:.3f} ms in {launched} launches (busy share {total_ms / wall_ms:.3f}; "
-        f"device-side ranges left out: {left_out}); {len(ranges)} GroupNorm "
-        f"backward ranges holding {len(found)} kernels; by class (ms): "
-        f"{json.dumps({k: round(v, 3) for k, v in classes.items()})}")
+        f"{kept}; device-side ranges left out: {left_out}); {len(ranges)} GroupNorm "
+        f"backward ranges holding {len(in_gn_bwd)} kernels; by class (ms): "
+        f"{json.dumps({k: round(v, 3) for k, v in classes.items()})}; copies and casts: "
+        f"forward {classes['copies_and_casts'] - copies_bwd:.3f}, backward {copies_bwd:.3f} "
+        f"ms, the backward's by autograd node "
+        f"{json.dumps({k: round(v, 3) for k, v in bwd_copies.most_common(6)})}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"[train-profile]   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} x  "
             f"{e.key[:110]}")
@@ -996,6 +1062,100 @@ def rates_beside(label: str, step, batch_size: int, flagship) -> tuple[float, fl
     return mine, ref
 
 
+# ---- the EDM recipes beyond the flagship: 1d_edm, 1d_autoencoder, 1d_latent_edm, edm ----
+SAMPLERS = ("1d_edm", "1d_latent_edm", "edm")
+RECIPE_BATCH = {"1d_edm": 256, "1d_autoencoder": 256, "1d_latent_edm": 256, "edm": 64}
+RECIPE_STEPS = 20  # Trainer.fit steps of each recipe at its batch (2 or 8 per epoch)
+F32_BATCH = 4  # the full-width f32 checks' batch
+
+
+def record_calls(modules, fn) -> tuple[list, list]:
+    """The (x dtype, scale dtype, S, C, G, silu) of every GroupNorm and the
+    (dtype, L, H, D, causal) of every attention call that ``fn()`` makes
+    through ``modules``."""
+    from tqdne_tpu_torch.nn.attention import AttentionBlock
+    from tqdne_tpu_torch.nn.layers import Norm32
+
+    gn, fa = [], []
+
+    def gn_hook(mod, args):
+        x = args[0]
+        gn.append((x.dtype, mod.weight.dtype, x[0, 0].numel(), x.shape[1], mod.groups, mod.silu))
+
+    def fa_hook(mod, args):
+        x = args[0]
+        fa.append((x.dtype, x[0, 0].numel(), mod.num_heads, x.shape[1] // mod.num_heads,
+                   mod.use_causal_mask))
+
+    hooks = []
+    for module in modules:
+        hooks += [m.register_forward_pre_hook(gn_hook) for m in module.modules()
+                  if isinstance(m, Norm32)]
+        hooks += [m.register_forward_pre_hook(fa_hook) for m in module.modules()
+                  if isinstance(m, AttentionBlock)]
+    try:
+        with torch.no_grad():
+            fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    return gn, fa
+
+
+def recipe_setup(key: str, dev, dtype, init):
+    """The train CLI's modules and steps for recipe ``key`` at full width:
+    the trained module (UNet or autoencoder) and the frozen autoencoder of a
+    latent recipe, with weights from ``init`` (``utils.init_like_flax_`` as
+    the CLI, or ``utils.randomize_``), the steps, and the signal and model
+    shapes.  Computes in ``dtype`` over f32 parameters."""
+    from tqdne_tpu_torch.cli import common
+    from tqdne_tpu_torch.cli.common import RECIPES
+    from tqdne_tpu_torch.train.steps import make_autoencoder_steps, make_edm_steps
+
+    recipe = RECIPES[key]
+    config = recipe.config_cls()
+    sig = model_shape = common.signal_shape(config)
+    if recipe.kind == "autoencoder":
+        ae = common.build_autoencoder(config, dtype, dims=recipe.dims)[0]
+        steps = make_autoencoder_steps(kl_weight=config.kl_weight, ema_decay=recipe.ema_decay)
+        return init(ae, SEED + 3).to(dev), None, steps, sig, sig
+    frozen = None
+    if recipe.latent:
+        frozen, enc_cfg, _ = common.build_autoencoder(config, dtype, dims=recipe.dims)
+        init(frozen, SEED + 1).to(dev).eval()
+        model_shape = common.latent_shape(enc_cfg, sig)
+    unet = common.build_unet(config, model_shape[-1], model_shape[-1], dtype,
+                             dims=recipe.dims)[0]
+    if recipe.dims == 2:
+        for module in (unet, frozen):
+            if module is not None:
+                module.to(memory_format=torch.channels_last)
+    steps = make_edm_steps(autoencoder=frozen, ema_decay=recipe.ema_decay)
+    return init(unet, SEED).to(dev), frozen, steps, sig, model_shape
+
+
+def recipe_batch(key: str, n: int, sig, model_shape, gen, dev) -> tuple[dict, dict]:
+    """A batch of ``n`` signals in [-1, 1] (with conditioning for an EDM
+    recipe) and the step's draws (``ae_eps``, ``sigma_eps``, ``noise``)."""
+    batch = {"signal": torch.rand(n, *sig, generator=gen, device=dev) * 2 - 1}
+    if key == "1d_autoencoder":
+        return batch, {"ae_eps": torch.randn(n, sig[0] // 4, 16, generator=gen, device=dev)}
+    batch["cond"] = torch.randn(n, 5, generator=gen, device=dev)
+    draws = {"sigma_eps": torch.randn(n, generator=gen, device=dev),
+             "noise": torch.randn(n, *model_shape, generator=gen, device=dev)}
+    if key == "1d_latent_edm":
+        draws["ae_eps"] = torch.randn(n, *model_shape, generator=gen, device=dev)
+    return batch, draws
+
+
+def recipe_loss(key: str, model, frozen, batch, draws):
+    from tqdne_tpu_torch.train.steps import autoencoder_losses, edm_step_loss
+
+    if key == "1d_autoencoder":
+        return autoencoder_losses(model, batch, draws=draws)["loss"]
+    return edm_step_loss(model, batch, autoencoder=frozen, draws=draws)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1052,6 +1212,7 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
 
     # ---- 1. build ------------------------------------------------------------
+    phase("1. build")
     t0 = time.perf_counter()
     cuda_build.build()
     log(f"[build] {len(cuda_build.SOURCES)} sources built in {time.perf_counter() - t0:.2f} s")
@@ -1061,6 +1222,7 @@ def main():
                 log(f"[build] {name}: {line.strip()}")
 
     # ---- the main path's kernel shapes, read off one forward ------------------
+    phase("the paths' shapes")
     bundles = {
         "heun-25": build_inference(dtype=torch.bfloat16, num_steps=25, solver="heun",
                                    gl_iters=32, device=dev, init_seed=SEED),
@@ -1176,18 +1338,69 @@ def main():
              f"18 GroupNorm and 2 attention calls per classifier step, got {len(ae_gn)}, "
              f"{len(clf_train_gn)} and {len(clf_train_fa)}")
 
+    # the EDM recipes beyond the flagship: each sampler's UNet eval (and decode) at batch 32,
+    # and one bf16 forward of each recipe's train step in train mode
+    new_bundles, sampler_calls = {}, {}
+    for key in SAMPLERS:
+        gl = {"gl_iters": 32} if key == "edm" else {}
+        b = build_inference(key, dtype=torch.bfloat16, num_steps=25, solver="heun", device=dev,
+                            init_seed=SEED, **gl)
+        dpmpp = copy.copy(b)  # the same models, sampled by the deployment solver
+        dpmpp.num_steps, dpmpp.solver = 10, "dpmpp_2m"
+        new_bundles[key] = {"heun-25": b, "dpmpp_2m-10": dpmpp}
+        x = torch.randn(BATCH, *b.model_shape, generator=gen, device=dev)
+        u_gn, u_fa = record_calls([b.unet], lambda: b.unet(x, torch.zeros(BATCH, device=dev),
+                                                           cond))
+        d_gn = [] if b.autoencoder is None else record_calls(
+            [b.autoencoder.decoder], lambda: b.autoencoder.decode(x.float()))[0]
+        sampler_calls[key] = (u_gn, u_fa, d_gn)
+        log(f"[shapes] {key} sampling, batch {BATCH}: UNet eval {len(u_gn)} GroupNorm calls "
+            f"(S, C): {sorted(collections.Counter((s, c) for *_, s, c, _, _ in u_gn).items())}; "
+            f"{len(u_fa)} attention calls {sorted(set(u_fa), key=str)}; decode {len(d_gn)} "
+            f"GroupNorm calls")
+    recipe_models, step_calls = {}, {}
+    for key in RECIPE_BATCH:
+        model, frozen, steps, sig, mshape = recipe_setup(key, dev, torch.bfloat16,
+                                                         init_like_flax_)
+        recipe_models[key] = (model.train(), frozen, steps)
+        rb, rd = recipe_batch(key, 2, sig, mshape, gen, dev)
+        gn, fa = record_calls([model], lambda: recipe_loss(key, model, frozen, rb, rd))
+        enc = [] if frozen is None else record_calls([frozen.encoder],
+                                                     lambda: frozen.moments(rb["signal"]))[0]
+        step_calls[key] = (gn, fa, enc)
+        log(f"[shapes] {key} train step at batch {RECIPE_BATCH[key]}: signal {sig}, model "
+            f"{mshape}; {len(gn)} GroupNorm calls (S, C): "
+            f"{sorted(collections.Counter((s, c) for *_, s, c, _, _ in gn).items())}, frozen "
+            f"encoder {len(enc)}; {len(fa)} attention calls {sorted(set(fa), key=str)}")
+    if any(not fa for key, (_, fa, _) in sampler_calls.items()):
+        fail("a sampler's UNet made no attention call")
+
     # ---- 2. kernels against their plain versions ------------------------------
+    phase("2. kernels against their plain versions")
     errs = {}
     bad = check_group_norm_kernels(
         gen, dev, errs, unet_gn + dec_gn + train_gn + enc_gn + clf_gn + ae_gn + clf_train_gn,
         batches=(BATCH, CLF_TRAIN_BATCH, TRAIN_BATCH))
-    bad += check_flash_kernels(gen, dev, errs, [(CLF_TRAIN_BATCH, length, h, d)
-                                                for _, length, h, d, _ in clf_train_fa])
+    bad += check_group_norm_kernels(gen, dev, errs, [c for key in SAMPLERS for c in
+                                                     sampler_calls[key][0] + sampler_calls[key][2]],
+                                    batches=(BATCH,), forced=False)
+    for batch_size in sorted(set(RECIPE_BATCH.values())):
+        bad += check_group_norm_kernels(
+            gen, dev, errs, [c for key, b_ in RECIPE_BATCH.items() if b_ == batch_size
+                             for c in step_calls[key][0] + step_calls[key][2]],
+            batches=(batch_size,), forced=False)
+    path_fa = [(CLF_TRAIN_BATCH, length, h, d) for _, length, h, d, _ in clf_train_fa]
+    path_fa += [(BATCH, length, h, d) for key in SAMPLERS
+                for _, length, h, d, _ in sampler_calls[key][1]]
+    path_fa += [(RECIPE_BATCH[key], length, h, d) for key in RECIPE_BATCH
+                for _, length, h, d, _ in step_calls[key][1]]
+    bad += check_flash_kernels(gen, dev, errs, path_fa)
     torch.cuda.synchronize()
     if bad:
         fail(f"{bad} kernel checks disagree with the plain versions")
 
     # ---- 3. full-width f32 slice: kernels vs plain versions -------------------
+    phase("3. full-width f32 checks")
     f32_bundle = build_inference(dtype=torch.float32, num_steps=2, solver="heun", device=dev,
                                  init_seed=SEED)
     noise = torch.randn(4, *f32_bundle.model_shape, generator=gen, device=dev)
@@ -1245,9 +1458,33 @@ def main():
     check_step_vs_plain("classifier-f32-train", clf32, lambda: classifier_outputs(
         clf32, clf_batch32, class_weights)[1]["loss"], (2, 2), 50)
     del ae32, clf32
+    # the EDM recipes beyond the flagship: a full-width f32 sample of 1d_edm and edm (2 Heun
+    # steps) and a full-width f32 train step of each recipe, kernels vs plain versions
+    for key in ("1d_edm", "edm"):
+        b32 = build_inference(key, dtype=torch.float32, num_steps=2, solver="heun", device=dev,
+                              init_seed=SEED)
+        noise = torch.randn(F32_BATCH, *b32.model_shape, generator=gen, device=dev)
+        with torch.no_grad():
+            with_kernels = b32.sample(cond[:F32_BATCH], noise=noise)
+            with plain_versions():
+                plain = b32.sample(cond[:F32_BATCH], noise=noise)
+        peak, err = plain.abs().max().item(), (with_kernels - plain).abs().max().item()
+        log(f"[{key}-f32] Heun-2 signals {tuple(plain.shape)}: kernels vs plain "
+            f"max_abs_err={err:.3e} (peak {peak:.3e}, tol 1e-4 * peak)")
+        if not (torch.isfinite(with_kernels).all() and err <= 1e-4 * peak):
+            fail(f"the f32 {key} sample through the kernels disagrees with the plain versions")
+        del b32
+    for key in RECIPE_BATCH:
+        m32, frozen32, _, sig, mshape = recipe_setup(key, dev, torch.float32, randomize_)
+        rb, rd = recipe_batch(key, F32_BATCH, sig, mshape, gen, dev)
+        n_fa = len(step_calls[key][1])
+        check_step_vs_plain(f"{key}-f32-train", m32.eval(),
+                            lambda: recipe_loss(key, m32, frozen32, rb, rd), (n_fa, n_fa), 40)
+        del m32, frozen32
     torch.cuda.empty_cache()
 
     # ---- 4. the main path ------------------------------------------------------
+    phase("4. the main paths")
     bundles["dpmpp_2m-10"].generate(cond, generator=gen)  # warm-up: lazy CUDA init, cuDNN plans
     torch.cuda.synchronize()
     group_norm_silu.launches = 0
@@ -1429,7 +1666,67 @@ def main():
     for which, name in enumerate(("group_norm_silu", "flash_attention")):
         launches[name] += sum(c[which] for c in path_counts.values())
 
+    # ---- 4j. the EDM recipes beyond the flagship: each sampler, then Trainer.fit of each
+    # recipe at its batch ------------------------------------------------------------
+    phase("4j. the EDM recipes beyond the flagship")
+    from tqdne_tpu_torch.cli.common import RECIPES
+
+    new_counts, new_rates = {}, {}
+    kernels_ = launch_counters()
+    for key, runs_ in new_bundles.items():
+        u_gn, u_fa, d_gn = sampler_calls[key]
+        runs_["dpmpp_2m-10"].generate(cond, generator=gen)  # warm-up: cuDNN plans at its shapes
+        for name, bundle in runs_.items():
+            evals = 2 * 25 - 1 if name == "heun-25" else 10
+            torch.cuda.synchronize()
+            for fn in kernels_:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            wave = bundle.generate(cond, generator=gen)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            got = {fn.__name__: fn.launches for fn in kernels_}
+            want = want_launches(len(u_gn) * evals + len(d_gn), len(u_fa) * evals)
+            finite = bool(torch.isfinite(wave).all())
+            new_counts[f"{key} {name}"] = got
+            new_rates[f"{key} {name}"] = BATCH / sec
+            log(f"[{key}] {name} + {'Griffin-Lim 32' if key == 'edm' else 'the envelope inverse'}"
+                f", batch {BATCH}, bf16: waveforms {tuple(wave.shape)} finite {finite}, peak "
+                f"{wave.abs().max().item():.3e}; {BATCH / sec:.2f} waveforms/s (one run, "
+                f"{sec:.3f} s); launches {got}")
+            if wave.shape != (BATCH, 3, 4064) or not finite:
+                fail(f"{key} {name}: waveforms {tuple(wave.shape)} finite {finite}")
+            if got != want:
+                fail(f"{key} {name}: launches {got} != expected {want} ({evals} UNet evals)")
+        profile_breakdown(lambda: runs_["dpmpp_2m-10"].generate(cond, generator=gen),
+                          f"{key} dpmpp_2m-10, batch {BATCH} (10 UNet evals"
+                          f"{' and one decode' if d_gn else ''}, then the inversion)")
+    del new_bundles
+    torch.cuda.empty_cache()
+    recipe_runs = {}
+    for key, (model, frozen, steps) in recipe_models.items():
+        recipe = RECIPES[key]
+        cfg = recipe.config_cls()
+        edm_kind = recipe.kind == "edm"
+        keys = ("signal", "cond") if edm_kind else ("signal",)
+        ld = BatchLoader(ArrayDataset(arrays, cfg.make_representation(), cut=cfg.t,
+                                      cond=edm_kind, split="full"),
+                         RECIPE_BATCH[key], device=dev, keys=keys, seed=SEED)
+        sched = cosine_annealing(1e-4, recipe.epochs * len(ld))  # the recipe's epochs
+        st = TrainState(model, make_optimizer(recipe.optimizer, model, 1e-4,
+                                              recipe.weight_decay), sched)
+        gn, fa, enc = step_calls[key]
+        new_counts[f"{key} train"], rows = counted_fit(
+            f"{key}-train", steps, st, ld, max_steps=RECIPE_STEPS,
+            want=want_launches((len(gn) + len(enc)) * RECIPE_STEPS, len(fa) * RECIPE_STEPS,
+                               len(fa) * RECIPE_STEPS),
+            want_gn_bwd=len(gn) * RECIPE_STEPS, lr_schedule=sched)
+        recipe_runs[key] = (st, steps[0], next(iter(ld)))
+    for run_counts in new_counts.values():
+        launches = {k: launches[k] + v for k, v in run_counts.items()}
+
     # ---- 5. timings --------------------------------------------------------------
+    phase("5. timings")
     for name, bundle in bundles.items():
         for _ in range(E2E_RUNS - 1):
             t0 = time.perf_counter()
@@ -1456,11 +1753,9 @@ def main():
         """Device ms of each, plus the kernel's per-call time when issued back
         to back (CUDA events), which the host's overhead sets at small shapes,
         and the kernels the library call ran."""
-        names = []
         issue, issue_min = issue_ms(kernel)
-        return dict(ms=device_ms(kernel), plain_ms=device_ms(plain),
-                    library_ms=device_ms(library, names=names), issue_ms=issue,
-                    issue_min_ms=issue_min, library_kernels=sorted(set(names)))
+        return dict(ms=device_ms(kernel), plain_ms=device_ms(plain), library_ms=device_ms(library),
+                    issue_ms=issue, issue_min_ms=issue_min)
 
     def summed(rows, key):  # the kernel's work in one UNet eval (plus one decode) or step
         return sum((1 if key == "one" else r[key]) * r["calls"] for r in rows)
@@ -1679,6 +1974,68 @@ def main():
     if not math.isfinite(big_loss):
         fail("the batch-256 train step gave a non-finite loss")
 
+    # the EDM recipes beyond the flagship: samples/s on a resident batch, a profiled step,
+    # the 1D layout copies, and each kernel per call at the new path shapes
+    phase("5b. the EDM recipes' timings")
+    for key, (st, step, rb) in recipe_runs.items():
+        step(st, rb, generator=tgen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_E2E_STEPS):
+            step(st, rb, generator=tgen)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        new_rates[f"{key} train"] = RECIPE_BATCH[key] * TRAIN_E2E_STEPS / sec
+        log(f"[recipe-e2e] {key} train step, batch {RECIPE_BATCH[key]}, bf16: "
+            f"{new_rates[f'{key} train']:.2f} samples/s ({TRAIN_E2E_STEPS} steps in "
+            f"{sec:.3f} s on a resident batch)")
+        train_profile(lambda: step(st, rb, generator=tgen),
+                      f"one {key} train step, batch {RECIPE_BATCH[key]}, bf16")
+    layout = {"forward_ms": 0.0, "calls": 0}
+    for key in ("1d_edm",):  # each 1D Norm32: (B, C, L) -> (B, L, C) in, and back for the conv
+        gn = step_calls[key][0]
+        for k in dict.fromkeys(gn):
+            xt = torch.randn(RECIPE_BATCH[key], k[3], k[2], generator=gen, device=dev).to(k[0])
+            back = xt.movedim(1, -1).contiguous().movedim(-1, 1)
+            ms = device_ms(lambda: xt.movedim(1, -1).contiguous()) + device_ms(
+                lambda: back.contiguous())
+            layout["forward_ms"] += ms * gn.count(k)
+            layout["calls"] += gn.count(k)
+    log(f"[layout] 1d_edm train step, batch 256, bf16: the 1D Norm32 transposes (in, and back "
+        f"to the convolution's layout) cost {layout['forward_ms']:.3f} device ms over "
+        f"{layout['calls']} calls of the forward (the backward's copies: the profiled step's "
+        f"[train-profile] line, by autograd node)")
+    new_rows = {}
+    for key in RECIPE_BATCH:
+        gn, fa, enc = step_calls[key]
+        bsz, calls = RECIPE_BATCH[key], gn + enc
+        rows = {"group_norm_silu": [gn_row(*k, calls=calls.count(k), batch=bsz)
+                                    for k in dict.fromkeys(calls)]}
+        if fa:
+            rows["flash_attention"] = [fa_row(*fa[0], calls=len(fa), batch=bsz)]
+            rows |= {n: [r] for n, r in bwd_rows(*fa[0], calls=len(fa), batch=bsz).items()}
+        new_rows[f"one {key} train step, batch {bsz}, bf16"] = rows
+    for key in SAMPLERS:
+        u_gn, u_fa, d_gn = sampler_calls[key]
+        calls = u_gn + d_gn
+        new_rows[f"one {key} UNet eval{' and one decode' if d_gn else ''}, batch {BATCH}, "
+                 f"bf16"] = {
+            "group_norm_silu": [gn_row(*k, calls=calls.count(k)) for k in dict.fromkeys(calls)],
+            "flash_attention": [fa_row(*u_fa[0], calls=len(u_fa))]}
+    new_sums = collections.defaultdict(dict)
+    for label, rows in new_rows.items():
+        for name, rs in rows.items():
+            for r in rs:
+                log(f"[time] {label}: {json.dumps(r)}")
+            new_sums[name][label] = {k: summed(rs, k) for k in (
+                "ms", "bound_ms", "plain_ms", "library_ms", "issue_ms")} | {
+                "calls": summed(rs, "one"),
+                "bound_by": "bytes" if summed(rs, "bytes_ms") >= summed(rs, "ops_ms")
+                else "operations"}
+            log(f"[time] {name} over {label}: {json.dumps(new_sums[name][label])}")
+    log(f"[recipe-rates] {json.dumps(new_rates)}")
+
+    phase("the kernels line")
     kernels = []
     for name, rows, source, replaces in (
         ("group_norm_silu", gn_rows, "tqdne_tpu_torch/csrc/group_norm.cu",
@@ -1700,10 +2057,12 @@ def main():
             launches_per_run={**{run: counts[run][which] for run in counts},
                               "train": train_counts[name],
                               **{run: c[which] for run, c in path_counts.items()},
-                              **{run: c[name] for run, c in recipe_counts.items()}},
+                              **{run: c[name] for run, c in recipe_counts.items()},
+                              **{run: c[name] for run, c in new_counts.items()}},
             classifier_forward=clf_sums[name] | {"per": f"one classifier forward, batch {BATCH}, "
                                                         f"bf16"},
             classifier_train_step=clf_step_sums[name],
+            edm_recipes=new_sums[name],
         ))
     for name, line in (("flash_attention_bwd_dkdv", 209), ("flash_attention_bwd_dq", 274)):
         rows = [row[name] for row in bwd]
@@ -1719,8 +2078,10 @@ def main():
             per=f"all calls of one train step, batch {TRAIN_BATCH}, bf16; library_ms is the "
                 f"SDPA backward, which computes dq, dk and dv together",
             launches_per_run={"train": train_counts[name],
-                              **{run: c[name] for run, c in recipe_counts.items()}},
+                              **{run: c[name] for run, c in recipe_counts.items()},
+                              **{run: c[name] for run, c in new_counts.items()}},
             classifier_train_step=clf_step_sums[name],
+            edm_recipes=new_sums[name],
         ))
     redesigned = {
         "group_norm_silu": "one launch: a thread-block cluster over row chunks of whole-group "

@@ -52,7 +52,7 @@ from tqdne_tpu_torch.train.state import (
     cosine_annealing,
     make_optimizer,
 )
-from tqdne_tpu_torch.train.steps import edm_step_loss, make_edm_steps, sample_latent_edm
+from tqdne_tpu_torch.train.steps import edm_step_loss, make_edm_steps, sample_edm
 from tqdne_tpu_torch.utils import convert, randomize_
 
 RTOL, ATOL = 1e-4, 1e-5
@@ -276,9 +276,9 @@ def test_sample_latent_edm_keeps_the_callers_dtype(rng):
     _, _, port_unet = small_unet_pair(seed=5)
     _, _, port_ae = tiny_ae_pair()
     cond = _t(rng.standard_normal((1, 5)).astype(np.float32))
-    out = sample_latent_edm(port_unet, port_ae, (1, 8, 8, 8), cond, num_steps=2,
-                            cast_params=torch.bfloat16, device="cpu",
-                            generator=torch.Generator().manual_seed(0))
+    out = sample_edm(port_unet, (1, 8, 8, 8), cond, autoencoder=port_ae, num_steps=2,
+                     cast_params=torch.bfloat16, device="cpu",
+                     generator=torch.Generator().manual_seed(0))
     assert out.shape == (1, 32, 32, 3) and torch.isfinite(out).all()
     assert {p.dtype for p in port_unet.parameters()} == {torch.float32}
 
@@ -419,4 +419,4 @@ def test_train_cli_writes_metrics_and_a_checkpoint(tmp_path):
     with pytest.raises(SystemExit, match="needs a latent"):
         train_cli.main(["autoencoder", *argv[1:], "--cached-latents"])
     with pytest.raises(SystemExit, match="not ported"):
-        train_cli.main(["edm", *argv[1:]])
+        train_cli.main(["consistency", *argv[1:]])

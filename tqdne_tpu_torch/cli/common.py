@@ -1,19 +1,22 @@
-"""Model, loader and sampler assembly for the flagship chain: the port of
-``tqdne_tpu/cli/common.py`` (``InferenceBundle`` with its fixed-batch
-``sampler`` for serving, ``build_inference``, ``parse_dtype``,
+"""Model, loader and sampler assembly for the ported recipes, 1D and 2D: the
+port of ``tqdne_tpu/cli/common.py`` (``InferenceBundle`` with its
+fixed-batch ``sampler`` for serving, ``build_inference``, ``parse_dtype``,
 ``ensure_dataset``, ``make_loaders``, ``build_unet``, ``build_autoencoder``,
-``load_ae_state``, ``dataset_feature_stats`` and the flags the train CLI
-reads).
+``load_ae_variables`` as ``frozen_autoencoder``, ``signal_shape``,
+``dataset_feature_stats`` and the flags the train CLI reads), and the table
+of ported recipes (``RECIPES``, the JAX ``tqdne_tpu/cli/train.py:RECIPES``)
+that every CLI reads.
 
 Weights come from ``.pt`` state dicts written by
 ``python -m tqdne_tpu_torch.utils.convert`` from the JAX package's flax
 artifacts, or from the port's own training runs under ``outputs/``.  A model
-given no weights file gets seeded random weights (``utils.randomize_``),
-which is what smoke runs and tests use.
+given neither gets seeded random weights (``utils.randomize_``), which is
+what smoke runs and tests use.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 from pathlib import Path
 
@@ -23,12 +26,12 @@ import torch
 from tqdne_tpu_torch import configs
 from tqdne_tpu_torch.data.dataset import CachedLatentsDataset, Dataset, make_synthetic_dataset
 from tqdne_tpu_torch.data.pipeline import BatchLoader, DeviceResidentLoader
-from tqdne_tpu_torch.data.representation import Identity
+from tqdne_tpu_torch.data.representation import Identity, LogSpectrogram
 from tqdne_tpu_torch.models.autoencoder import AutoencoderKL
 from tqdne_tpu_torch.models.unet import UNet
 from tqdne_tpu_torch.nn.layers import set_compute_dtype
-from tqdne_tpu_torch.train.checkpoint import Checkpointer
-from tqdne_tpu_torch.train.steps import sample_latent_edm
+from tqdne_tpu_torch.train.checkpoint import Checkpointer, hparams_diff
+from tqdne_tpu_torch.train.steps import sample_edm
 from tqdne_tpu_torch.utils import randomize_, resolve_device
 
 logger = logging.getLogger("tqdne_tpu_torch")
@@ -38,6 +41,45 @@ AE_NAME = "Autoencoder-32x32x4-LogSpectrogram"  # its frozen autoencoder's run
 DTYPES = {"f32": torch.float32, "float32": torch.float32, "bf16": torch.bfloat16,
           "bfloat16": torch.bfloat16}
 TINY_CHANNELS = 32  # model_channels of the --tiny UNet and autoencoder
+
+
+@dataclasses.dataclass
+class Recipe:
+    name: str
+    config_cls: type
+    dims: int
+    epochs: int
+    batch: int
+    kind: str = "edm"  # edm | autoencoder | classifier
+    latent: bool = False
+    ae_name: str | None = None  # a latent recipe's frozen autoencoder run
+    optimizer: str = "adam"
+    weight_decay: float = 0.0
+    ema_decay: float = 0.999
+
+
+def _autoencoder(name, config_cls, dims, epochs, batch):
+    return Recipe(name, config_cls, dims, epochs, batch, "autoencoder", optimizer="adamw",
+                  weight_decay=1e-4, ema_decay=0.0)
+
+
+RECIPES = {
+    "1d_edm": Recipe("EDM-MovingAvg", configs.MovingAverageEnvelopeConfig, 1, 200, 256),
+    "1d_autoencoder": _autoencoder("Autoencoder-1024x16-MovingAvg",
+                                   configs.LatentMovingAverageEnvelopeConfig, 1, 200, 256),
+    "1d_latent_edm": Recipe("Latent-EDM-MovingAvg-1024x16",
+                            configs.LatentMovingAverageEnvelopeConfig, 1, 300, 256, latent=True,
+                            ae_name="Autoencoder-1024x16-MovingAvg"),
+    "autoencoder": _autoencoder(AE_NAME, configs.LatentSpectrogramConfig, 2, 300, 128),
+    "edm": Recipe("EDM-128x128-LogSpectrogram", configs.SpectrogramConfig, 2, 300, 64),
+    "latent_edm": Recipe(RUN_NAME, configs.LatentSpectrogramConfig, 2, 200, 256, latent=True,
+                         ae_name=AE_NAME),
+    "classifier": Recipe("Classifier-LogSpectrogram", configs.SpectrogramClassificationConfig, 2,
+                         110, 64, "classifier", ema_decay=0.0),
+}
+# the JAX package's recipes (tqdne_tpu/cli/train.py:RECIPES); the others are refused
+JAX_RECIPES = ("1d_edm", "1d_autoencoder", "1d_latent_edm", "autoencoder", "edm", "latent_edm",
+               "classifier", "consistency", "latent_consistency", "latent_distill", "ddpm")
 
 
 def parse_dtype(name: str) -> torch.dtype:
@@ -52,11 +94,17 @@ def load_weights(module: torch.nn.Module, weights, seed: int) -> torch.nn.Module
     return module
 
 
-def build_autoencoder(config, dtype=None, *, tiny: bool = False):
-    """The flagship 2D autoencoder computing in ``dtype`` over f32 parameters
-    (None: in its weights' dtype); returns (module, encoder config, decoder
-    config)."""
-    enc_cfg, dec_cfg = configs.get_2d_autoencoder_configs(config)
+def tuplify(cfg: dict) -> dict:
+    """A module config read back from JSON, with its lists as tuples again."""
+    return {k: tuple(v) if isinstance(v, list) else v for k, v in cfg.items()}
+
+
+def build_autoencoder(config, dtype=None, *, dims: int = 2, tiny: bool = False):
+    """The 1D or 2D autoencoder preset computing in ``dtype`` over f32
+    parameters (None: in its weights' dtype); returns (module, encoder config,
+    decoder config)."""
+    get = configs.get_1d_autoencoder_configs if dims == 1 else configs.get_2d_autoencoder_configs
+    enc_cfg, dec_cfg = get(config)
     if tiny:
         enc_cfg = enc_cfg | {"model_channels": TINY_CHANNELS}
         dec_cfg = dec_cfg | {"model_channels": TINY_CHANNELS}
@@ -69,53 +117,60 @@ def autoencoder_hparams(config, enc_cfg: dict, dec_cfg: dict) -> dict:
             "decoder": dec_cfg, "kl_weight": config.kl_weight}
 
 
-def load_ae_state(config, ae_name: str, enc_cfg: dict, dec_cfg: dict) -> dict:
-    """The frozen autoencoder's state dict from the port's run
-    ``outputs/<ae_name>/checkpoints``: its latest checkpoint's EMA weights.
-    Stored hyperparameters that differ from the autoencoder being built are
-    reported (an architecture that differs then fails to load)."""
-    ckptdir = Path(config.outputdir) / ae_name / "checkpoints"
-    ckpt = Checkpointer(ckptdir)
+def run_checkpoint(config, run_name: str) -> tuple[dict, dict]:
+    """(the EMA weights of the newest checkpoint, the stored hyperparameters)
+    of the port's run ``outputs/<run_name>``; SystemExit when the run has no
+    checkpoint or no ``hparams.json``."""
+    ckpt = Checkpointer(Path(config.outputdir) / run_name / "checkpoints")
     restored = ckpt.restore_latest_raw()
-    if restored is None:
-        raise FileNotFoundError(
-            f"frozen autoencoder not found under {ckptdir.parent} (train it first with "
-            f"`python -m tqdne_tpu_torch.cli.train autoencoder --workdir ...`, or pass "
-            f"--ae-weights)")
-    ckpt.verify_hyperparameters(autoencoder_hparams(config, enc_cfg, dec_cfg), strict=False)
-    logger.info("loaded frozen AE (EMA weights, step %d) from %s", restored[1], ckptdir)
-    return restored[0]["ema"]
+    stored = ckpt.restore_hyperparameters()
+    if restored is None or stored is None:
+        raise SystemExit(f"no checkpoint with its hparams.json under {ckpt.directory} (train its "
+                         f"recipe with `python -m tqdne_tpu_torch.cli.train <recipe> --workdir "
+                         f"...`, or pass the weights file)")
+    logger.info("loaded %s (EMA weights, step %d) from %s", run_name, restored[1], ckpt.directory)
+    return restored[0]["ema"], stored
 
 
-def frozen_autoencoder(config, dtype=None, *, tiny: bool = False, weights=None,
+def frozen_autoencoder(config, dtype=None, *, dims: int = 2, tiny: bool = False, weights=None,
                        ae_name: str = AE_NAME):
-    """The latent recipes' frozen autoencoder from the ``.pt`` state dict
-    ``weights``, or without one from the port's own run ``ae_name``; returns
-    (module, encoder config, decoder config) as ``build_autoencoder``."""
-    ae, enc_cfg, dec_cfg = build_autoencoder(config, dtype, tiny=tiny)
+    """A latent recipe's frozen autoencoder at the preset widths, from the
+    ``.pt`` state dict ``weights``, or without one from the port's run
+    ``ae_name``: its newest checkpoint's EMA weights, as the JAX
+    ``load_ae_variables`` (stored hyperparameters that differ are reported,
+    and an architecture that differs then fails to load).  Returns (module,
+    encoder config, decoder config) as ``build_autoencoder``."""
+    ae, enc_cfg, dec_cfg = build_autoencoder(config, dtype, dims=dims, tiny=tiny)
     if weights is not None:
-        load_weights(ae, weights, 0)
-    else:
-        ae.load_state_dict(load_ae_state(config, ae_name, enc_cfg, dec_cfg))
+        return load_weights(ae, weights, 0), enc_cfg, dec_cfg
+    state, stored = run_checkpoint(config, ae_name)
+    diffs = hparams_diff(stored, autoencoder_hparams(config, enc_cfg, dec_cfg))
+    if diffs:
+        logger.warning("%s stores other hyperparameters than the preset: %s", ae_name,
+                       "; ".join(diffs[:8]))
+    ae.load_state_dict(state)
     return ae, enc_cfg, dec_cfg
 
 
-def build_unet(config, in_channels: int, out_channels: int, dtype=None, **overrides):
-    """The flagship 2D UNet computing in ``dtype`` over f32 parameters (None:
-    in its weights' dtype); returns (module, its config)."""
-    ucfg = configs.get_2d_unet_config(config, in_channels, out_channels) | overrides
+def build_unet(config, in_channels: int, out_channels: int, dtype=None, *, dims: int = 2,
+               **overrides):
+    """The 1D or 2D UNet preset computing in ``dtype`` over f32 parameters
+    (None: in its weights' dtype); returns (module, its config)."""
+    get = configs.get_1d_unet_config if dims == 1 else configs.get_2d_unet_config
+    ucfg = get(config, in_channels, out_channels) | overrides
     return set_compute_dtype(UNet(**ucfg), dtype), ucfg
 
 
 def signal_shape(config) -> tuple[int, ...]:
-    """Channels-last (F, frames, C) of one example's representation."""
-    sig = config.make_representation().get_representation(
-        torch.zeros(1, config.channels, config.t))
+    """Channels-last shape of one example's representation of a 3-component
+    waveform: (F, frames, C) for a spectrogram, (T, C) for the envelope."""
+    sig = config.make_representation().get_representation(torch.zeros(1, 3, config.t))
     return tuple(sig.movedim(1, -1).shape[1:])
 
 
 def latent_shape(enc_cfg: dict, sig_shape: tuple[int, ...]) -> tuple[int, ...]:
-    """Channels-last latent shape: one stride-2 convolution per extra level."""
+    """Channels-last latent shape (the JAX ``infer_latent_shape``): one
+    stride-2 convolution per extra level."""
     factor = 2 ** (len(enc_cfg["channel_mult"]) - 1)
     return (*(-(-s // factor) for s in sig_shape[:-1]), enc_cfg["out_channels"] // 2)
 
@@ -177,7 +232,7 @@ def add_common_args(parser):
     parser.add_argument("--ae-weights", type=str, default=None,
                         help="latent recipes: the frozen autoencoder's state dict (.pt, e.g. "
                              "from tqdne_tpu_torch.utils.convert); default: the port's own "
-                             f"{AE_NAME} run in the workdir")
+                             "autoencoder run in the workdir")
     parser.add_argument("--no-resume", action="store_true")
     parser.add_argument("--val-every", type=int, default=1,
                         help="validation-loss pass period in epochs")
@@ -202,16 +257,18 @@ def add_common_args(parser):
 
 
 class InferenceBundle:
-    """A sampleable flagship model: UNet, frozen autoencoder and the
-    representation that turns decoded spectrograms into waveforms."""
+    """A sampleable EDM recipe: the UNet, the frozen autoencoder of a latent
+    recipe (None otherwise) and the representation that turns the sampled
+    signal into waveforms."""
 
-    def __init__(self, config, representation, unet, autoencoder, model_shape, *,
+    def __init__(self, config, representation, unet, autoencoder, sig_shape, model_shape, *,
                  num_steps: int, solver: str, device: torch.device):
         self.config = config
         self.representation = representation
         self.unet = unet
         self.autoencoder = autoencoder
-        self.model_shape = model_shape  # channels-last latent shape, no batch
+        self.sig_shape = sig_shape  # channels-last signal shape, no batch
+        self.model_shape = model_shape  # channels-last latent (or signal) shape, no batch
         self.num_steps = num_steps
         self.solver = solver
         self.device = device
@@ -221,10 +278,11 @@ class InferenceBundle:
         return self.config.t
 
     def sample(self, cond: torch.Tensor, *, noise=None, generator=None) -> torch.Tensor:
-        """Normalised conditioning (B, 5) -> decoded signal (B, F, frames, C), f32."""
+        """Normalised conditioning (B, 5) -> the channels-last signal
+        (B, *sig_shape), decoded for a latent recipe, f32."""
         cond = cond.to(self.device, torch.float32)
-        return sample_latent_edm(
-            self.unet, self.autoencoder, (cond.shape[0], *self.model_shape), cond,
+        return sample_edm(
+            self.unet, (cond.shape[0], *self.model_shape), cond, autoencoder=self.autoencoder,
             num_steps=self.num_steps, solver=self.solver, noise=noise, generator=generator,
             device=self.device)
 
@@ -235,10 +293,15 @@ class InferenceBundle:
                            init_phase=init_phase, generator=generator)
 
     def invert(self, signal: torch.Tensor, *, init_phase=None, generator=None) -> torch.Tensor:
-        """Decoded channels-last signal (B, F, frames, C) -> waveforms (B, 3, t)
-        through Griffin-Lim on the signal's device."""
-        wave = self.representation.invert_representation(
-            signal.movedim(-1, 1), init_phase=init_phase, generator=generator)
+        """Channels-last signal (B, *sig_shape) -> waveforms (B, 3, t) on the
+        signal's device: Griffin-Lim for a spectrogram (``init_phase`` or
+        ``generator`` seeds it), the elementwise inverse for the envelope."""
+        signal = signal.movedim(-1, 1)
+        if isinstance(self.representation, LogSpectrogram):
+            wave = self.representation.invert_representation(signal, init_phase=init_phase,
+                                                             generator=generator)
+        else:
+            wave = self.representation.invert_representation(signal)
         return wave[..., : self.t]
 
     def padded_cond(self, cond, batch_size: int) -> torch.Tensor:
@@ -272,40 +335,70 @@ class InferenceBundle:
 
 
 @torch.no_grad()
-def build_inference(recipe_key: str = "latent_edm", *, unet_weights=None, ae_weights=None,
-                    dtype=torch.bfloat16, num_steps: int = 25, solver: str = "heun",
-                    gl_iters: int | None = None, device="cuda", tiny: bool = False,
-                    init_seed: int = 0) -> InferenceBundle:
-    """Build the flagship sampler on ``device`` (``cuda`` unless asked).
+def build_inference(recipe_key: str = "latent_edm", *, workdir=None, unet_weights=None,
+                    ae_weights=None, dtype=torch.bfloat16, num_steps: int = 25,
+                    solver: str = "heun", gl_iters: int | None = None, device="cuda",
+                    tiny: bool = False, init_seed: int = 0) -> InferenceBundle:
+    """Build the sampler of an EDM recipe (``latent_edm``, ``edm``, ``1d_edm``
+    or ``1d_latent_edm``) on ``device`` (``cuda`` unless asked).
 
+    Each model's weights come from its ``.pt`` state dict (``unet_weights``,
+    ``ae_weights``), else from the port's run in ``workdir`` (its newest
+    checkpoint's EMA weights, the model rebuilt at the widths its
+    ``hparams.json`` stores, as the JAX ``build_inference`` rebuilds it), else,
+    without a workdir, seeded random weights (``init_seed``) at the preset.
     ``dtype``: compute dtype; bf16 casts the bundle's UNet parameters once
     (the JAX ``cast_params``) and runs the autoencoder's convolutions in bf16.
-    ``tiny``: 32-channel UNet and autoencoder (the JAX ``--tiny`` widths).
-    ``init_seed`` seeds the random weights of a model given no weights file.
+    ``tiny``: 32-channel presets (the JAX ``--tiny`` widths).  ``gl_iters``
+    is refused by a recipe that has no Griffin-Lim.
     """
-    if recipe_key != "latent_edm":
-        raise SystemExit(f"recipe {recipe_key!r} cannot be sampled yet (have: 'latent_edm')")
+    if recipe_key not in RECIPES:
+        raise SystemExit(f"recipe {recipe_key!r} is not ported yet (have: {', '.join(RECIPES)})")
+    recipe = RECIPES[recipe_key]
+    if recipe.kind != "edm":
+        raise SystemExit(f"recipe {recipe_key!r} has no sampler (kind={recipe.kind})")
     if solver not in ("heun", "dpmpp_2m"):
         raise SystemExit(f"unknown solver {solver!r}; use 'heun' or 'dpmpp_2m'")
     device = resolve_device(device)
-    config = configs.LatentSpectrogramConfig()
+    config = recipe.config_cls(workdir=workdir or ".")
     if gl_iters is not None:
+        if not hasattr(config, "griffin_lim_iters"):
+            raise SystemExit(f"recipe {recipe_key!r} has no Griffin-Lim inversion")
         config.griffin_lim_iters = gl_iters
     representation = config.make_representation()
+    sig_shape = model_shape = signal_shape(config)
 
-    autoencoder, enc_cfg, _ = build_autoencoder(config, dtype, tiny=tiny)
-    load_weights(autoencoder, ae_weights, init_seed + 1)
-    model_shape = latent_shape(enc_cfg, signal_shape(config))
-    unet, _ = build_unet(config, model_shape[-1], model_shape[-1],
-                         model_channels=TINY_CHANNELS if tiny else 128)
-    load_weights(unet, unet_weights, init_seed)
+    autoencoder = None
+    preset = {"model_channels": TINY_CHANNELS} if tiny else {}
+    if recipe.latent:
+        if ae_weights is None and workdir is not None:
+            state, stored = run_checkpoint(config, recipe.ae_name)
+            enc_cfg = tuplify(stored["encoder"])
+            autoencoder = set_compute_dtype(
+                AutoencoderKL(enc_cfg, tuplify(stored["decoder"])), dtype)
+            autoencoder.load_state_dict(state)
+        else:
+            autoencoder, enc_cfg, _ = build_autoencoder(config, dtype, dims=recipe.dims,
+                                                        tiny=tiny)
+            load_weights(autoencoder, ae_weights, init_seed + 1)
+        model_shape = latent_shape(enc_cfg, sig_shape)
+
+    if unet_weights is None and workdir is not None:
+        state, stored = run_checkpoint(config, recipe.name)
+        unet = UNet(**tuplify(stored["unet"]))
+        unet.load_state_dict(state)
+    else:
+        unet, _ = build_unet(config, model_shape[-1], model_shape[-1], dims=recipe.dims,
+                             **preset)
+        load_weights(unet, unet_weights, init_seed)
     if dtype == torch.bfloat16:
         unet.to(dtype)  # the bundle's own UNet: its parameters are cast once
     for module in (unet, autoencoder):
-        module.to(device).eval()
-        if device.type == "cuda":
-            module.to(memory_format=torch.channels_last)
-    return InferenceBundle(config, representation, unet, autoencoder, model_shape,
+        if module is not None:
+            module.to(device).eval()
+            if device.type == "cuda":
+                module.to(memory_format=torch.channels_last)
+    return InferenceBundle(config, representation, unet, autoencoder, sig_shape, model_shape,
                            num_steps=num_steps, solver=solver, device=device)
 
 

@@ -1,5 +1,7 @@
 """Generate over a dataset split on a GPU and write everything the report
-needs to HDF5: the port of ``tqdne_tpu/cli/evaluate.py`` for ``latent_edm``.
+needs to HDF5: the port of ``tqdne_tpu/cli/evaluate.py`` for the EDM recipes
+``latent_edm`` (default), ``edm``, ``1d_edm`` and ``1d_latent_edm``
+(``--config``).
 
 Per split it writes the five conditioning features plus eight datasets
 (target/predicted waveform, target/predicted signal, target/predicted
@@ -11,10 +13,13 @@ classifier embedding, target/predicted classifier logits) and a
         --ae-weights ae.pt --classifier-weights clf.pt \\
         --classifier-manifest weights/Classifier-LogSpectrogram-ema.manifest.json
 
-Weights are ``.pt`` state dicts from ``python -m tqdne_tpu_torch.utils.convert``.
-Without ``--classifier-weights`` the classifier is the port's own run
+Weights are ``.pt`` state dicts from ``python -m tqdne_tpu_torch.utils.convert``;
+a model without one comes from the port's run in the workdir.  Without
+``--classifier-weights`` the classifier is the port's own run
 ``outputs/<--classifier-name>`` in the workdir, built at its stored widths;
-without either the classifier datasets are skipped.  The dataset is HDF5
+without either, or when the recipe's signal is not the classifier's 128 x
+128 x 3 spectrogram (the envelope recipes), the classifier datasets are
+skipped.  The dataset is HDF5
 and needs ``h5py``; ``evaluate_batch`` is the per-batch work without the
 file.
 """
@@ -30,6 +35,7 @@ import torch
 
 from tqdne_tpu_torch import configs
 from tqdne_tpu_torch.cli import common
+from tqdne_tpu_torch.cli.common import RECIPES
 from tqdne_tpu_torch.data.dataset import Dataset
 from tqdne_tpu_torch.models.classifier import Classifier
 from tqdne_tpu_torch.nn.layers import set_compute_dtype
@@ -72,7 +78,7 @@ def load_classifier_run(workdir, name: str, *, dtype=torch.bfloat16, device="cud
         return None
     stored = ckpt.restore_hyperparameters() or {}
     if "encoder" in stored:
-        enc_cfg = {k: tuple(v) if isinstance(v, list) else v for k, v in stored["encoder"].items()}
+        enc_cfg = common.tuplify(stored["encoder"])
         num_classes = int(stored.get("num_classes", config.num_classes))
     else:
         enc_cfg, num_classes = configs.get_classifier_encoder_config(config), config.num_classes
@@ -92,7 +98,8 @@ def evaluate_batch(bundle, classifier, batch: dict, generator: torch.Generator,
     padded to ``batch_size`` for sampling, gives the predicted signal
     (n, C, F, frames) and waveform (n, 3, t); with a classifier, the target
     ``batch["signal"]`` (n, C, F, frames) and the predicted signal give the
-    embeddings and logits.  Tensors on the bundle's device, f32."""
+    embeddings and logits.  Tensors on the bundle's device, f32 (the signals
+    channels-first, (n, C, T) for the envelope)."""
     n = len(batch["cond"])
     signal = bundle.sample(bundle.padded_cond(batch["cond"], batch_size or n),
                            generator=generator)
@@ -112,16 +119,19 @@ def main(argv=None):
     parser = argparse.ArgumentParser("tqdne_tpu_torch.cli.evaluate",
                                      description=__doc__.split("\n\n")[0])
     parser.add_argument("--workdir", type=str, required=True)
-    parser.add_argument("--config", type=str, default="latent_edm")
+    parser.add_argument("--config", type=str, default="latent_edm",
+                        help="recipe: latent_edm, edm, 1d_edm or 1d_latent_edm")
     parser.add_argument("--split", type=str, default="test",
                         choices=["train", "validation", "test", "train_validation", "full"])
     parser.add_argument("-b", "--batchsize", type=int, default=32)
     parser.add_argument("--name", type=str, default=None,
-                        help=f"run name of the output file (default: {common.RUN_NAME})")
-    parser.add_argument("--unet-weights", type=str, required=True,
-                        help="UNet state dict (.pt) from tqdne_tpu_torch.utils.convert")
-    parser.add_argument("--ae-weights", type=str, required=True,
-                        help="autoencoder state dict (.pt) from tqdne_tpu_torch.utils.convert")
+                        help="run name of the output file (default: the recipe's)")
+    parser.add_argument("--unet-weights", type=str, default=None,
+                        help="UNet state dict (.pt) from tqdne_tpu_torch.utils.convert "
+                             "(default: the recipe's run in the workdir)")
+    parser.add_argument("--ae-weights", type=str, default=None,
+                        help="latent recipes: the autoencoder's state dict (.pt) (default: "
+                             "its run in the workdir)")
     parser.add_argument("--classifier-name", type=str, default="Classifier-LogSpectrogram",
                         help="the classifier's run under outputs/, read when no "
                              "--classifier-weights is given")
@@ -147,10 +157,11 @@ def main(argv=None):
 
     dtype = common.parse_dtype(args.dtype)
     bundle = common.build_inference(
-        args.config, unet_weights=args.unet_weights, ae_weights=args.ae_weights, dtype=dtype,
-        num_steps=args.num_steps, solver=args.solver, device=args.device, tiny=args.tiny)
-    config = configs.LatentSpectrogramConfig(workdir=args.workdir)
-    run_name = args.name or common.RUN_NAME
+        args.config, workdir=args.workdir, unet_weights=args.unet_weights,
+        ae_weights=args.ae_weights, dtype=dtype, num_steps=args.num_steps, solver=args.solver,
+        device=args.device, tiny=args.tiny)
+    config = bundle.config
+    run_name = args.name or RECIPES[args.config].name
     dataset = Dataset(config.datapath, bundle.representation, cut=config.t, cond=True,
                       split=args.split)
 
@@ -166,6 +177,11 @@ def main(argv=None):
             if classifier is None:
                 print(f"no classifier checkpoint for {args.classifier_name} — skipping "
                       "embedding/logit datasets (--no-classifier to silence)")
+        clf_shape = common.signal_shape(configs.SpectrogramClassificationConfig())
+        if classifier is not None and bundle.sig_shape != clf_shape:
+            print(f"classifier signal shape {clf_shape} != config signal shape "
+                  f"{bundle.sig_shape} — skipping classifier datasets")
+            classifier = None
 
     bs = args.batchsize
     all_idx = np.arange(len(dataset))  # rank 0 of 1
@@ -176,8 +192,7 @@ def main(argv=None):
     outfile = outdir / f"{run_name}{args.suffix}-split_{args.split}-rank_0.h5"
 
     n, t = len(all_idx), bundle.t
-    sig_shape = common.signal_shape(config)
-    sig_cf = (sig_shape[-1], *sig_shape[:-1])
+    sig_cf = (bundle.sig_shape[-1], *bundle.sig_shape[:-1])
     with h5py.File(outfile, "w") as f:
         # provenance: which weights were sampled and the sampler's settings,
         # copied into the report JSON by eval.report; the last two fields are

@@ -1,15 +1,19 @@
-"""Sample accelerograms from the flagship latent-EDM model on a GPU.
+"""Sample accelerograms from an EDM recipe on a GPU.
 
 The port of ``tqdne_tpu/cli/generate_waveforms.py`` for the ``latent_edm``
-recipe: conditioning from flags or a CSV (hypocentral_distance, magnitude,
-vs30, hypocentre_depth, azimuthal_gap[, num_samples] per row), normalised
-with the published dataset summary statistics, batched sampling, Griffin-Lim
-inversion and the same HDF5 layout (one dataset per feature plus
-``waveforms`` (N, 3, T)).  Weights are ``.pt`` state dicts written by
-``python -m tqdne_tpu_torch.utils.convert``:
+(default), ``edm``, ``1d_edm`` and ``1d_latent_edm`` recipes (``--config``):
+conditioning from flags or a CSV (hypocentral_distance, magnitude, vs30,
+hypocentre_depth, azimuthal_gap[, num_samples] per row), normalised with the
+published dataset summary statistics, batched sampling, the inversion
+(Griffin-Lim for a spectrogram, the elementwise inverse for the envelope) and the
+same HDF5 layout (one dataset per feature plus ``waveforms`` (N, 3, T)).
+Weights are ``.pt`` state dicts written by ``python -m
+tqdne_tpu_torch.utils.convert``, or the port's own runs in ``--workdir``:
 
     python -m tqdne_tpu_torch.cli.generate_waveforms --csv examples/demo_conditioning.csv \\
         --unet-weights unet.pt --ae-weights ae.pt --outfile out.h5 --device cuda
+    python -m tqdne_tpu_torch.cli.generate_waveforms --config 1d_edm --workdir W \\
+        --csv examples/demo_conditioning.csv --outfile out.h5
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from tqdne_tpu_torch.cli import common
+from tqdne_tpu_torch.cli.common import RECIPES
 from tqdne_tpu_torch.configs import FEATURES_KEYS
 
 # dataset conditioning-feature summary statistics (mean, std), in FEATURES_KEYS order
@@ -68,10 +73,14 @@ def main(argv=None):
     parser.add_argument("--num_samples", "--num-samples", type=int, default=None)
     parser.add_argument("--csv", type=str, default=None)
     parser.add_argument("--outfile", type=str, required=True)
-    parser.add_argument("--unet-weights", type=str, required=True,
+    parser.add_argument("--config", type=str, default="latent_edm",
+                        help="recipe: latent_edm, edm, 1d_edm or 1d_latent_edm")
+    parser.add_argument("--workdir", type=str, default=None,
+                        help="read each model without a weights file from the port's run here")
+    parser.add_argument("--unet-weights", type=str, default=None,
                         help="UNet state dict (.pt) from tqdne_tpu_torch.utils.convert")
-    parser.add_argument("--ae-weights", type=str, required=True,
-                        help="autoencoder state dict (.pt) from tqdne_tpu_torch.utils.convert")
+    parser.add_argument("--ae-weights", type=str, default=None,
+                        help="latent recipes: the autoencoder's state dict (.pt)")
     parser.add_argument("--batch_size", "--batch-size", type=int, default=32)
     parser.add_argument("--num_steps", "--num-steps", type=int, default=25)
     parser.add_argument("--solver", type=str, default="heun", choices=["heun", "dpmpp_2m"],
@@ -79,20 +88,25 @@ def main(argv=None):
                              "dpmpp_2m = 2nd-order multistep, N evals")
     parser.add_argument("--dtype", type=str, default="bf16", choices=["f32", "bf16"])
     parser.add_argument("--gl-iters", type=int, default=None,
-                        help="Griffin-Lim iterations (default: the representation's 128)")
+                        help="Griffin-Lim iterations of a spectrogram recipe (default: the "
+                             "representation's 128)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--tiny", action="store_true",
                         help="match weights of the 32-channel --tiny widths")
     args = parser.parse_args(argv)
 
+    latent = getattr(RECIPES.get(args.config), "latent", False)
+    if args.workdir is None and (args.unet_weights is None or latent and args.ae_weights is None):
+        raise SystemExit("give the weights files (--unet-weights, and --ae-weights for a latent "
+                         "recipe) or the --workdir of the runs")
     import h5py
 
     cond_raw = read_conditioning(args)
     bundle = common.build_inference(
-        "latent_edm", unet_weights=args.unet_weights, ae_weights=args.ae_weights,
-        dtype=common.DTYPES[args.dtype], num_steps=args.num_steps, solver=args.solver,
-        gl_iters=args.gl_iters, device=args.device, tiny=args.tiny)
+        args.config, workdir=args.workdir, unet_weights=args.unet_weights,
+        ae_weights=args.ae_weights, dtype=common.DTYPES[args.dtype], num_steps=args.num_steps,
+        solver=args.solver, gl_iters=args.gl_iters, device=args.device, tiny=args.tiny)
     cond = torch.as_tensor(normalize(cond_raw), dtype=torch.float32)
     generator = torch.Generator(device=bundle.device).manual_seed(args.seed)
 

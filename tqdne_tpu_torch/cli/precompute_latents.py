@@ -10,12 +10,14 @@ storage order, with the attributes ``ae_name``, ``dtype``,
 ``ae_fingerprint`` and ``n_rows_written``.  A sidecar that already matches
 the weights is kept unless ``--force`` is given:
 
-    python -m tqdne_tpu_torch.cli.precompute_latents --workdir W [--ae-weights ae.pt] \\
-        [--tiny] [-b 64] [--dtype f32] [--device cuda]
+    python -m tqdne_tpu_torch.cli.precompute_latents --workdir W [--config 1d_latent_edm] \\
+        [--ae-weights ae.pt] [--tiny] [-b 64] [--dtype f32] [--device cuda]
 
+``--config`` names the latent recipe (``latent_edm`` by default, or
+``1d_latent_edm``), which sets the representation and the autoencoder's run.
 Without ``--ae-weights`` the autoencoder is the port's own run
 ``outputs/<ae_name>`` in the same workdir.  Train from the sidecar with
-``python -m tqdne_tpu_torch.cli.train latent_edm --cached-latents``.  The
+``python -m tqdne_tpu_torch.cli.train <recipe> --cached-latents``.  The
 files are HDF5 and need ``h5py``.
 """
 
@@ -28,7 +30,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tqdne_tpu_torch import configs
 from tqdne_tpu_torch.cli import common
 from tqdne_tpu_torch.ops.representation import device_representation_fn
 from tqdne_tpu_torch.utils import resolve_device
@@ -83,11 +84,15 @@ def sidecar_fingerprint(path) -> str:
 def run(args) -> Path:
     import h5py
 
-    config = configs.LatentSpectrogramConfig(workdir=args.workdir)
+    recipe = common.RECIPES.get(args.config)
+    if recipe is None or not recipe.latent:
+        raise SystemExit(f"recipe {args.config!r} is not a ported latent recipe")
+    config = recipe.config_cls(workdir=args.workdir)
     device = resolve_device(args.device)
-    ae_name = args.ae_name or common.AE_NAME
-    ae, _, _ = common.frozen_autoencoder(config, common.parse_dtype(args.dtype), tiny=args.tiny,
-                                         weights=args.ae_weights, ae_name=ae_name)
+    ae_name = args.ae_name or recipe.ae_name
+    ae, _, _ = common.frozen_autoencoder(config, common.parse_dtype(args.dtype), dims=recipe.dims,
+                                         tiny=args.tiny, weights=args.ae_weights,
+                                         ae_name=ae_name)
     fingerprint = ae_fingerprint(ae.state_dict())
     ae.to(device).eval()
     if device.type == "cuda":
@@ -123,8 +128,10 @@ def main(argv=None):
     parser = argparse.ArgumentParser("tqdne_tpu_torch.cli.precompute_latents",
                                      description=__doc__.split("\n\n")[0])
     parser.add_argument("--workdir", type=str, required=True)
+    parser.add_argument("--config", type=str, default="latent_edm",
+                        help="latent recipe name: latent_edm, 1d_latent_edm")
     parser.add_argument("--ae-name", type=str, default=None,
-                        help=f"autoencoder run name under outputs/ (default: {common.AE_NAME})")
+                        help="autoencoder run name under outputs/ (default: the recipe's)")
     parser.add_argument("--ae-weights", type=str, default=None,
                         help="autoencoder state dict (.pt) in place of the run's checkpoint")
     parser.add_argument("-b", "--batch", type=int, default=64)

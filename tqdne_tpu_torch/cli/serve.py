@@ -1,5 +1,6 @@
 """Long-lived HTTP generation service on a GPU: the port of
-``tqdne_tpu/cli/serve.py`` for the flagship ``latent_edm`` recipe.
+``tqdne_tpu/cli/serve.py`` for the EDM recipes ``latent_edm`` (default),
+``edm``, ``1d_edm`` and ``1d_latent_edm`` (``--config``).
 
 Builds the same ``InferenceBundle`` as ``cli.generate_waveforms``, keeps the
 weights on the device, warms the sampler up (the first call builds the CUDA
@@ -10,7 +11,10 @@ micro-batches over HTTP (``tqdne_tpu_torch/serving.py``):
     curl -s localhost:8000/generate -d '{"conditions": [{"hypocentral_distance": 50,
       "magnitude": 5.5, "vs30": 400, "hypocentre_depth": 20, "azimuthal_gap": 100}]}'
 
-Without weights files the models take seeded random weights (smoke runs).
+Each model without a weights file comes from the port's run in ``--workdir``;
+without either it takes seeded random weights (smoke runs).  Griffin-Lim
+runs 32 iterations unless ``--gl-iters`` says otherwise; the envelope
+recipes have no Griffin-Lim and refuse the flag.
 The consistency and distillation solvers, ``--spatial`` and ``--int8`` are
 not ported yet, and refused.
 """
@@ -23,9 +27,10 @@ import logging
 import numpy as np
 import torch
 
-from tqdne_tpu_torch import configs, serving
+from tqdne_tpu_torch import serving
 from tqdne_tpu_torch.cli import common
 from tqdne_tpu_torch.cli.generate_waveforms import SUMMARY_STATISTICS
+from tqdne_tpu_torch.cli.common import RECIPES
 
 logger = logging.getLogger("tqdne_tpu_torch.serve")
 
@@ -33,14 +38,18 @@ logger = logging.getLogger("tqdne_tpu_torch.serve")
 NOT_PORTED = {"--solver consistency": "the few-eval samplers slice",
               "--solver distill": "the few-eval samplers slice",
               "--spatial": "the parallelism slice", "--int8": "the int8 slice"}
+SERVE_GL_ITERS = 32  # the JAX package's measured knee (128 for the reference's)
 
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser("tqdne_tpu_torch.cli.serve",
                                      description=__doc__.split("\n\n")[0])
-    parser.add_argument("--workdir", type=str, default=".",
-                        help="working directory (its dataset feeds --stats-from-dataset)")
-    parser.add_argument("--config", type=str, default="latent_edm")
+    parser.add_argument("--workdir", type=str, default=None,
+                        help="working directory: each model without a weights file comes "
+                             "from the port's run here, and its dataset feeds "
+                             "--stats-from-dataset")
+    parser.add_argument("--config", type=str, default="latent_edm",
+                        help="recipe: latent_edm, edm, 1d_edm or 1d_latent_edm")
     parser.add_argument("--unet-weights", type=str, default=None,
                         help="UNet state dict (.pt) from tqdne_tpu_torch.utils.convert "
                              "(default: seeded random weights)")
@@ -56,9 +65,10 @@ def parse_args(argv=None):
                         help="micro-batching window: how long a partial batch "
                              "waits for more requests before launching")
     parser.add_argument("--dtype", type=str, default="bf16", choices=["f32", "bf16"])
-    parser.add_argument("--gl-iters", type=int, default=32,
-                        help="Griffin-Lim iterations (serving default 32, the JAX "
-                             "package's measured knee; 128 for the reference's)")
+    parser.add_argument("--gl-iters", type=int, default=None,
+                        help=f"Griffin-Lim iterations of a spectrogram recipe (default "
+                             f"{SERVE_GL_ITERS}, the JAX package's measured knee; 128 for the "
+                             f"reference's)")
     parser.add_argument("--tiny", action="store_true",
                         help="32-channel UNet and autoencoder")
     parser.add_argument("--stats-from-dataset", action="store_true",
@@ -81,15 +91,21 @@ def parse_args(argv=None):
 
 def build_server(args):
     """(server, batcher) after the warm-up, ready for ``serve_forever``."""
+    recipe = RECIPES.get(args.config)
+    gl_iters = args.gl_iters
+    if gl_iters is None and hasattr(getattr(recipe, "config_cls", None), "griffin_lim_iters"):
+        gl_iters = SERVE_GL_ITERS
     bundle = common.build_inference(
-        args.config, unet_weights=args.unet_weights, ae_weights=args.ae_weights,
-        dtype=common.parse_dtype(args.dtype), num_steps=args.num_steps, solver=args.solver,
-        gl_iters=args.gl_iters, device=args.device, tiny=args.tiny)
-    if args.unet_weights is None or args.ae_weights is None:
-        logger.warning("no weights file for the UNet or the autoencoder: serving seeded "
-                       "random weights")
-    stats = (common.dataset_feature_stats(configs.LatentSpectrogramConfig(workdir=args.workdir))
-             if args.stats_from_dataset else SUMMARY_STATISTICS)
+        args.config, workdir=args.workdir, unet_weights=args.unet_weights,
+        ae_weights=args.ae_weights, dtype=common.parse_dtype(args.dtype),
+        num_steps=args.num_steps, solver=args.solver, gl_iters=gl_iters, device=args.device,
+        tiny=args.tiny)
+    if args.workdir is None and (args.unet_weights is None or
+                                 bundle.autoencoder is not None and args.ae_weights is None):
+        logger.warning("no weights file and no workdir for a model: serving seeded random "
+                       "weights")
+    stats = (common.dataset_feature_stats(bundle.config) if args.stats_from_dataset
+             else SUMMARY_STATISTICS)
 
     def normalize(cond_raw: np.ndarray) -> np.ndarray:
         return (cond_raw - stats[:, 0]) / stats[:, 1]
@@ -105,7 +121,7 @@ def build_server(args):
     info = {
         "config": args.config, "solver": args.solver, "num_steps": args.num_steps,
         "batch_size": args.batch_size, "dtype": args.dtype,
-        "t": bundle.t, "channels": bundle.config.channels,
+        "t": bundle.t, "channels": bundle.sig_shape[-1],
         "features": list(serving.FEATURES),
         "devices": [torch.cuda.get_device_name(device) if device.type == "cuda"
                     else str(device)],

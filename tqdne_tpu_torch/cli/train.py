@@ -1,43 +1,51 @@
-"""Train the flagship chain on a GPU: the port of ``tqdne_tpu/cli/train.py``
-for its three 2D log-spectrogram recipes, with the JAX run names, epochs,
-batches and optimizers:
+"""Train on a GPU: the port of ``tqdne_tpu/cli/train.py`` for its 2D
+log-spectrogram and 1D envelope EDM recipes and the classifier, with the JAX
+run names, epochs, batches and optimizers:
 
-  autoencoder  Autoencoder-32x32x4-LogSpectrogram  300 epochs, batch 128, AdamW wd 1e-4
-  latent_edm   Latent-EDM-32x32x8-LogSpectrogram   200 epochs, batch 256, Adam, EMA 0.999
-  classifier   Classifier-LogSpectrogram           110 epochs, batch 64, Adam
+  1d_edm          EDM-MovingAvg                      200 epochs, batch 256, Adam, EMA 0.999
+  1d_autoencoder  Autoencoder-1024x16-MovingAvg      200 epochs, batch 256, AdamW wd 1e-4
+  1d_latent_edm   Latent-EDM-MovingAvg-1024x16       300 epochs, batch 256, Adam, EMA 0.999
+  autoencoder     Autoencoder-32x32x4-LogSpectrogram 300 epochs, batch 128, AdamW wd 1e-4
+  edm             EDM-128x128-LogSpectrogram         300 epochs, batch 64, Adam, EMA 0.999
+  latent_edm      Latent-EDM-32x32x8-LogSpectrogram  200 epochs, batch 256, Adam, EMA 0.999
+  classifier      Classifier-LogSpectrogram          110 epochs, batch 64, Adam
 
-Every optimizer runs at 1e-4 with the cosine schedule; the autoencoder and
-the classifier keep no EMA (decay 0), as the reference trains them.  A user
-trains in this order, in one workdir:
+Every optimizer runs at 1e-4 with the cosine schedule; the autoencoders and
+the classifier keep no EMA (decay 0), as the reference trains them.  A
+latent recipe trains after its autoencoder, in one workdir:
 
     python -m tqdne_tpu_torch.cli.train autoencoder --workdir W [--synthetic N] [--tiny]
     python -m tqdne_tpu_torch.cli.precompute_latents --workdir W [--tiny]
     python -m tqdne_tpu_torch.cli.train latent_edm --workdir W --cached-latents [--tiny]
     python -m tqdne_tpu_torch.cli.train classifier --workdir W [--tiny]
 
-``latent_edm`` reads its frozen autoencoder from the ``autoencoder`` run in
-the workdir, or from ``--ae-weights ae.pt`` (a state dict, e.g. converted by
-``python -m tqdne_tpu_torch.utils.convert`` from the trained flax artifact).
-``--device-representation`` (every recipe) computes the spectrogram on the
-device; ``--skip-nonfinite N`` arms the non-finite guard; ``--cached-latents``
-(``latent_edm``) trains from the precomputed moments.
+and the same with ``1d_autoencoder``, ``precompute_latents --config
+1d_latent_edm`` and ``1d_latent_edm``; ``1d_edm`` and ``edm`` need no
+autoencoder.  A latent recipe reads its frozen autoencoder from the
+autoencoder's run in the workdir, or from ``--ae-weights ae.pt`` (a state
+dict, e.g. converted by ``python -m tqdne_tpu_torch.utils.convert`` from a
+trained flax artifact).  ``--device-representation`` (every recipe) computes
+the spectrogram or the envelope on the device; ``--skip-nonfinite N`` arms
+the non-finite guard; ``--cached-latents`` (latent recipes) trains from the
+precomputed moments.
 
 Metrics go to ``W/outputs/<run>/metrics.jsonl`` and checkpoints under
 ``W/outputs/<run>/checkpoints``.  The dataset is HDF5 and needs ``h5py``.
-Not ported yet, and refused: the other seven recipes, ``cond_signal`` pairs
-and the sampling-eval callback.
+Not ported yet, and refused: ``consistency``, ``latent_consistency``,
+``latent_distill`` and ``ddpm`` (the next slice, with ``radam``),
+``cond_signal`` pairs and the sampling-eval callback.
 """
 
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import logging
 
 import torch
 
 from tqdne_tpu_torch import configs
 from tqdne_tpu_torch.cli import common
+from tqdne_tpu_torch.cli.common import JAX_RECIPES, RECIPES
 from tqdne_tpu_torch.cli.precompute_latents import ae_fingerprint, latents_path, sidecar_fingerprint
 from tqdne_tpu_torch.data.dataset import ClassificationDataset
 from tqdne_tpu_torch.data.pipeline import BatchLoader
@@ -56,32 +64,6 @@ from tqdne_tpu_torch.utils import init_like_flax_, resolve_device
 
 RUN_NAME = common.RUN_NAME
 LEARNING_RATE = 1e-4  # every recipe's peak, under the cosine schedule
-
-
-@dataclasses.dataclass
-class Recipe:
-    name: str
-    config_cls: type
-    epochs: int
-    batch: int
-    kind: str
-    latent: bool = False
-    optimizer: str = "adam"
-    weight_decay: float = 0.0
-    ema_decay: float = 0.0
-
-
-RECIPES = {
-    "autoencoder": Recipe(common.AE_NAME, configs.LatentSpectrogramConfig, 300, 128,
-                          "autoencoder", optimizer="adamw", weight_decay=1e-4),
-    "latent_edm": Recipe(RUN_NAME, configs.LatentSpectrogramConfig, 200, 256, "edm", latent=True,
-                         ema_decay=0.999),
-    "classifier": Recipe("Classifier-LogSpectrogram", configs.SpectrogramClassificationConfig,
-                         110, 64, "classifier"),
-}
-# the JAX package's recipes (tqdne_tpu/cli/train.py:RECIPES); the others are refused
-JAX_RECIPES = ("1d_edm", "1d_autoencoder", "1d_latent_edm", "autoencoder", "edm", "latent_edm",
-               "classifier", "consistency", "latent_consistency", "latent_distill", "ddpm")
 
 
 def _device_representation(config):
@@ -113,7 +95,8 @@ def _placed(module, device):
 
 def run(args) -> TrainState:
     if args.recipe not in RECIPES:
-        raise SystemExit(f"recipe {args.recipe!r} is not ported yet (have: {', '.join(RECIPES)})")
+        raise SystemExit(f"recipe {args.recipe!r} is not ported yet: it comes with the next "
+                         f"slice, with radam (have: {', '.join(RECIPES)})")
     recipe = RECIPES[args.recipe]
     if args.cached_latents and not recipe.latent:
         raise SystemExit("--cached-latents needs a latent EDM, consistency or distill recipe")
@@ -132,25 +115,32 @@ def run(args) -> TrainState:
         train_loader, val_loader, _ = common.make_loaders(
             config, batch, cond=False, device=device, keys=keys,
             host_representation=device_rep is None)
-        ae, enc_cfg, dec_cfg = common.build_autoencoder(config, dtype, tiny=args.tiny)
+        ae, enc_cfg, dec_cfg = common.build_autoencoder(config, dtype, dims=recipe.dims,
+                                                        tiny=args.tiny)
         init_like_flax_(ae, args.seed)
         steps = make_autoencoder_steps(kl_weight=config.kl_weight, ema_decay=recipe.ema_decay,
                                        device_representation=device_rep)
         return _fit(recipe, args, config, device, _placed(ae, device), train_loader, val_loader,
                     steps, common.autoencoder_hparams(config, enc_cfg, dec_cfg), epochs)
-    return _run_latent_edm(recipe, args, config, device, dtype, batch, epochs, device_rep)
+    return _run_edm(recipe, args, config, device, dtype, batch, epochs, device_rep)
 
 
-def _run_latent_edm(recipe, args, config, device, dtype, batch, epochs, device_rep):
-    ae, enc_cfg, _ = common.frozen_autoencoder(config, dtype, tiny=args.tiny,
-                                               weights=args.ae_weights)
-    lat_path = None
+def _run_edm(recipe, args, config, device, dtype, batch, epochs, device_rep):
+    """An EDM recipe: over the signal, or over a frozen autoencoder's latent."""
+    ae, lat_path = None, None
+    model_shape = common.signal_shape(config)
+    if recipe.latent:
+        ae, enc_cfg, _ = common.frozen_autoencoder(config, dtype, dims=recipe.dims,
+                                                   tiny=args.tiny, weights=args.ae_weights,
+                                                   ae_name=recipe.ae_name)
+        model_shape = common.latent_shape(enc_cfg, model_shape)
+        _placed(ae, device)
     if args.cached_latents:
-        lat_path = latents_path(config, common.AE_NAME)
+        lat_path = latents_path(config, recipe.ae_name)
         if not lat_path.exists():
             raise SystemExit(f"{lat_path} not found — run `python -m "
-                             f"tqdne_tpu_torch.cli.precompute_latents --workdir {args.workdir}` "
-                             "first")
+                             f"tqdne_tpu_torch.cli.precompute_latents --workdir {args.workdir} "
+                             f"--config {args.recipe}` first")
         # the sidecar must come from these weights: a retrained autoencoder of the same
         # architecture would shift the latent space silently
         stored, fp = sidecar_fingerprint(lat_path), ae_fingerprint(ae.state_dict())
@@ -165,15 +155,14 @@ def _run_latent_edm(recipe, args, config, device, dtype, batch, epochs, device_r
     train_loader, val_loader, _ = common.make_loaders(
         config, batch, cond=True, device=device, keys=keys,
         host_representation=device_rep is None and lat_path is None, latents_path=lat_path)
-    model_shape = common.latent_shape(enc_cfg, common.signal_shape(config))
     overrides = {"model_channels": common.TINY_CHANNELS} if args.tiny else {}
-    unet, ucfg = common.build_unet(config, model_shape[-1], model_shape[-1], dtype, **overrides)
+    unet, ucfg = common.build_unet(config, model_shape[-1], model_shape[-1], dtype,
+                                   dims=recipe.dims, **overrides)
     init_like_flax_(unet, args.seed)
-    _placed(ae, device)
     steps = make_edm_steps(autoencoder=ae, ema_decay=recipe.ema_decay,
                            latent_moments=lat_path is not None, device_representation=device_rep)
-    hparams = {"kind": "edm", "dims": 2, "latent": True, "ae_name": common.AE_NAME,
-               "unet": ucfg, "dtype": args.dtype}
+    hparams = {"kind": "edm", "dims": recipe.dims, "latent": recipe.latent,
+               "ae_name": recipe.ae_name, "unet": ucfg, "dtype": args.dtype}
     return _fit(recipe, args, config, device, _placed(unet, device), train_loader, val_loader,
                 steps, hparams, epochs)
 

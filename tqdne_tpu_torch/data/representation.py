@@ -1,9 +1,11 @@
-"""Representations: the port of ``LogSpectrogram`` and ``Identity`` in
+"""Representations: the port of ``LogSpectrogram``, ``MovingAverageEnvelope``
+(with ``moving_average_same``) and ``Identity`` in
 ``tqdne_tpu/data/representation.py``.
 
-Waveforms are (..., C, T) tensors (the storage layout); representations
-are (..., C, F, frames) normalised to [-1, 1] with the Nyquist row dropped.
-Both directions run on the tensor's device; inversion is Griffin-Lim.
+Waveforms are (..., C, T) tensors (the storage layout).  ``LogSpectrogram``
+gives (..., C, F, frames) normalised to [-1, 1] with the Nyquist row
+dropped, inverted by Griffin-Lim; ``MovingAverageEnvelope`` gives
+(..., 2C, T), inverted elementwise.  Both directions run on the tensor's device.
 """
 
 from __future__ import annotations
@@ -21,6 +23,46 @@ class Identity:
 
     def get_representation(self, waveform: torch.Tensor) -> torch.Tensor:
         return waveform
+
+
+def moving_average_same(x: torch.Tensor, window: int) -> torch.Tensor:
+    """Moving average along the last axis in float64, with the window
+    placement of ``np.convolve(x, ones(window) / window, mode="same")`` (zero
+    padding), as a difference of running sums."""
+    x = x.double()
+    n = x.shape[-1]
+    c = torch.cat([x.new_zeros(*x.shape[:-1], 1), torch.cumsum(x, dim=-1)], dim=-1)
+    left = window // 2  # samples strictly before i
+    right = window - left - 1  # samples after i
+    i = torch.arange(n, device=x.device)
+    return (c[..., (i + right + 1).clamp(max=n)] - c[..., (i - left).clamp(min=0)]) / window
+
+
+class MovingAverageEnvelope:
+    """(waveform / envelope, shifted log envelope) stacked on the channel
+    axis: 3 waveform channels give 6 signal channels, inverted elementwise
+    (as in the JAX package, the inverse restores x (env + 2e-6) / (env +
+    1e-6), so it is exact only well above the 1e-6 floors).
+
+    The forward runs in float64 as the JAX host path does: where a waveform
+    is quiet, the scaled half divides by an envelope near 1e-6, and a float32
+    running sum would cancel there.  The inverse is elementwise, in float32."""
+
+    def __init__(self, window_size: int = 128, log_eps: float = 1e-6, eps: float = 1e-6):
+        self.window_size = window_size
+        self.log_eps = log_eps
+        self.eps = eps
+
+    def get_representation(self, waveform: torch.Tensor) -> torch.Tensor:
+        x = waveform.double()
+        env = moving_average_same(x.abs(), self.window_size)
+        log_env = torch.log(env + self.log_eps) - math.log(self.log_eps) / 2
+        return torch.cat([x / (env + self.eps), log_env], dim=-2).float()
+
+    def invert_representation(self, representation: torch.Tensor) -> torch.Tensor:
+        """(..., 2C, T) -> (..., C, T) waveforms."""
+        scaled, log_env = representation.float().chunk(2, dim=-2)
+        return scaled * (torch.exp(log_env + math.log(self.log_eps) / 2) + self.eps)
 
 
 class LogSpectrogram:

@@ -4,7 +4,10 @@ GroupNorm -> 1x1 conv to 3C with channel order [q|k|v] x heads x head_dim
 -> attention with q and k both scaled by d^-1/4 and an f32 softmax ->
 zero-init 1x1 output projection -> residual add.  The attention is always
 ``flash_attention`` (the kernel on CUDA, its plain einsum on the CPU): the
-JAX package's ``use_pallas=True`` route, with no length switch.
+JAX package's ``use_pallas=True`` route, with no length switch.  The kernels
+need the head dimension at unit stride: where the projection comes out
+channels-first (in 1D, which has no channels-last memory format, and on the
+CPU) its channels-last layout is a copy.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ class AttentionBlock(nn.Module):
     def forward(self, x):  # (B, C, *spatial)
         b, c, *spatial = x.shape
         qkv = self.qkv(self.norm(x)).movedim(1, -1)  # (B, *spatial, 3C), channels-last view
+        if qkv.stride(-1) != 1:
+            qkv = qkv.contiguous()
         qkv = qkv.reshape(b, -1, 3, self.num_heads, c // self.num_heads)
         a = flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], self.use_causal_mask)
         a = a.reshape(b, *spatial, c).movedim(-1, 1)

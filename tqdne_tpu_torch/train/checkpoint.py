@@ -108,7 +108,7 @@ class Checkpointer:
         stored = self.restore_hyperparameters()
         if stored is None:
             return False
-        diffs = _dict_diff(stored, json.loads(json.dumps(hparams, default=str)))
+        diffs = hparams_diff(stored, hparams)
         if diffs:
             msg = (f"checkpoint hyperparameters at {self.hparams_path} do not match "
                    f"the requested configuration: {'; '.join(diffs[:8])}")
@@ -117,6 +117,12 @@ class Checkpointer:
             logger.warning(msg)
             return False
         return True
+
+
+def hparams_diff(stored: dict, hparams: dict) -> list[str]:
+    """The keys where stored hyperparameters differ from ``hparams``, each as
+    ``path: stored=... requested=...``."""
+    return _dict_diff(stored, json.loads(json.dumps(hparams, default=str)))
 
 
 def _dict_diff(a: dict, b: dict, prefix: str = "") -> list[str]:

@@ -1,6 +1,7 @@
 """Train, eval and sample steps: the port of ``tqdne_tpu/train/steps.py``
-(``make_edm_steps`` for the flagship latent EDM, ``make_autoencoder_steps``
-and ``make_classifier_steps``).
+(``make_edm_steps`` with or without a frozen autoencoder,
+``make_autoencoder_steps`` and ``make_classifier_steps``) and the EDM
+``sample_fn`` (``sample_edm``), in 1D and 2D.
 
 Batches are dicts of channels-last tensors: ``signal`` (B, *S, C), or with
 a ``device_representation`` the raw ``waveform`` (B, T, C) that the step
@@ -202,12 +203,14 @@ def make_classifier_steps(class_weights, *, ema_decay: float = 0.999,
 
 
 @torch.no_grad()
-def sample_latent_edm(unet, autoencoder, shape: tuple[int, ...], cond=None, *,
-                      edm_cfg: edm_lib.EDMConfig = edm_lib.EDMConfig(), num_steps: int = 25,
-                      solver: str = "heun", cast_params=None,
-                      noise=None, generator=None, device="cuda"):
-    """Sample channels-last latents of ``shape`` and decode them to the
-    signal (B, *spatial, C) in float32: the JAX ``sample_fn``.
+def sample_edm(unet, shape: tuple[int, ...], cond=None, *, autoencoder=None,
+               edm_cfg: edm_lib.EDMConfig = edm_lib.EDMConfig(), num_steps: int = 25,
+               solver: str = "heun", cast_params=None, noise=None, generator=None,
+               device="cuda"):
+    """Sample channels-last arrays of ``shape`` with the EDM ODE solver: the
+    JAX ``sample_fn``.  With an ``autoencoder``, ``shape`` is the latent's and
+    the sample is decoded to the signal (B, *spatial, C); without one the
+    sample is the signal.  float32 either way.
 
     ``cast_params``: sample with a copy of the UNet whose parameters are cast
     to this dtype once, before the loop (the JAX ``cast_params``); the
@@ -220,6 +223,8 @@ def sample_latent_edm(unet, autoencoder, shape: tuple[int, ...], cond=None, *,
     def denoise_fn(x, sigma):
         return edm_lib.precondition(edm_cfg, unet, x, sigma, cond=cond)
 
-    latent = sampler_lib.sample(denoise_fn, shape, edm_cfg, num_steps=num_steps, solver=solver,
-                                noise=noise, generator=generator, device=device)
-    return autoencoder.decode(latent.float()).float()
+    out = sampler_lib.sample(denoise_fn, shape, edm_cfg, num_steps=num_steps, solver=solver,
+                             noise=noise, generator=generator, device=device)
+    if autoencoder is not None:
+        out = autoencoder.decode(out.float())
+    return out.float()
