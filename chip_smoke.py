@@ -29,7 +29,11 @@ Phases (any failure exits non-zero and prints no result line):
    of their samplers' UNet evals and decodes and of their train steps, at
    batch 32 and 256 (1D) or 64 (``edm``), and the flash kernels at (32, 508,
    4, 64), (256, 508, 4, 64), (32, 127, 4, 64), (256, 127, 4, 64), (32, 256,
-   4, 128) and (64, 256, 4, 128);
+   4, 128) and (64, 256, 4, 128); and at the few-eval and DDPM recipes'
+   (``consistency``, ``latent_consistency``, ``latent_distill``, ``ddpm``)
+   (shape, batch) pairs not held above: their samplers' at batch 32 and their
+   train steps' at batch 256 (the flagship UNet and encoder, and the flash
+   kernels at (256, 16, 4, 128));
 3. full-width flagship sampling in f32, 2 Heun steps, once through the
    kernels and once through the plain versions: the decoded spectrograms
    must agree (TF32 off); the full-width f32 classifier the same way (its
@@ -40,19 +44,21 @@ Phases (any failure exits non-zero and prints no result line):
    the loss to 1e-5 relative and every parameter gradient to 1e-3 of its
    peak, with every flash backward through the kernels; the same for a
    full-width f32 ``1d_edm`` and ``edm`` sample (batch 4) and one full-width
-   f32 train step of each of the four recipes beyond the flagship;
+   f32 train step of each of the four recipes beyond the flagship; and for a
+   full-width f32 ``consistency`` and ``latent_distill`` sample (2 network
+   evals, the same draws) and one f32 step of each few-eval and DDPM recipe;
 4. the main paths, each with the launch counters set to 0 just before it and
    read just after: sampling (``build_inference`` + ``generate`` at full width
    in bf16, batch 32, Heun-25 then dpmpp_2m-10, each with 32 Griffin-Lim
    iterations, seeded random weights; waveforms must be finite
    (32, 3, 4064)), training (``Trainer.fit`` through ``BatchLoader`` over
    in-memory synthetic waveforms, bf16 compute over f32 parameters, batch
-   128, 30 steps; the loss must be finite), the recipes over the same 512
+   128, 20 steps; the loss must be finite), the recipes over the same 512
    waveforms (the autoencoder recipe, AdamW, batch 128, 20 steps; the
    classifier recipe, batch 64, 21 steps and one validation pass whose macro
    metrics must be finite; the precompute core over the waveforms with that
-   autoencoder, then 30 flagship steps from the cached moments through
-   ``DeviceResidentLoader``, with no encoder launch; 30 flagship steps with
+   autoencoder, then 20 flagship steps from the cached moments through
+   ``DeviceResidentLoader``, with no encoder launch; 20 flagship steps with
    the representation on the device; the non-finite guard: a NaN batch
    leaves every parameter, the Adam moments and the update count as they
    were, the next clean batch moves them), serving (the HTTP server of
@@ -64,24 +70,37 @@ Phases (any failure exits non-zero and prints no result line):
    samplers of ``1d_edm``, ``1d_latent_edm`` and ``edm`` (``build_inference``
    + ``generate`` in bf16 at batch 32, Heun-25 and dpmpp_2m-10, Griffin-Lim 32
    for ``edm``; waveforms finite (32, 3, 4064)) and ``Trainer.fit`` of each of
-   the four recipes, 20 bf16 steps at its batch (256, or 64 for ``edm``); the
-   counts must be exact;
+   the four recipes, 10 bf16 steps at its batch (256, or 64 for ``edm``),
+   whose last 5 give the recipe's samples/s; then
+   (4k) the few-eval and DDPM samplers (bf16, batch 32: ``consistency``,
+   ``latent_consistency`` and ``latent_distill`` at 1 and 2 network evals, the
+   latent ones with decode and Griffin-Lim 32; ``ddpm`` at its 1000 steps),
+   ``Trainer.fit`` of each of the four recipes, 20 bf16 steps at batch 256
+   (RAdam at a constant rate; ``latent_distill`` with a seeded-random teacher,
+   4 UNet forwards a step; the last 10 give its samples/s), and RAdam under
+   the non-finite guard (a NaN batch
+   leaves the parameters, moments and count where they were); the counts must
+   be exact;
 5. timings on the card: each kernel at the main paths' shapes beside its
    bound, its plain version and a PyTorch yardstick call (and, for the
    record, the bf16 flash forward at (128, 16, 4, 128)), GroupNorm per UNet
    eval, per train step and per classifier forward, end-to-end waveforms/s
    (through the server too, with request latencies and one round of JSON
-   responses) and training samples/s, the guarded and the cached-latent
-   flagship step against the plain flagship step in alternated single steps
-   (issue and wall ms, device ms and launches of one profiled step), each
-   recipe step's samples/s beside the flagship step's in alternate windows,
+   responses) and training samples/s, the guarded flagship step against the
+   plain flagship step in alternated single steps (issue and wall ms, device
+   ms and launches of one profiled step), each recipe step's samples/s in one
+   window,
    the classifier train step's kernels at (64, 256, 4, 64) and its GroupNorm
    shapes, a profiled sampling run, a profiled classifier forward, and a
    profiled train step of the flagship, the classifier and the autoencoder
    by kernel class, and one train step at the recipe's batch 256; then each
-   recipe beyond the flagship: samples/s on a resident batch, a profiled
-   step by kernel class, the 1D ``Norm32`` transposes of a ``1d_edm`` step,
-   and each kernel per call at its train step's and sampler's shapes.
+   recipe beyond the flagship: a profiled step by kernel class, the 1D
+   ``Norm32`` transposes of a ``1d_edm`` step, and each kernel per call at
+   its train step's and sampler's shapes; then (5c) the same for the
+   few-eval and DDPM recipes: a profiled step, each few-eval sampler's
+   profiled device time, DDPM's device ms a step, and each kernel per call
+   at the new shapes (a shape and batch is timed once a run, and its row
+   reused).
 
 Prints the card's name and power limit and a ``{"kernels": [...]}`` line,
 then, last, ``{"ok": true, "device": {...}}``.
@@ -109,14 +128,14 @@ SEED = 0
 BATCH = 32
 E2E_RUNS = 3  # timed generate() calls per solver, the launch-counted one included
 TRAIN_BATCH = 128  # the training benchmark's batch (bench_train.py)
-TRAIN_STEPS = 30
+TRAIN_STEPS = 20
 TRAIN_E2E_RUNS, TRAIN_E2E_STEPS = 3, 8  # timed train_step windows for [train-e2e]
 TRAIN_SAMPLES = 512  # synthetic waveforms in memory: 4 batches per epoch
 CLF_TRAIN_BATCH = 64  # the classifier recipe's batch
 AE_STEPS = 20  # Trainer.fit steps of the autoencoder recipe: 5 epochs of 4 batches
 CLF_STEPS = 21  # of the classifier recipe: 3 epochs of 7 batches of its 460 rows, one validation
 GUARD_N = 3  # skip_nonfinite of the guard's check and timing
-STEP_PAIRS = 16  # alternated single-step pairs of the guard's and the cached step's cost
+STEP_PAIRS = 8  # alternated single-step pairs of the guard's cost
 SERVE_CLIENTS, SERVE_ROWS, SERVE_ROUNDS = 16, 4, 3  # concurrent requests of 4 rows, 3 rounds
 SERVE_DELAY_MS = 15.0  # the serve CLI's micro-batching window
 SERVE_FULL_CLIENTS, SERVE_FULL_ROUNDS = 4, 2  # concurrent requests of a full batch, 2 rounds
@@ -1039,33 +1058,56 @@ def check_step_vs_plain(label: str, module, loss_fn, want_bwd: tuple[int, int],
              "versions")
 
 
-def rates_beside(label: str, step, batch_size: int, flagship) -> tuple[float, float]:
-    """Samples/s of ``step`` (``batch_size`` samples a call) and of the
-    flagship train step, in alternating windows of TRAIN_E2E_STEPS calls:
-    the median of TRAIN_E2E_RUNS windows each."""
+def rate_of(label: str, step, batch_size: int) -> float:
+    """Samples/s of ``step`` (``batch_size`` samples a call) over one window of
+    TRAIN_E2E_STEPS calls on a resident batch, after a warm-up call."""
     step()
-    flagship()
     torch.cuda.synchronize()
-    rates = {"recipe": [], "flagship": []}
-    for _ in range(TRAIN_E2E_RUNS):
-        for name, fn, n in (("recipe", step, batch_size), ("flagship", flagship, TRAIN_BATCH)):
-            t0 = time.perf_counter()
-            for _ in range(TRAIN_E2E_STEPS):
-                fn()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_E2E_STEPS):
+        step()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    rate = batch_size * TRAIN_E2E_STEPS / sec
+    log(f"[recipe-e2e] {label}: {rate:.2f} samples/s ({TRAIN_E2E_STEPS} steps in {sec:.3f} s on "
+        f"a resident batch)")
+    return rate
+
+
+def tail_timed(step, max_steps: int, window: int):
+    """``step`` wrapped to time the wall of the last ``window`` steps of a
+    ``Trainer.fit`` to step ``max_steps``, the loader's batches and the
+    trainer's own work between them included: the device is synced and the
+    clock read after the step that leaves ``max_steps - window`` and after
+    the last.  Returns the wrapped step and the list that receives the two
+    readings."""
+    marks = []
+
+    def timed(state, batch, **kw):
+        out = step(state, batch, **kw)
+        if state.step in (max_steps - window, max_steps):
             torch.cuda.synchronize()
-            rates[name].append(n * TRAIN_E2E_STEPS / (time.perf_counter() - t0))
-    mine, ref = statistics.median(rates["recipe"]), statistics.median(rates["flagship"])
-    log(f"[recipe-e2e] {label}: {mine:.2f} samples/s (windows "
-        f"{[round(r, 2) for r in rates['recipe']]}) beside the flagship step's [train-e2e] "
-        f"{ref:.2f} ({[round(r, 2) for r in rates['flagship']]}) in alternate windows of "
-        f"{TRAIN_E2E_STEPS} steps; ratio {mine / ref:.4f}")
-    return mine, ref
+            marks.append(time.perf_counter())
+        return out
+
+    return timed, marks
+
+
+def tail_rate(label: str, marks: list, batch_size: int, window: int) -> float:
+    """Samples/s of the ``window`` steps that ``tail_timed``'s ``marks`` span."""
+    if len(marks) != 2:
+        fail(f"{label}: {len(marks)} clock readings of the timed steps, not 2")
+    sec = marks[1] - marks[0]
+    rate = batch_size * window / sec
+    log(f"[recipe-e2e] {label}: {rate:.2f} samples/s (the last {window} Trainer.fit steps in "
+        f"{sec:.3f} s of wall, on the loader's batches)")
+    return rate
 
 
 # ---- the EDM recipes beyond the flagship: 1d_edm, 1d_autoencoder, 1d_latent_edm, edm ----
 SAMPLERS = ("1d_edm", "1d_latent_edm", "edm")
 RECIPE_BATCH = {"1d_edm": 256, "1d_autoencoder": 256, "1d_latent_edm": 256, "edm": 64}
-RECIPE_STEPS = 20  # Trainer.fit steps of each recipe at its batch (2 or 8 per epoch)
+RECIPE_STEPS = 10  # Trainer.fit steps of each recipe at its batch (2 or 8 per epoch)
 F32_BATCH = 4  # the full-width f32 checks' batch
 
 
@@ -1156,6 +1198,104 @@ def recipe_loss(key: str, model, frozen, batch, draws):
     return edm_step_loss(model, batch, autoencoder=frozen, draws=draws)
 
 
+# ---- the few-eval and DDPM recipes: consistency, latent_consistency, latent_distill, ddpm ----
+NEW_RECIPES = ("consistency", "latent_consistency", "latent_distill", "ddpm")
+NEW_BATCH = 256  # each new recipe's training batch
+NEW_STEPS = 20  # Trainer.fit steps of each at that batch (2 per epoch of the 512 waveforms)
+NEW_MAX_STEPS = 400  # N(k)'s horizon in the consistency steps: 200 epochs of 2 batches
+NEW_FORWARDS = {"consistency": 2, "latent_consistency": 2, "latent_distill": 4, "ddpm": 1}
+FEW_NFE = (1, 2)  # the few-eval samplers' network evals
+
+
+def new_recipe_setup(key: str, dev, dtype, init):
+    """The train CLI's modules and steps for a new recipe at full width: the
+    trained UNet, the frozen autoencoder of a latent recipe and, for
+    ``latent_distill``, the frozen teacher (seeded random weights standing in
+    for a trained ``latent_edm`` run; the student starts from them, as the
+    CLI starts it), the steps, and the signal and model shapes.  Computes in
+    ``dtype`` over f32 parameters; ``init`` fills the weights."""
+    from tqdne_tpu_torch.cli import common
+    from tqdne_tpu_torch.cli.common import RECIPES
+    from tqdne_tpu_torch.diffusion import ddpm as ddpm_lib
+    from tqdne_tpu_torch.diffusion.consistency import ConsistencyConfig, make_consistency_steps
+    from tqdne_tpu_torch.diffusion.distillation import make_distillation_steps
+
+    recipe = RECIPES[key]
+    config = recipe.config_cls()
+    sig = model_shape = common.signal_shape(config)
+    layout = torch.channels_last if recipe.dims == 2 else torch.preserve_format
+    frozen = teacher = None
+    if recipe.latent:
+        frozen, enc_cfg, _ = common.build_autoencoder(config, dtype, dims=recipe.dims)
+        init(frozen, SEED + 1).to(dev, memory_format=layout).eval()
+        model_shape = common.latent_shape(enc_cfg, sig)
+    unet = common.build_unet(config, model_shape[-1], model_shape[-1], dtype,
+                             dims=recipe.dims)[0]
+    init(unet, SEED + 4).to(dev, memory_format=layout)
+    if recipe.kind == "distill":
+        teacher = copy.deepcopy(unet)
+        steps = make_distillation_steps(teacher, ema_decay=recipe.ema_decay, autoencoder=frozen)
+    elif recipe.kind == "consistency":
+        steps = make_consistency_steps(ConsistencyConfig(), NEW_MAX_STEPS,
+                                       ema_decay=recipe.ema_decay, autoencoder=frozen)
+    else:
+        steps = ddpm_lib.make_ddpm_steps(ddpm_lib.DDPMConfig(), ema_decay=recipe.ema_decay)
+    return unet, frozen, teacher, steps, sig, model_shape
+
+
+def new_batch(key: str, n: int, sig, model_shape, gen, dev) -> tuple[dict, dict]:
+    """A batch of ``n`` signals in [-1, 1] with conditioning, and the step's
+    draws: the encoder's eps for a latent recipe, then the consistency
+    step's timesteps (below N(0) - 1) and noise, the distill step's interval
+    and noise, or DDPM's t and noise."""
+    from tqdne_tpu_torch.cli.common import RECIPES
+    from tqdne_tpu_torch.diffusion.consistency import ConsistencyConfig, num_timesteps
+
+    kind = RECIPES[key].kind
+    batch = {"signal": torch.rand(n, *sig, generator=gen, device=dev) * 2 - 1,
+             "cond": torch.randn(n, 5, generator=gen, device=dev)}
+    draws = {}
+    if RECIPES[key].latent:
+        draws["ae_eps"] = torch.randn(n, *model_shape, generator=gen, device=dev)
+    eps = torch.randn(n, *model_shape, generator=gen, device=dev)
+    if kind == "consistency":
+        top = int(num_timesteps(ConsistencyConfig(), 0, NEW_MAX_STEPS)) - 1
+        draws |= {"timesteps": torch.randint(0, top, (n,), generator=gen, device=dev),
+                  "eps": eps}
+    elif kind == "distill":
+        draws |= {"i": torch.randint(0, 17, (n,), generator=gen, device=dev), "eps": eps}
+    else:
+        draws |= {"t": torch.randint(0, 1000, (n,), generator=gen, device=dev), "noise": eps}
+    return batch, draws
+
+
+def new_loss(key: str, model, frozen, teacher, batch, draws):
+    """The new recipe's loss at step 0 through ``model`` (the student, also
+    the distill target and the consistency teacher), in its current mode."""
+    from tqdne_tpu_torch.cli.common import RECIPES
+    from tqdne_tpu_torch.diffusion import ddpm as ddpm_lib
+    from tqdne_tpu_torch.diffusion import edm as edm_lib
+    from tqdne_tpu_torch.diffusion.consistency import ConsistencyConfig, consistency_loss
+    from tqdne_tpu_torch.diffusion.distillation import distillation_loss, edm_conditioned_net
+    from tqdne_tpu_torch.train.steps import training_sample
+
+    kind = RECIPES[key].kind
+    if kind == "ddpm":
+        return ddpm_lib.ddpm_loss(ddpm_lib.DDPMConfig(), model, batch["signal"],
+                                  cond=batch["cond"], t=draws["t"], noise=draws["noise"])
+    sample = training_sample(batch, autoencoder=frozen, ae_eps=draws.get("ae_eps"))
+    if kind == "consistency":
+        return consistency_loss(ConsistencyConfig(), model, model, sample, 0, NEW_MAX_STEPS,
+                                cond=batch["cond"], timesteps=draws["timesteps"],
+                                eps=draws["eps"])
+    edm_cfg = edm_lib.EDMConfig()
+    net = edm_conditioned_net(model, edm_cfg, train=model.training)
+    return distillation_loss(
+        ConsistencyConfig(), edm_cfg,
+        lambda x, s, c: edm_lib.precondition(edm_cfg, teacher, x, s, cond=c), net, net, sample,
+        18, cond=batch["cond"], i=draws["i"], eps=draws["eps"])
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1192,6 +1332,7 @@ def main():
     from tqdne_tpu_torch.ops.group_norm import group_norm_silu, group_norm_silu_plain
     from tqdne_tpu_torch.train.state import (
         TrainState,
+        apply_updates,
         applied_updates,
         cosine_annealing,
         make_optimizer,
@@ -1375,25 +1516,82 @@ def main():
     if any(not fa for key, (_, fa, _) in sampler_calls.items()):
         fail("a sampler's UNet made no attention call")
 
+    # the few-eval and DDPM recipes: each sampler's UNet eval (and decode) at batch 32, and
+    # one bf16 forward of each recipe's train step in train mode
+    from tqdne_tpu_torch.cli.common import RECIPES
+
+    few_bundles, few_calls = {}, {}
+    for key in NEW_RECIPES:
+        gl = {"gl_iters": 32} if RECIPES[key].latent else {}
+        b = build_inference(key, dtype=torch.bfloat16, num_steps=FEW_NFE[0], device=dev,
+                            init_seed=SEED, **gl)
+        for nfe in FEW_NFE if key != "ddpm" else (None,):
+            bn = copy.copy(b)  # the same models at another number of evals
+            if nfe is not None:
+                bn.num_steps = nfe
+            few_bundles[(key, nfe)] = bn
+        x = torch.randn(BATCH, *b.model_shape, generator=gen, device=dev)
+        u_gn, u_fa = record_calls([b.unet], lambda: b.unet(x, torch.ones(BATCH, device=dev),
+                                                           cond))
+        d_gn = [] if b.autoencoder is None else record_calls(
+            [b.autoencoder.decoder], lambda: b.autoencoder.decode(x.float()))[0]
+        few_calls[key] = (u_gn, u_fa, d_gn)
+        log(f"[shapes] {key} sampling, batch {BATCH}: UNet eval {len(u_gn)} GroupNorm calls, "
+            f"{len(u_fa)} attention calls {sorted(set(u_fa), key=str)}; decode {len(d_gn)} "
+            f"GroupNorm calls")
+    new_models, new_calls = {}, {}
+    for key in NEW_RECIPES:
+        model, frozen, teacher, steps, sig, mshape = new_recipe_setup(key, dev, torch.bfloat16,
+                                                                      init_like_flax_)
+        new_models[key] = (model.train(), frozen, teacher, steps, sig, mshape)
+        rb, rd = new_batch(key, 2, sig, mshape, gen, dev)
+        x = torch.randn(2, *mshape, generator=gen, device=dev)
+        u_gn, u_fa = record_calls([model], lambda: model(x, torch.ones(2, device=dev),
+                                                         rb["cond"]))
+        gn, fa = record_calls([model] + ([teacher] if teacher is not None else []),
+                              lambda: new_loss(key, model, frozen, teacher, rb, rd))
+        enc = [] if frozen is None else record_calls([frozen.encoder],
+                                                     lambda: frozen.moments(rb["signal"]))[0]
+        new_calls[key] = (gn, fa, enc, u_gn, u_fa)
+        log(f"[shapes] {key} train step at batch {NEW_BATCH}: signal {sig}, model {mshape}; "
+            f"{len(gn)} GroupNorm and {len(fa)} attention calls over {NEW_FORWARDS[key]} UNet "
+            f"forwards of {len(u_gn)} and {len(u_fa)} {sorted(set(u_fa), key=str)}; frozen "
+            f"encoder {len(enc)}")
+        if (len(gn), len(fa)) != (NEW_FORWARDS[key] * len(u_gn), NEW_FORWARDS[key] * len(u_fa)):
+            fail(f"{key}: a train step's forwards are not {NEW_FORWARDS[key]} UNet evals")
+
     # ---- 2. kernels against their plain versions ------------------------------
     phase("2. kernels against their plain versions")
     errs = {}
-    bad = check_group_norm_kernels(
-        gen, dev, errs, unet_gn + dec_gn + train_gn + enc_gn + clf_gn + ae_gn + clf_train_gn,
-        batches=(BATCH, CLF_TRAIN_BATCH, TRAIN_BATCH))
-    bad += check_group_norm_kernels(gen, dev, errs, [c for key in SAMPLERS for c in
-                                                     sampler_calls[key][0] + sampler_calls[key][2]],
-                                    batches=(BATCH,), forced=False)
+    gn_held = set()  # the (batch, x dtype, scale dtype, S, C, G) held so far
+
+    def gn_checks(calls, batches, forced=False):
+        fresh = [c for c in calls if any((b_, *c[:5]) not in gn_held for b_ in batches)]
+        gn_held.update((b_, *c[:5]) for c in calls for b_ in batches)
+        return check_group_norm_kernels(gen, dev, errs, fresh, batches=batches,
+                                        forced=forced) if fresh or forced else 0
+
+    bad = gn_checks(unet_gn + dec_gn + train_gn + enc_gn + clf_gn + ae_gn + clf_train_gn,
+                    (BATCH, CLF_TRAIN_BATCH, TRAIN_BATCH), forced=True)
+    bad += gn_checks([c for key in SAMPLERS for c in sampler_calls[key][0] +
+                      sampler_calls[key][2]], (BATCH,))
     for batch_size in sorted(set(RECIPE_BATCH.values())):
-        bad += check_group_norm_kernels(
-            gen, dev, errs, [c for key, b_ in RECIPE_BATCH.items() if b_ == batch_size
-                             for c in step_calls[key][0] + step_calls[key][2]],
-            batches=(batch_size,), forced=False)
+        bad += gn_checks([c for key, b_ in RECIPE_BATCH.items() if b_ == batch_size
+                          for c in step_calls[key][0] + step_calls[key][2]], (batch_size,))
+    # the few-eval and DDPM recipes': the (shape, batch) pairs not held above
+    bad += gn_checks([c for key in NEW_RECIPES for c in few_calls[key][0] + few_calls[key][2]],
+                     (BATCH,))
+    bad += gn_checks([c for key in NEW_RECIPES for c in new_calls[key][0] + new_calls[key][2]],
+                     (NEW_BATCH,))
     path_fa = [(CLF_TRAIN_BATCH, length, h, d) for _, length, h, d, _ in clf_train_fa]
     path_fa += [(BATCH, length, h, d) for key in SAMPLERS
                 for _, length, h, d, _ in sampler_calls[key][1]]
     path_fa += [(RECIPE_BATCH[key], length, h, d) for key in RECIPE_BATCH
                 for _, length, h, d, _ in step_calls[key][1]]
+    path_fa += [(BATCH, length, h, d) for key in NEW_RECIPES
+                for _, length, h, d, _ in few_calls[key][1]]
+    path_fa += [(NEW_BATCH, length, h, d) for key in NEW_RECIPES
+                for _, length, h, d, _ in new_calls[key][1]]
     bad += check_flash_kernels(gen, dev, errs, path_fa)
     torch.cuda.synchronize()
     if bad:
@@ -1481,6 +1679,50 @@ def main():
         check_step_vs_plain(f"{key}-f32-train", m32.eval(),
                             lambda: recipe_loss(key, m32, frozen32, rb, rd), (n_fa, n_fa), 40)
         del m32, frozen32
+    # the few-eval and DDPM recipes: a full-width f32 sample of consistency and latent_distill
+    # (2 network evals, the same draws both ways) and one full-width f32 train step of each
+    # recipe, kernels vs plain versions
+    for key in ("consistency", "latent_distill"):
+        b32 = build_inference(key, dtype=torch.float32, num_steps=2, device=dev, init_seed=SEED)
+        noise = torch.randn(F32_BATCH, *b32.model_shape, generator=gen, device=dev)
+        outs = []
+        for route in (contextlib.nullcontext, plain_versions):
+            with torch.no_grad(), route():
+                outs.append(b32.sample(cond[:F32_BATCH], noise=noise, generator=torch.Generator(
+                    device=dev).manual_seed(SEED)))
+        with_kernels, plain = outs
+        peak, err = plain.abs().max().item(), (with_kernels - plain).abs().max().item()
+        log(f"[{key}-f32] 2-eval samples {tuple(plain.shape)}: kernels vs plain "
+            f"max_abs_err={err:.3e} (peak {peak:.3e}, tol 1e-4 * peak)")
+        if not (torch.isfinite(with_kernels).all() and err <= 1e-4 * peak):
+            fail(f"the f32 {key} sample through the kernels disagrees with the plain versions")
+        del b32
+    for key in NEW_RECIPES:
+        m32, frozen32, teacher32, _, sig, mshape = new_recipe_setup(key, dev, torch.float32,
+                                                                     randomize_)
+        rb, rd = new_batch(key, F32_BATCH, sig, mshape, gen, dev)
+        n_fa = len(new_calls[key][4])
+        check_step_vs_plain(f"{key}-f32-train", m32.eval(),
+                            lambda: new_loss(key, m32, frozen32, teacher32, rb, rd),
+                            (n_fa, n_fa), 40)
+        del m32, frozen32, teacher32
+    # the shared dropout masks on the card: the consistency teacher's forward (no gradients)
+    # draws the student's masks (bf16, train mode, dropout 0.1)
+    model, frozen, teacher, _, sig, mshape = new_models["consistency"]
+    rb, rd = new_batch("consistency", 2, sig, mshape, gen, dev)
+    masks = []
+    hooks = [m.register_forward_hook(lambda mod, args, out: masks.append(
+        (out == 0) & (args[0] != 0))) for m in model.modules() if isinstance(m, torch.nn.Dropout)]
+    new_loss("consistency", model.train(), frozen, teacher, rb, rd)
+    for h in hooks:
+        h.remove()
+    k = len(hooks)
+    same = len(masks) == 2 * k and all(torch.equal(a, b) for a, b in zip(masks[:k], masks[k:]))
+    dropped = sum(m.sum().item() for m in masks[:k]) / max(sum(m.numel() for m in masks[:k]), 1)
+    log(f"[dropout] consistency step, batch 2: {k} dropout layers, teacher and student masks "
+        f"equal {same}, share dropped {dropped:.4f} (rate 0.1)")
+    if not same or not 0.05 < dropped < 0.15:
+        fail("the consistency teacher and student drew different dropout masks on the card")
     torch.cuda.empty_cache()
 
     # ---- 4. the main path ------------------------------------------------------
@@ -1669,8 +1911,6 @@ def main():
     # ---- 4j. the EDM recipes beyond the flagship: each sampler, then Trainer.fit of each
     # recipe at its batch ------------------------------------------------------------
     phase("4j. the EDM recipes beyond the flagship")
-    from tqdne_tpu_torch.cli.common import RECIPES
-
     new_counts, new_rates = {}, {}
     kernels_ = launch_counters()
     for key, runs_ in new_bundles.items():
@@ -1716,13 +1956,119 @@ def main():
         st = TrainState(model, make_optimizer(recipe.optimizer, model, 1e-4,
                                               recipe.weight_decay), sched)
         gn, fa, enc = step_calls[key]
+        timed, marks = tail_timed(steps[0], RECIPE_STEPS, RECIPE_STEPS // 2)
         new_counts[f"{key} train"], rows = counted_fit(
-            f"{key}-train", steps, st, ld, max_steps=RECIPE_STEPS,
+            f"{key}-train", (timed, steps[1]), st, ld, max_steps=RECIPE_STEPS,
             want=want_launches((len(gn) + len(enc)) * RECIPE_STEPS, len(fa) * RECIPE_STEPS,
                                len(fa) * RECIPE_STEPS),
             want_gn_bwd=len(gn) * RECIPE_STEPS, lr_schedule=sched)
+        new_rates[f"{key} train"] = tail_rate(
+            f"{key} train step, batch {RECIPE_BATCH[key]}, bf16", marks, RECIPE_BATCH[key],
+            RECIPE_STEPS // 2)
         recipe_runs[key] = (st, steps[0], next(iter(ld)))
     for run_counts in new_counts.values():
+        launches = {k: launches[k] + v for k, v in run_counts.items()}
+
+    # ---- 4k. the few-eval and DDPM recipes: each sampler (1 and 2 evals; DDPM's 1000 steps),
+    # then Trainer.fit of each recipe at batch 256, then RAdam under the guard ---------------
+    phase("4k. the few-eval and DDPM recipes")
+    from tqdne_tpu_torch.diffusion import ddpm as ddpm_lib
+
+    few_counts, few_rates, few_wall = {}, {}, {}
+    for (key, nfe), bundle in few_bundles.items():
+        u_gn, u_fa, d_gn = few_calls[key]
+        evals = nfe or bundle.ddpm_cfg.num_train_timesteps
+        label = f"{key} {'ddpm-1000' if nfe is None else f'nfe-{nfe}'}"
+        warm = copy.copy(bundle)  # warm-up at its shapes (cuDNN plans); DDPM's at 2 steps
+        if nfe is None:
+            warm.ddpm_cfg = ddpm_lib.DDPMConfig(num_train_timesteps=2)
+        warm.generate(cond, generator=gen)
+        torch.cuda.synchronize()
+        for fn in kernels_:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        wave = bundle.generate(cond, generator=gen)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        got = {fn.__name__: fn.launches for fn in kernels_}
+        want = want_launches(len(u_gn) * evals + len(d_gn), len(u_fa) * evals)
+        finite = bool(torch.isfinite(wave).all())
+        few_counts[label], few_rates[label], few_wall[label] = got, BATCH / sec, 1e3 * sec
+        log(f"[{key}] {label.split()[1]} ({evals} UNet evals"
+            f"{', one decode and Griffin-Lim 32' if d_gn else ', the envelope inverse'}), batch "
+            f"{BATCH}, bf16: waveforms {tuple(wave.shape)} finite {finite}, peak "
+            f"{wave.abs().max().item():.3e}; {BATCH / sec:.2f} waveforms/s (one run, {sec:.3f} "
+            f"s); launches {got}")
+        if wave.shape != (BATCH, 3, 4064) or not finite:
+            fail(f"{label}: waveforms {tuple(wave.shape)} finite {finite}")
+        if got != want:
+            fail(f"{label}: launches {got} != expected {want} ({evals} UNet evals)")
+    new_runs = {}
+    for key, (model, frozen, teacher, steps, sig, mshape) in new_models.items():
+        recipe = RECIPES[key]
+        cfg = recipe.config_cls()
+        ld = BatchLoader(ArrayDataset(arrays, cfg.make_representation(), cut=cfg.t, cond=True,
+                                      split="full"),
+                         NEW_BATCH, device=dev, keys=("signal", "cond"), seed=SEED)
+        # RAdam at a constant rate, as the train CLI runs it; DDPM's AdamW under the cosine
+        sched = None if recipe.optimizer == "radam" else cosine_annealing(
+            1e-4, recipe.epochs * len(ld))
+        st = TrainState(model, make_optimizer(recipe.optimizer, model, 1e-4,
+                                              recipe.weight_decay), sched)
+        gn, fa, enc, u_gn, u_fa = new_calls[key]
+        timed, marks = tail_timed(steps[0], NEW_STEPS, NEW_STEPS // 2)
+        few_counts[f"{key} train"], _ = counted_fit(
+            f"{key}-train", (timed, steps[1]), st, ld, max_steps=NEW_STEPS,
+            want=want_launches((len(gn) + len(enc)) * NEW_STEPS, len(fa) * NEW_STEPS,
+                               len(u_fa) * NEW_STEPS),
+            want_gn_bwd=len(u_gn) * NEW_STEPS, lr_schedule=sched)
+        few_rates[f"{key} train"] = tail_rate(f"{key} train step, batch {NEW_BATCH}, bf16",
+                                              marks, NEW_BATCH, NEW_STEPS // 2)
+        new_runs[key] = (st, steps[0], next(iter(ld)))
+    # RAdam under the non-finite guard on the card: a NaN batch, then a clean one
+    st, step, clean = new_runs["latent_consistency"]
+    params = [p for p in st.model.parameters() if p.requires_grad]
+    before = [p.detach().clone() for p in params]
+    moments_before = st.optimizer.state[params[0]]["exp_avg"].clone()
+    count0, step0 = int(applied_updates(st.optimizer)), st.step
+    st.skip_nonfinite = GUARD_N
+    for fn in kernels_:
+        fn.launches = 0
+    bad_loss = step(st, dict(clean, signal=torch.full_like(clean["signal"], float("nan"))),
+                    generator=tgen)["loss"].item()
+    held = (all(torch.equal(b, p) for b, p in zip(before, params))
+            and torch.equal(moments_before, st.optimizer.state[params[0]]["exp_avg"]))
+    after_bad = int(applied_updates(st.optimizer)), st.notfinite_count.item()
+    clean_loss = step(st, clean, generator=tgen)["loss"].item()
+    moved = sum(not torch.equal(b, p) for b, p in zip(before, params))
+    after_clean = int(applied_updates(st.optimizer)), st.notfinite_count.item()
+    st.skip_nonfinite = 0
+    few_counts["latent_consistency guard"] = {fn.__name__: fn.launches for fn in kernels_}
+    gn, fa, enc, u_gn, u_fa = new_calls["latent_consistency"]
+    log(f"[radam-guard] latent_consistency, skip_nonfinite={GUARD_N}: a NaN batch gave loss "
+        f"{bad_loss}, parameters and RAdam moments held {held}, (updates applied, consecutive "
+        f"non-finite) {count0} -> {after_bad}; the next clean batch gave loss {clean_loss:.6e}, "
+        f"moved {moved} of {len(params)} parameter tensors, {after_clean}; step {step0} -> "
+        f"{st.step}; launches {few_counts['latent_consistency guard']}")
+    if (math.isfinite(bad_loss) or not held or after_bad != (count0, 1.0)
+            or not math.isfinite(clean_loss) or moved < len(params) // 2
+            or after_clean != (count0 + 1, 0.0) or st.step != step0 + 2):
+        fail("RAdam under the guard did not hold a NaN step and apply the clean one")
+    if few_counts["latent_consistency guard"] != want_launches(
+            2 * (len(gn) + len(enc)), 2 * len(fa), 2 * len(u_fa)):
+        fail(f"RAdam guard launches {few_counts['latent_consistency guard']}")
+    # and a NaN at the very first update (count 0, where the bias corrections have no value)
+    lin = torch.nn.Linear(8, 8).to(dev)
+    first = TrainState(lin, make_optimizer("radam", lin, 1e-4), skip_nonfinite=GUARD_N)
+    w0 = lin.weight.detach().clone()
+    for p in lin.parameters():
+        p.grad = torch.full_like(p, float("nan"))
+    apply_updates(first, 0.999)
+    held0 = torch.equal(lin.weight, w0) and int(applied_updates(first.optimizer)) == 0
+    log(f"[radam-guard] a NaN gradient at the first update: parameters and count held {held0}")
+    if not held0:
+        fail("RAdam under the guard moved the parameters on a rejected first step")
+    for run_counts in few_counts.values():
         launches = {k: launches[k] + v for k, v in run_counts.items()}
 
     # ---- 5. timings --------------------------------------------------------------
@@ -1760,7 +2106,20 @@ def main():
     def summed(rows, key):  # the kernel's work in one UNet eval (plus one decode) or step
         return sum((1 if key == "one" else r[key]) * r["calls"] for r in rows)
 
-    def gn_row(dtype, pdtype, s, c, g, silu, calls, batch=BATCH):
+    timed_rows = {}  # a (kernel, shape, dtype, batch) timed once a run; each row adds its calls
+
+    def once(fn):
+        def row(*args, calls, batch=BATCH):
+            key = (fn.__name__, *args, batch)
+            if key not in timed_rows:
+                timed_rows[key] = fn(*args, batch=batch)
+            got = timed_rows[key]
+            if fn.__name__ == "bwd_timing":  # a row for each backward kernel
+                return {k: dict(v, calls=calls) for k, v in got.items()}
+            return dict(got, calls=calls)
+        return row
+
+    def gn_timing(dtype, pdtype, s, c, g, silu, batch=BATCH):
         x = torch.randn(batch, s, c, generator=gen, device=dev).to(dtype)
         w = torch.ones(c, device=dev, dtype=pdtype)
         b = torch.zeros(c, device=dev, dtype=pdtype)
@@ -1771,24 +2130,25 @@ def main():
         nbytes = 2 * x.numel() * x.element_size() + 2 * c * w.element_size()
         return dict(
             shape=[batch, s, c], groups=g, silu=silu, dtype=str(dtype)[6:],
-            scale_dtype=str(pdtype)[6:], calls=calls,
+            scale_dtype=str(pdtype)[6:],
             **timed(lambda: group_norm_silu(x, w, b, g, 1e-5, silu),
                     lambda: group_norm_silu_plain(x, w, b, g, 1e-5, silu), lib),
             **bound(nbytes, GN_OPS_PER_ELEM[silu] * x.numel(), torch.float32))
 
-    def fa_row(dtype, length, h, d, causal, calls, batch=BATCH):
+    def fa_timing(dtype, length, h, d, causal, batch=BATCH):
         q, k, v = (torch.randn(batch, length, h, d, generator=gen, device=dev).to(dtype)
                    for _ in range(3))
         qs, ks, vs = (t.transpose(1, 2) for t in (q * d**-0.25, k * d**-0.25, v))
         pairs = length * (length + 1) / 2 if causal else length * length
         return dict(
-            shape=[batch, length, h, d], causal=causal, dtype=str(dtype)[6:], calls=calls,
+            shape=[batch, length, h, d], causal=causal, dtype=str(dtype)[6:],
             **timed(lambda: flash_attention(q, k, v, causal),
                     lambda: flash_attention_plain(q, k, v, causal),
                     lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
                                                            scale=1.0)),
             **bound(4 * q.numel() * q.element_size(), 4 * batch * h * pairs * d, dtype))
 
+    gn_row, fa_row = once(gn_timing), once(fa_timing)
     gn_rows = [gn_row(*key, calls=unet_gn.count(key)) for key in dict.fromkeys(unet_gn)]
     gn_rows += [gn_row(*key, calls=dec_gn.count(key)) for key in dict.fromkeys(dec_gn)]
     step_gn = train_gn + enc_gn  # one bf16 train step's GroupNorm calls, at batch 128
@@ -1813,7 +2173,8 @@ def main():
         if label.startswith("one classifier"):
             clf_sums[name] = sums
     # for the record (no main-path calls): the forward at the training batch
-    log(f"[time] {json.dumps(fa_row(torch.bfloat16, 16, 4, 128, False, 0, TRAIN_BATCH))}")
+    log(f"[time] {json.dumps(fa_row(torch.bfloat16, 16, 4, 128, False, calls=0,
+                                    batch=TRAIN_BATCH))}")
     spectrograms = torch.rand(BATCH, 128, 128, 3, generator=gen, device=dev) * 2 - 1
     for _ in range(2):
         with torch.no_grad():
@@ -1846,8 +2207,8 @@ def main():
         f"traintime")
     flagship_profile = train_profile(one_step, f"one train step, batch {TRAIN_BATCH}, bf16")
 
-    # the guard's cost and the cached-latent step against the flagship step in alternated
-    # single steps, each also profiled; then the recipes' steps beside the flagship step
+    # the guard's cost against the flagship step in alternated single steps, also profiled;
+    # then the recipes' steps, one window each
     recipe_batches = {name: next(iter(ld)) for name, ld in (
         ("ae", ae_loader), ("classifier", clf_loader), ("cached", cached_loader),
         ("waveform", wave_loader))}
@@ -1866,9 +2227,6 @@ def main():
         f"({100 * guard_update['issue_ms'] / step_issue:.3f}% of the step's {step_issue:.3f}) "
         f"and {guard_update['wall_ms']:.4f} wall ms; median step pair difference "
         f"{guard['wall_diff_ms']:.3f} ms; launches {guard.get('launches')}")
-    paired_steps(f"the flagship step from cached latents (no encoder), batch {TRAIN_BATCH}, bf16",
-                 lambda: cached_steps[0](state, recipe_batches["cached"], generator=tgen),
-                 one_step, flagship_profile)
     for label, step, st, name, n in (
             ("autoencoder recipe step (AdamW, no EMA), batch 128, bf16", ae_steps[0], ae_state,
              "ae", TRAIN_BATCH),
@@ -1878,9 +2236,9 @@ def main():
              cached_steps[0], state, "cached", TRAIN_BATCH),
             ("flagship step with the representation on the device, batch 128, bf16",
              rep_steps[0], state, "waveform", TRAIN_BATCH)):
-        rates_beside(label, lambda: step(st, recipe_batches[name], generator=tgen), n, one_step)
+        rate_of(label, lambda: step(st, recipe_batches[name], generator=tgen), n)
 
-    def bwd_rows(dtype, length, h, d, causal, calls, batch=TRAIN_BATCH):
+    def bwd_timing(dtype, length, h, d, causal, batch=TRAIN_BATCH):
         q, k, v = qkv_views(batch, length, h, d, dtype, "fused", gen, dev)
         do = torch.randn(batch, length, h, d, generator=gen, device=dev).to(dtype)
         out, lse = flash_attention(q, k, v, causal, return_lse=True)
@@ -1897,8 +2255,7 @@ def main():
 
         pairs = length * (length + 1) / 2 if causal else length * length
         elems, size, rows_bytes = q.numel(), q.element_size(), 2 * lse.numel() * 4
-        common = dict(shape=[batch, length, h, d], causal=causal, dtype=str(dtype)[6:],
-                      calls=calls)
+        common = dict(shape=[batch, length, h, d], causal=causal, dtype=str(dtype)[6:])
         return {
             # reads q, k, v, dO, lse, delta; writes dK, dV; products S, dP, dV, dK
             "flash_attention_bwd_dkdv": dict(
@@ -1920,7 +2277,9 @@ def main():
                         dtype)),
         }
 
-    bwd = [bwd_rows(*key, calls=unet_fa.count(key)) for key in dict.fromkeys(unet_fa)]
+    bwd_rows = once(bwd_timing)
+    bwd = [bwd_rows(*key, calls=unet_fa.count(key), batch=TRAIN_BATCH)
+           for key in dict.fromkeys(unet_fa)]
     for row in bwd:
         for r in row.values():
             log(f"[time] {json.dumps(r)}")
@@ -1974,21 +2333,10 @@ def main():
     if not math.isfinite(big_loss):
         fail("the batch-256 train step gave a non-finite loss")
 
-    # the EDM recipes beyond the flagship: samples/s on a resident batch, a profiled step,
-    # the 1D layout copies, and each kernel per call at the new path shapes
+    # the EDM recipes beyond the flagship: a profiled step, the 1D layout copies, and each
+    # kernel per call at the new path shapes
     phase("5b. the EDM recipes' timings")
     for key, (st, step, rb) in recipe_runs.items():
-        step(st, rb, generator=tgen)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(TRAIN_E2E_STEPS):
-            step(st, rb, generator=tgen)
-        torch.cuda.synchronize()
-        sec = time.perf_counter() - t0
-        new_rates[f"{key} train"] = RECIPE_BATCH[key] * TRAIN_E2E_STEPS / sec
-        log(f"[recipe-e2e] {key} train step, batch {RECIPE_BATCH[key]}, bf16: "
-            f"{new_rates[f'{key} train']:.2f} samples/s ({TRAIN_E2E_STEPS} steps in "
-            f"{sec:.3f} s on a resident batch)")
         train_profile(lambda: step(st, rb, generator=tgen),
                       f"one {key} train step, batch {RECIPE_BATCH[key]}, bf16")
     layout = {"forward_ms": 0.0, "calls": 0}
@@ -2035,6 +2383,57 @@ def main():
             log(f"[time] {name} over {label}: {json.dumps(new_sums[name][label])}")
     log(f"[recipe-rates] {json.dumps(new_rates)}")
 
+    # the few-eval and DDPM recipes: a profiled step of each, the samplers' device ms, and
+    # each kernel per call at the new paths' shapes
+    phase("5c. the few-eval and DDPM recipes' timings")
+    for key, (st, step, rb) in new_runs.items():
+        train_profile(lambda: step(st, rb, generator=tgen),
+                      f"one {key} train step, batch {NEW_BATCH}, bf16")
+    for (key, nfe), bundle in few_bundles.items():
+        if nfe is not None:
+            then = " and one decode, then Griffin-Lim 32" if few_calls[key][2] else ""
+            profile_breakdown(lambda: bundle.generate(cond, generator=gen),
+                              f"{key} {nfe} UNet evals{then}, batch {BATCH}", tag="few-profile")
+    # DDPM's 1000 steps are too many launches to profile: a 10-step run (the same kernels a
+    # step, the envelope inverse once) is, and its device ms a step is scaled to 1000
+    ddpm10 = copy.copy(few_bundles[("ddpm", None)])
+    ddpm10.ddpm_cfg = ddpm_lib.DDPMConfig(num_train_timesteps=10)
+    ddpm_profile = profile_breakdown(lambda: ddpm10.generate(cond, generator=gen),
+                                     f"ddpm, 10 of its steps, batch {BATCH}", tag="few-profile")
+    if ddpm_profile is not None:
+        ddpm_ms = 100 * ddpm_profile["device_ms"]
+        log(f"[few-profile] ddpm, batch {BATCH}: {ddpm_profile['device_ms'] / 10:.3f} device ms "
+            f"a step, {ddpm_ms:.1f} for 1000 steps against the counted run's "
+            f"{few_wall['ddpm ddpm-1000']:.1f} wall ms (busy share "
+            f"{ddpm_ms / few_wall['ddpm ddpm-1000']:.3f})")
+    few_rows = {}
+    for key in NEW_RECIPES:
+        gn, fa, enc, u_gn, u_fa = new_calls[key]
+        calls = gn + enc
+        few_rows[f"one {key} train step, batch {NEW_BATCH}, bf16"] = {
+            "group_norm_silu": [gn_row(*k, calls=calls.count(k), batch=NEW_BATCH)
+                                for k in dict.fromkeys(calls)],
+            "flash_attention": [fa_row(*fa[0], calls=len(fa), batch=NEW_BATCH)],
+            **{n: [r] for n, r in bwd_rows(*fa[0], calls=len(u_fa), batch=NEW_BATCH).items()}}
+        u_gn, u_fa, d_gn = few_calls[key]
+        calls = u_gn + d_gn
+        few_rows[f"one {key} UNet eval{' and one decode' if d_gn else ''}, batch {BATCH}, "
+                 f"bf16"] = {
+            "group_norm_silu": [gn_row(*k, calls=calls.count(k)) for k in dict.fromkeys(calls)],
+            "flash_attention": [fa_row(*u_fa[0], calls=len(u_fa))]}
+    few_sums = collections.defaultdict(dict)
+    for label, rows in few_rows.items():
+        for name, rs in rows.items():
+            for r in rs:
+                log(f"[time] {label}: {json.dumps(r)}")
+            few_sums[name][label] = {k: summed(rs, k) for k in (
+                "ms", "bound_ms", "plain_ms", "library_ms", "issue_ms")} | {
+                "calls": summed(rs, "one"),
+                "bound_by": "bytes" if summed(rs, "bytes_ms") >= summed(rs, "ops_ms")
+                else "operations"}
+            log(f"[time] {name} over {label}: {json.dumps(few_sums[name][label])}")
+    log(f"[few-rates] {json.dumps(few_rates)}")
+
     phase("the kernels line")
     kernels = []
     for name, rows, source, replaces in (
@@ -2058,11 +2457,13 @@ def main():
                               "train": train_counts[name],
                               **{run: c[which] for run, c in path_counts.items()},
                               **{run: c[name] for run, c in recipe_counts.items()},
-                              **{run: c[name] for run, c in new_counts.items()}},
+                              **{run: c[name] for run, c in new_counts.items()},
+                              **{run: c[name] for run, c in few_counts.items()}},
             classifier_forward=clf_sums[name] | {"per": f"one classifier forward, batch {BATCH}, "
                                                         f"bf16"},
             classifier_train_step=clf_step_sums[name],
             edm_recipes=new_sums[name],
+            few_eval_ddpm_recipes=few_sums[name],
         ))
     for name, line in (("flash_attention_bwd_dkdv", 209), ("flash_attention_bwd_dq", 274)):
         rows = [row[name] for row in bwd]
@@ -2079,9 +2480,11 @@ def main():
                 f"SDPA backward, which computes dq, dk and dv together",
             launches_per_run={"train": train_counts[name],
                               **{run: c[name] for run, c in recipe_counts.items()},
-                              **{run: c[name] for run, c in new_counts.items()}},
+                              **{run: c[name] for run, c in new_counts.items()},
+                              **{run: c[name] for run, c in few_counts.items()}},
             classifier_train_step=clf_step_sums[name],
             edm_recipes=new_sums[name],
+            few_eval_ddpm_recipes=few_sums[name],
         ))
     redesigned = {
         "group_norm_silu": "one launch: a thread-block cluster over row chunks of whole-group "

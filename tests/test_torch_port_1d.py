@@ -365,10 +365,15 @@ def test_1d_sampling_matches_jax(rng, pairs, recipe, solver):
 
 
 def test_build_inference_refuses_what_the_recipes_do_not_have():
-    for key, match in (("1d_autoencoder", "no sampler"), ("classifier", "no sampler"),
-                       ("consistency", "not ported yet")):
+    for key, match in (("1d_autoencoder", "no sampler"), ("classifier", "no sampler")):
         with pytest.raises(SystemExit, match=match):
             common.build_inference(key, device="cpu", tiny=True)
+    # the few-eval recipes sample (``consistency`` over the 1D envelope); an EDM
+    # recipe takes no few-eval solver
+    bundle = common.build_inference("consistency", dtype=torch.float32, device="cpu", tiny=True)
+    assert (bundle.kind, bundle.model_shape) == ("consistency", (4064, 6))
+    with pytest.raises(SystemExit, match="unknown solver 'consistency' for an EDM recipe"):
+        common.build_inference("1d_edm", solver="consistency", device="cpu", tiny=True)
     with pytest.raises(SystemExit, match="no Griffin-Lim"):
         common.build_inference("1d_edm", gl_iters=4, device="cpu", tiny=True)
     assert common.signal_shape(configs.MovingAverageEnvelopeConfig()) == (4064, 6)

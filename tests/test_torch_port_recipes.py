@@ -31,6 +31,7 @@ from tqdne_tpu_torch.data.representation import Identity, LogSpectrogram
 from tqdne_tpu_torch.models.classifier import Classifier
 from tqdne_tpu_torch.ops.representation import device_representation_fn
 from tqdne_tpu_torch.train.state import (
+    RAdam,
     TrainState,
     applied_updates,
     apply_updates,
@@ -141,8 +142,9 @@ def test_make_optimizer_takes_the_weight_decay_it_is_given(unet_pair):
     _, _, port_unet = unet_pair
     assert make_optimizer("adamw", port_unet, 1e-4).param_groups[0]["weight_decay"] == 0.0
     assert make_optimizer("adamw", port_unet, 1e-4, 1e-4).param_groups[0]["weight_decay"] == 1e-4
-    with pytest.raises(ValueError, match="not ported"):
-        make_optimizer("radam", port_unet, 1e-4)
+    assert isinstance(make_optimizer("radam", port_unet, 1e-4), RAdam)
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        make_optimizer("lamb", port_unet, 1e-4)
 
 
 @pytest.mark.parametrize("name", ["adam", "adamw"])

@@ -418,5 +418,6 @@ def test_train_cli_writes_metrics_and_a_checkpoint(tmp_path):
         train_cli.main(argv + ["--cached-latents"])
     with pytest.raises(SystemExit, match="needs a latent"):
         train_cli.main(["autoencoder", *argv[1:], "--cached-latents"])
-    with pytest.raises(SystemExit, match="not ported"):
-        train_cli.main(["consistency", *argv[1:]])
+    # the JAX CLI's refusal of a flag that would do nothing
+    with pytest.raises(SystemExit, match="--device-representation is supported for EDM"):
+        train_cli.main(["ddpm", *argv[1:], "--device-representation"])

@@ -27,6 +27,9 @@ from tqdne_tpu_torch import configs
 from tqdne_tpu_torch.data.dataset import CachedLatentsDataset, Dataset, make_synthetic_dataset
 from tqdne_tpu_torch.data.pipeline import BatchLoader, DeviceResidentLoader
 from tqdne_tpu_torch.data.representation import Identity, LogSpectrogram
+from tqdne_tpu_torch.diffusion import ddpm as ddpm_lib
+from tqdne_tpu_torch.diffusion.consistency import sample_consistency
+from tqdne_tpu_torch.diffusion.distillation import sample_distilled
 from tqdne_tpu_torch.models.autoencoder import AutoencoderKL
 from tqdne_tpu_torch.models.unet import UNet
 from tqdne_tpu_torch.nn.layers import set_compute_dtype
@@ -50,7 +53,7 @@ class Recipe:
     dims: int
     epochs: int
     batch: int
-    kind: str = "edm"  # edm | autoencoder | classifier
+    kind: str = "edm"  # edm | autoencoder | classifier | consistency | distill | ddpm
     latent: bool = False
     ae_name: str | None = None  # a latent recipe's frozen autoencoder run
     optimizer: str = "adam"
@@ -76,10 +79,21 @@ RECIPES = {
                          ae_name=AE_NAME),
     "classifier": Recipe("Classifier-LogSpectrogram", configs.SpectrogramClassificationConfig, 2,
                          110, 64, "classifier", ema_decay=0.0),
+    "consistency": Recipe("Consistency-MovingAvg", configs.MovingAverageEnvelopeConfig, 1, 200,
+                          256, "consistency", optimizer="radam"),
+    "latent_consistency": Recipe("Latent-Consistency-32x32x8-LogSpectrogram",
+                                 configs.LatentSpectrogramConfig, 2, 200, 256, "consistency",
+                                 latent=True, ae_name=AE_NAME, optimizer="radam"),
+    # the EMA is the CD target network (decay mu, the train CLI's --ema-decay)
+    "latent_distill": Recipe("Latent-Distill-32x32x8-LogSpectrogram",
+                             configs.LatentSpectrogramConfig, 2, 80, 256, "distill", latent=True,
+                             ae_name=AE_NAME, optimizer="radam", ema_decay=0.95),
+    "ddpm": Recipe("DDPM-MovingAvg", configs.MovingAverageEnvelopeConfig, 1, 200, 256, "ddpm",
+                   optimizer="adamw"),
 }
-# the JAX package's recipes (tqdne_tpu/cli/train.py:RECIPES); the others are refused
-JAX_RECIPES = ("1d_edm", "1d_autoencoder", "1d_latent_edm", "autoencoder", "edm", "latent_edm",
-               "classifier", "consistency", "latent_consistency", "latent_distill", "ddpm")
+SAMPLED_KINDS = ("edm", "consistency", "distill", "ddpm")
+FEW_EVAL = ("consistency", "latent_consistency", "latent_distill")  # 2 network evals by default
+CONSISTENCY_NOISE = ("auto", "song", "reference")
 
 
 def parse_dtype(name: str) -> torch.dtype:
@@ -257,12 +271,19 @@ def add_common_args(parser):
 
 
 class InferenceBundle:
-    """A sampleable EDM recipe: the UNet, the frozen autoencoder of a latent
-    recipe (None otherwise) and the representation that turns the sampled
-    signal into waveforms."""
+    """A sampleable recipe: the UNet, the frozen autoencoder of a latent
+    recipe (None otherwise), the representation that turns the sampled
+    signal into waveforms, and the sampler of the recipe's ``kind``: the EDM
+    ODE (``solver``, ``num_steps`` as its steps), few-eval consistency
+    sampling (``num_steps`` network evals: one from sigma_max, then
+    ``num_steps - 1`` refinements at ``refine_sigma`` in the
+    ``consistency_noise`` convention; the raw parameterisation for
+    ``consistency``, the EDM-conditioned one for ``distill``) or DDPM's
+    ``ddpm_cfg.num_train_timesteps`` ancestral steps."""
 
     def __init__(self, config, representation, unet, autoencoder, sig_shape, model_shape, *,
-                 num_steps: int, solver: str, device: torch.device):
+                 num_steps: int, solver: str, device: torch.device, kind: str = "edm",
+                 consistency_noise: str = "auto", refine_sigma: float = 1.0):
         self.config = config
         self.representation = representation
         self.unet = unet
@@ -272,6 +293,10 @@ class InferenceBundle:
         self.num_steps = num_steps
         self.solver = solver
         self.device = device
+        self.kind = kind
+        self.consistency_noise = consistency_noise
+        self.refine_sigma = refine_sigma
+        self.ddpm_cfg = ddpm_lib.DDPMConfig()
 
     @property
     def t(self) -> int:
@@ -279,12 +304,21 @@ class InferenceBundle:
 
     def sample(self, cond: torch.Tensor, *, noise=None, generator=None) -> torch.Tensor:
         """Normalised conditioning (B, 5) -> the channels-last signal
-        (B, *sig_shape), decoded for a latent recipe, f32."""
+        (B, *sig_shape), decoded for a latent recipe, f32.  ``noise``: the
+        sampler's initial standard-normal draw of the model shape; it and
+        every later draw come from ``generator`` otherwise."""
         cond = cond.to(self.device, torch.float32)
-        return sample_edm(
-            self.unet, (cond.shape[0], *self.model_shape), cond, autoencoder=self.autoencoder,
-            num_steps=self.num_steps, solver=self.solver, noise=noise, generator=generator,
-            device=self.device)
+        shape = (cond.shape[0], *self.model_shape)
+        kw = dict(generator=generator, device=self.device)
+        if self.kind == "ddpm":
+            return ddpm_lib.ddpm_sample(self.ddpm_cfg, self.unet, shape, cond=cond, x=noise, **kw)
+        kw["autoencoder"] = self.autoencoder
+        if self.kind == "edm":
+            return sample_edm(self.unet, shape, cond, num_steps=self.num_steps,
+                              solver=self.solver, noise=noise, **kw)
+        sample = sample_consistency if self.kind == "consistency" else sample_distilled
+        return sample(self.unet, shape, cond, sigmas=(self.refine_sigma,) * (self.num_steps - 1),
+                      noise=self.consistency_noise, eps=noise, **kw)
 
     def generate(self, cond: torch.Tensor, *, noise=None, init_phase=None,
                  generator=None) -> torch.Tensor:
@@ -338,9 +372,16 @@ class InferenceBundle:
 def build_inference(recipe_key: str = "latent_edm", *, workdir=None, unet_weights=None,
                     ae_weights=None, dtype=torch.bfloat16, num_steps: int = 25,
                     solver: str = "heun", gl_iters: int | None = None, device="cuda",
-                    tiny: bool = False, init_seed: int = 0) -> InferenceBundle:
-    """Build the sampler of an EDM recipe (``latent_edm``, ``edm``, ``1d_edm``
-    or ``1d_latent_edm``) on ``device`` (``cuda`` unless asked).
+                    tiny: bool = False, init_seed: int = 0, consistency_noise: str = "auto",
+                    refine_sigma: float = 1.0) -> InferenceBundle:
+    """Build the sampler of a diffusion recipe on ``device`` (``cuda``
+    unless asked): an EDM recipe (``latent_edm``, ``edm``, ``1d_edm``,
+    ``1d_latent_edm``; ``solver`` heun or dpmpp_2m), a consistency recipe
+    (``consistency``, ``latent_consistency``), the distilled student
+    (``latent_distill``) or ``ddpm``.  ``num_steps`` counts the EDM ODE's
+    steps, or the network evals of the few-eval samplers, whose refinement
+    passes run at ``refine_sigma`` in the ``consistency_noise`` convention
+    (``auto``, ``song`` or ``reference``); DDPM runs its 1000 steps.
 
     Each model's weights come from its ``.pt`` state dict (``unet_weights``,
     ``ae_weights``), else from the port's run in ``workdir`` (its newest
@@ -353,12 +394,18 @@ def build_inference(recipe_key: str = "latent_edm", *, workdir=None, unet_weight
     is refused by a recipe that has no Griffin-Lim.
     """
     if recipe_key not in RECIPES:
-        raise SystemExit(f"recipe {recipe_key!r} is not ported yet (have: {', '.join(RECIPES)})")
+        raise SystemExit(f"unknown recipe {recipe_key!r} (have: {', '.join(RECIPES)})")
     recipe = RECIPES[recipe_key]
-    if recipe.kind != "edm":
+    if recipe.kind not in SAMPLED_KINDS:
         raise SystemExit(f"recipe {recipe_key!r} has no sampler (kind={recipe.kind})")
-    if solver not in ("heun", "dpmpp_2m"):
-        raise SystemExit(f"unknown solver {solver!r}; use 'heun' or 'dpmpp_2m'")
+    if recipe.kind == "edm" and solver not in ("heun", "dpmpp_2m"):
+        raise SystemExit(f"unknown solver {solver!r} for an EDM recipe; use 'heun' or "
+                         "'dpmpp_2m'")
+    if consistency_noise not in CONSISTENCY_NOISE:
+        raise SystemExit(f"unknown consistency noise {consistency_noise!r}; use one of "
+                         f"{', '.join(CONSISTENCY_NOISE)}")
+    if recipe.kind in ("consistency", "distill") and num_steps < 1:
+        raise SystemExit(f"num_steps {num_steps}: a few-eval sampler takes at least one eval")
     device = resolve_device(device)
     config = recipe.config_cls(workdir=workdir or ".")
     if gl_iters is not None:
@@ -399,7 +446,30 @@ def build_inference(recipe_key: str = "latent_edm", *, workdir=None, unet_weight
             if device.type == "cuda":
                 module.to(memory_format=torch.channels_last)
     return InferenceBundle(config, representation, unet, autoencoder, sig_shape, model_shape,
-                           num_steps=num_steps, solver=solver, device=device)
+                           num_steps=num_steps, solver=solver, device=device, kind=recipe.kind,
+                           consistency_noise=consistency_noise, refine_sigma=refine_sigma)
+
+
+def route_solver(config: str, solver: str, num_steps: int | None) -> tuple[str, int]:
+    """The JAX generate and serve CLIs' routing of ``--solver``: consistency
+    and distill sample a trained few-eval run, so with the flagship's
+    ``latent_edm`` they take its ``latent_consistency`` / ``latent_distill``
+    counterpart, and any other EDM ``--config`` is refused.  ``num_steps``
+    defaults to 2 network evals for the few-eval recipes, 25 otherwise.
+    Returns (recipe, num_steps)."""
+    if solver == "consistency" and config == "latent_edm":
+        config = "latent_consistency"
+    if solver == "distill" and config == "latent_edm":
+        config = "latent_distill"
+    if solver == "consistency" and config not in ("consistency", "latent_consistency"):
+        raise SystemExit("--solver consistency samples a consistency-model run; use it with "
+                         "--config consistency / latent_consistency (or omit --config)")
+    if solver == "distill" and config != "latent_distill":
+        raise SystemExit("--solver distill samples a distilled-consistency run; use it with "
+                         "--config latent_distill (or omit --config)")
+    if num_steps is None:
+        num_steps = 2 if config in FEW_EVAL else 25
+    return config, num_steps
 
 
 def dataset_feature_stats(config) -> np.ndarray:

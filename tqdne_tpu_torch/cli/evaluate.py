@@ -1,7 +1,10 @@
 """Generate over a dataset split on a GPU and write everything the report
-needs to HDF5: the port of ``tqdne_tpu/cli/evaluate.py`` for the EDM recipes
-``latent_edm`` (default), ``edm``, ``1d_edm`` and ``1d_latent_edm``
-(``--config``).
+needs to HDF5: the port of ``tqdne_tpu/cli/evaluate.py`` for every diffusion
+recipe (``--config``): the EDM recipes ``latent_edm`` (default), ``edm``,
+``1d_edm`` and ``1d_latent_edm``, the few-eval ``consistency``,
+``latent_consistency`` and ``latent_distill`` (``--consistency-noise``,
+``--refine-sigma``; ``--solver consistency`` or ``distill`` routes
+``latent_edm`` to them, as the generate CLI does) and ``ddpm``.
 
 Per split it writes the five conditioning features plus eight datasets
 (target/predicted waveform, target/predicted signal, target/predicted
@@ -120,7 +123,8 @@ def main(argv=None):
                                      description=__doc__.split("\n\n")[0])
     parser.add_argument("--workdir", type=str, required=True)
     parser.add_argument("--config", type=str, default="latent_edm",
-                        help="recipe: latent_edm, edm, 1d_edm or 1d_latent_edm")
+                        help="recipe: latent_edm, edm, 1d_edm, 1d_latent_edm, consistency, "
+                             "latent_consistency, latent_distill or ddpm")
     parser.add_argument("--split", type=str, default="test",
                         choices=["train", "validation", "test", "train_validation", "full"])
     parser.add_argument("-b", "--batchsize", type=int, default=32)
@@ -142,8 +146,17 @@ def main(argv=None):
                              "the preset)")
     parser.add_argument("--no-classifier", action="store_true",
                         help="skip classifier embedding/logit datasets")
-    parser.add_argument("--num_steps", "--num-steps", type=int, default=25)
-    parser.add_argument("--solver", type=str, default="heun", choices=["heun", "dpmpp_2m"])
+    parser.add_argument("--num_steps", "--num-steps", type=int, default=None,
+                        help="sampling steps (default 25), or network evals of a few-eval "
+                             "recipe (default 2)")
+    parser.add_argument("--solver", type=str, default="heun",
+                        choices=["heun", "dpmpp_2m", "consistency", "distill"])
+    parser.add_argument("--consistency-noise", type=str, default="auto",
+                        choices=list(common.CONSISTENCY_NOISE),
+                        help="few-eval sampling convention: auto (= song), song (Song et al. "
+                             "2023, Alg. 1) or reference (unscaled start, uniform refinement)")
+    parser.add_argument("--refine-sigma", type=float, default=1.0,
+                        help="re-noising sigma of the few-eval refinement passes (NFE >= 2)")
     parser.add_argument("--dtype", type=str, default="bf16", choices=["f32", "bf16"])
     parser.add_argument("--limit-batches", type=int, default=None)
     parser.add_argument("--seed", type=int, default=0)
@@ -153,13 +166,15 @@ def main(argv=None):
                         help="appended to the output filename")
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
+    args.config, args.num_steps = common.route_solver(args.config, args.solver, args.num_steps)
     import h5py
 
     dtype = common.parse_dtype(args.dtype)
     bundle = common.build_inference(
         args.config, workdir=args.workdir, unet_weights=args.unet_weights,
         ae_weights=args.ae_weights, dtype=dtype, num_steps=args.num_steps, solver=args.solver,
-        device=args.device, tiny=args.tiny)
+        device=args.device, tiny=args.tiny, consistency_noise=args.consistency_noise,
+        refine_sigma=args.refine_sigma)
     config = bundle.config
     run_name = args.name or RECIPES[args.config].name
     dataset = Dataset(config.datapath, bundle.representation, cut=config.t, cond=True,
@@ -195,13 +210,13 @@ def main(argv=None):
     sig_cf = (bundle.sig_shape[-1], *bundle.sig_shape[:-1])
     with h5py.File(outfile, "w") as f:
         # provenance: which weights were sampled and the sampler's settings,
-        # copied into the report JSON by eval.report; the last two fields are
-        # the JAX CLI's consistency settings, at its defaults
+        # copied into the report JSON by eval.report
         f.attrs["provenance"] = json.dumps(
             {"run_name": run_name, "recipe": args.config, "unet_weights": args.unet_weights,
              "ae_weights": args.ae_weights, "num_steps": args.num_steps,
              "solver": args.solver, "seed": args.seed, "dtype": args.dtype,
-             "split": args.split, "consistency_noise": "auto", "refine_sigma": 1.0})
+             "split": args.split, "consistency_noise": args.consistency_noise,
+             "refine_sigma": args.refine_sigma})
         for key in config.features_keys:
             f.create_dataset(key, data=dataset.get_feature(key)[all_idx])
         dsets = {

@@ -1,18 +1,23 @@
-"""Sample accelerograms from an EDM recipe on a GPU.
+"""Sample accelerograms from a diffusion recipe on a GPU.
 
-The port of ``tqdne_tpu/cli/generate_waveforms.py`` for the ``latent_edm``
-(default), ``edm``, ``1d_edm`` and ``1d_latent_edm`` recipes (``--config``):
-conditioning from flags or a CSV (hypocentral_distance, magnitude, vs30,
-hypocentre_depth, azimuthal_gap[, num_samples] per row), normalised with the
-published dataset summary statistics, batched sampling, the inversion
-(Griffin-Lim for a spectrogram, the elementwise inverse for the envelope) and the
-same HDF5 layout (one dataset per feature plus ``waveforms`` (N, 3, T)).
-Weights are ``.pt`` state dicts written by ``python -m
+The port of ``tqdne_tpu/cli/generate_waveforms.py`` for the EDM recipes
+``latent_edm`` (default), ``edm``, ``1d_edm`` and ``1d_latent_edm``, the
+few-eval ``consistency``, ``latent_consistency`` and ``latent_distill``, and
+``ddpm`` (``--config``): conditioning from flags or a CSV
+(hypocentral_distance, magnitude, vs30, hypocentre_depth, azimuthal_gap[,
+num_samples] per row), normalised with the published dataset summary
+statistics, batched sampling, the inversion (Griffin-Lim for a spectrogram,
+the elementwise inverse for the envelope) and the same HDF5 layout (one
+dataset per feature plus ``waveforms`` (N, 3, T)).  ``--solver consistency``
+or ``distill`` routes ``latent_edm`` to ``latent_consistency`` or
+``latent_distill`` and refuses another EDM recipe; ``--num_steps`` counts the
+network evals of a few-eval recipe (default 2) or the EDM ODE's steps
+(default 25).  Weights are ``.pt`` state dicts written by ``python -m
 tqdne_tpu_torch.utils.convert``, or the port's own runs in ``--workdir``:
 
     python -m tqdne_tpu_torch.cli.generate_waveforms --csv examples/demo_conditioning.csv \\
         --unet-weights unet.pt --ae-weights ae.pt --outfile out.h5 --device cuda
-    python -m tqdne_tpu_torch.cli.generate_waveforms --config 1d_edm --workdir W \\
+    python -m tqdne_tpu_torch.cli.generate_waveforms --solver distill --workdir W \\
         --csv examples/demo_conditioning.csv --outfile out.h5
 """
 
@@ -74,7 +79,8 @@ def main(argv=None):
     parser.add_argument("--csv", type=str, default=None)
     parser.add_argument("--outfile", type=str, required=True)
     parser.add_argument("--config", type=str, default="latent_edm",
-                        help="recipe: latent_edm, edm, 1d_edm or 1d_latent_edm")
+                        help="recipe: latent_edm, edm, 1d_edm, 1d_latent_edm, consistency, "
+                             "latent_consistency, latent_distill or ddpm")
     parser.add_argument("--workdir", type=str, default=None,
                         help="read each model without a weights file from the port's run here")
     parser.add_argument("--unet-weights", type=str, default=None,
@@ -82,10 +88,18 @@ def main(argv=None):
     parser.add_argument("--ae-weights", type=str, default=None,
                         help="latent recipes: the autoencoder's state dict (.pt)")
     parser.add_argument("--batch_size", "--batch-size", type=int, default=32)
-    parser.add_argument("--num_steps", "--num-steps", type=int, default=25)
-    parser.add_argument("--solver", type=str, default="heun", choices=["heun", "dpmpp_2m"],
-                        help="heun = reference semantics (2N-1 UNet evals); "
-                             "dpmpp_2m = 2nd-order multistep, N evals")
+    parser.add_argument("--num_steps", "--num-steps", type=int, default=None,
+                        help="sampling steps (default 25), or network evals of a few-eval "
+                             "recipe (default 2)")
+    parser.add_argument("--solver", type=str, default="heun",
+                        choices=["heun", "dpmpp_2m", "consistency", "distill"],
+                        help="heun = reference semantics (2N-1 UNet evals); dpmpp_2m = "
+                             "2nd-order multistep, N evals; consistency / distill = 1-2 eval "
+                             "sampling of a consistency or distilled run (latent_edm routes to "
+                             "latent_consistency / latent_distill)")
+    parser.add_argument("--consistency-noise", type=str, default="auto",
+                        choices=list(common.CONSISTENCY_NOISE),
+                        help="few-eval sampling convention: auto (= song), song or reference")
     parser.add_argument("--dtype", type=str, default="bf16", choices=["f32", "bf16"])
     parser.add_argument("--gl-iters", type=int, default=None,
                         help="Griffin-Lim iterations of a spectrogram recipe (default: the "
@@ -95,6 +109,7 @@ def main(argv=None):
     parser.add_argument("--tiny", action="store_true",
                         help="match weights of the 32-channel --tiny widths")
     args = parser.parse_args(argv)
+    args.config, args.num_steps = common.route_solver(args.config, args.solver, args.num_steps)
 
     latent = getattr(RECIPES.get(args.config), "latent", False)
     if args.workdir is None and (args.unet_weights is None or latent and args.ae_weights is None):
@@ -106,7 +121,8 @@ def main(argv=None):
     bundle = common.build_inference(
         args.config, workdir=args.workdir, unet_weights=args.unet_weights,
         ae_weights=args.ae_weights, dtype=common.DTYPES[args.dtype], num_steps=args.num_steps,
-        solver=args.solver, gl_iters=args.gl_iters, device=args.device, tiny=args.tiny)
+        solver=args.solver, gl_iters=args.gl_iters, device=args.device, tiny=args.tiny,
+        consistency_noise=args.consistency_noise)
     cond = torch.as_tensor(normalize(cond_raw), dtype=torch.float32)
     generator = torch.Generator(device=bundle.device).manual_seed(args.seed)
 

@@ -13,8 +13,9 @@ the weights is kept unless ``--force`` is given:
     python -m tqdne_tpu_torch.cli.precompute_latents --workdir W [--config 1d_latent_edm] \\
         [--ae-weights ae.pt] [--tiny] [-b 64] [--dtype f32] [--device cuda]
 
-``--config`` names the latent recipe (``latent_edm`` by default, or
-``1d_latent_edm``), which sets the representation and the autoencoder's run.
+``--config`` names the latent recipe (``latent_edm`` by default,
+``latent_consistency``, ``latent_distill`` or ``1d_latent_edm``), which sets the
+representation and the autoencoder's run.
 Without ``--ae-weights`` the autoencoder is the port's own run
 ``outputs/<ae_name>`` in the same workdir.  Train from the sidecar with
 ``python -m tqdne_tpu_torch.cli.train <recipe> --cached-latents``.  The
@@ -129,7 +130,8 @@ def main(argv=None):
                                      description=__doc__.split("\n\n")[0])
     parser.add_argument("--workdir", type=str, required=True)
     parser.add_argument("--config", type=str, default="latent_edm",
-                        help="latent recipe name: latent_edm, 1d_latent_edm")
+                        help="latent recipe name: latent_edm, latent_consistency, "
+                             "latent_distill or 1d_latent_edm")
     parser.add_argument("--ae-name", type=str, default=None,
                         help="autoencoder run name under outputs/ (default: the recipe's)")
     parser.add_argument("--ae-weights", type=str, default=None,

@@ -1,6 +1,10 @@
 """Long-lived HTTP generation service on a GPU: the port of
-``tqdne_tpu/cli/serve.py`` for the EDM recipes ``latent_edm`` (default),
-``edm``, ``1d_edm`` and ``1d_latent_edm`` (``--config``).
+``tqdne_tpu/cli/serve.py`` for every diffusion recipe (``--config``): the EDM
+recipes ``latent_edm`` (default), ``edm``, ``1d_edm`` and ``1d_latent_edm``
+(``--solver heun`` or ``dpmpp_2m``), the few-eval ``consistency``,
+``latent_consistency`` and ``latent_distill`` (``--solver consistency`` or
+``distill`` routes ``latent_edm`` to them; 2 network evals unless
+``--num-steps`` says otherwise) and ``ddpm``.
 
 Builds the same ``InferenceBundle`` as ``cli.generate_waveforms``, keeps the
 weights on the device, warms the sampler up (the first call builds the CUDA
@@ -8,6 +12,7 @@ kernels with nvcc and picks cuDNN's algorithms) and then serves coalesced
 micro-batches over HTTP (``tqdne_tpu_torch/serving.py``):
 
     python -m tqdne_tpu_torch.cli.serve --unet-weights unet.pt --ae-weights ae.pt --port 8000
+    python -m tqdne_tpu_torch.cli.serve --solver distill --workdir W --port 8000
     curl -s localhost:8000/generate -d '{"conditions": [{"hypocentral_distance": 50,
       "magnitude": 5.5, "vs30": 400, "hypocentre_depth": 20, "azimuthal_gap": 100}]}'
 
@@ -15,8 +20,7 @@ Each model without a weights file comes from the port's run in ``--workdir``;
 without either it takes seeded random weights (smoke runs).  Griffin-Lim
 runs 32 iterations unless ``--gl-iters`` says otherwise; the envelope
 recipes have no Griffin-Lim and refuse the flag.
-The consistency and distillation solvers, ``--spatial`` and ``--int8`` are
-not ported yet, and refused.
+``--spatial`` and ``--int8`` are not ported yet, and refused.
 """
 
 from __future__ import annotations
@@ -35,9 +39,7 @@ from tqdne_tpu_torch.cli.common import RECIPES
 logger = logging.getLogger("tqdne_tpu_torch.serve")
 
 # the JAX serve options that later slices of the port bring
-NOT_PORTED = {"--solver consistency": "the few-eval samplers slice",
-              "--solver distill": "the few-eval samplers slice",
-              "--spatial": "the parallelism slice", "--int8": "the int8 slice"}
+NOT_PORTED = {"--spatial": "the parallelism slice", "--int8": "the int8 slice"}
 SERVE_GL_ITERS = 32  # the JAX package's measured knee (128 for the reference's)
 
 
@@ -49,7 +51,8 @@ def parse_args(argv=None):
                              "from the port's run here, and its dataset feeds "
                              "--stats-from-dataset")
     parser.add_argument("--config", type=str, default="latent_edm",
-                        help="recipe: latent_edm, edm, 1d_edm or 1d_latent_edm")
+                        help="recipe: latent_edm, edm, 1d_edm, 1d_latent_edm, consistency, "
+                             "latent_consistency, latent_distill or ddpm")
     parser.add_argument("--unet-weights", type=str, default=None,
                         help="UNet state dict (.pt) from tqdne_tpu_torch.utils.convert "
                              "(default: seeded random weights)")
@@ -58,7 +61,12 @@ def parse_args(argv=None):
                              "(default: seeded random weights)")
     parser.add_argument("--solver", type=str, default="heun",
                         choices=["heun", "dpmpp_2m", "consistency", "distill"])
-    parser.add_argument("--num_steps", "--num-steps", type=int, default=25)
+    parser.add_argument("--num_steps", "--num-steps", type=int, default=None,
+                        help="sampling steps (default 25), or network evals of a few-eval "
+                             "recipe (default 2)")
+    parser.add_argument("--consistency-noise", type=str, default="auto",
+                        choices=list(common.CONSISTENCY_NOISE),
+                        help="few-eval sampling convention: auto (= song), song or reference")
     parser.add_argument("--batch_size", "--batch-size", type=int, default=32,
                         help="device batch size: requests are padded/coalesced to it")
     parser.add_argument("--max-delay-ms", type=float, default=15.0,
@@ -80,12 +88,11 @@ def parse_args(argv=None):
     parser.add_argument("--spatial", type=int, default=0, help="not ported yet")
     parser.add_argument("--int8", action="store_true", help="not ported yet")
     args = parser.parse_args(argv)
-    asked = {"--solver consistency": args.solver == "consistency",
-             "--solver distill": args.solver == "distill",
-             "--spatial": args.spatial > 1, "--int8": args.int8}
+    asked = {"--spatial": args.spatial > 1, "--int8": args.int8}
     for option, later_slice in NOT_PORTED.items():
         if asked[option]:
             raise SystemExit(f"{option} is not ported yet: it comes with {later_slice}")
+    args.config, args.num_steps = common.route_solver(args.config, args.solver, args.num_steps)
     return args
 
 
@@ -99,7 +106,7 @@ def build_server(args):
         args.config, workdir=args.workdir, unet_weights=args.unet_weights,
         ae_weights=args.ae_weights, dtype=common.parse_dtype(args.dtype),
         num_steps=args.num_steps, solver=args.solver, gl_iters=gl_iters, device=args.device,
-        tiny=args.tiny)
+        tiny=args.tiny, consistency_noise=args.consistency_noise)
     if args.workdir is None and (args.unet_weights is None or
                                  bundle.autoencoder is not None and args.ae_weights is None):
         logger.warning("no weights file and no workdir for a model: serving seeded random "

@@ -1,39 +1,47 @@
-"""Train on a GPU: the port of ``tqdne_tpu/cli/train.py`` for its 2D
-log-spectrogram and 1D envelope EDM recipes and the classifier, with the JAX
-run names, epochs, batches and optimizers:
+"""Train on a GPU: the port of ``tqdne_tpu/cli/train.py`` for all eleven of
+its recipes, with the JAX run names, epochs, batches and optimizers:
 
-  1d_edm          EDM-MovingAvg                      200 epochs, batch 256, Adam, EMA 0.999
-  1d_autoencoder  Autoencoder-1024x16-MovingAvg      200 epochs, batch 256, AdamW wd 1e-4
-  1d_latent_edm   Latent-EDM-MovingAvg-1024x16       300 epochs, batch 256, Adam, EMA 0.999
-  autoencoder     Autoencoder-32x32x4-LogSpectrogram 300 epochs, batch 128, AdamW wd 1e-4
-  edm             EDM-128x128-LogSpectrogram         300 epochs, batch 64, Adam, EMA 0.999
-  latent_edm      Latent-EDM-32x32x8-LogSpectrogram  200 epochs, batch 256, Adam, EMA 0.999
-  classifier      Classifier-LogSpectrogram          110 epochs, batch 64, Adam
+  1d_edm              EDM-MovingAvg                              200 epochs, batch 256, Adam
+  1d_autoencoder      Autoencoder-1024x16-MovingAvg              200 epochs, batch 256, AdamW
+  1d_latent_edm       Latent-EDM-MovingAvg-1024x16               300 epochs, batch 256, Adam
+  autoencoder         Autoencoder-32x32x4-LogSpectrogram         300 epochs, batch 128, AdamW
+  edm                 EDM-128x128-LogSpectrogram                 300 epochs, batch 64, Adam
+  latent_edm          Latent-EDM-32x32x8-LogSpectrogram          200 epochs, batch 256, Adam
+  classifier          Classifier-LogSpectrogram                  110 epochs, batch 64, Adam
+  consistency         Consistency-MovingAvg                      200 epochs, batch 256, RAdam
+  latent_consistency  Latent-Consistency-32x32x8-LogSpectrogram  200 epochs, batch 256, RAdam
+  latent_distill      Latent-Distill-32x32x8-LogSpectrogram       80 epochs, batch 256, RAdam
+  ddpm                DDPM-MovingAvg                             200 epochs, batch 256, AdamW
 
-Every optimizer runs at 1e-4 with the cosine schedule; the autoencoders and
-the classifier keep no EMA (decay 0), as the reference trains them.  A
-latent recipe trains after its autoencoder, in one workdir:
+Adam and AdamW run at 1e-4 under the cosine schedule, RAdam at a constant
+1e-4; the autoencoders' AdamW decays at 1e-4, DDPM's at 0.  The autoencoders
+and the classifier keep no EMA (decay 0), the diffusion recipes an EMA of
+0.999, and ``latent_distill`` its CD target network at ``--ema-decay`` (0.95).
+A latent recipe trains after its autoencoder, in one workdir:
 
     python -m tqdne_tpu_torch.cli.train autoencoder --workdir W [--synthetic N] [--tiny]
     python -m tqdne_tpu_torch.cli.precompute_latents --workdir W [--tiny]
     python -m tqdne_tpu_torch.cli.train latent_edm --workdir W --cached-latents [--tiny]
+    python -m tqdne_tpu_torch.cli.train latent_distill --workdir W [--teacher RUN] [--tiny]
     python -m tqdne_tpu_torch.cli.train classifier --workdir W [--tiny]
 
 and the same with ``1d_autoencoder``, ``precompute_latents --config
-1d_latent_edm`` and ``1d_latent_edm``; ``1d_edm`` and ``edm`` need no
-autoencoder.  A latent recipe reads its frozen autoencoder from the
-autoencoder's run in the workdir, or from ``--ae-weights ae.pt`` (a state
-dict, e.g. converted by ``python -m tqdne_tpu_torch.utils.convert`` from a
-trained flax artifact).  ``--device-representation`` (every recipe) computes
-the spectrogram or the envelope on the device; ``--skip-nonfinite N`` arms
-the non-finite guard; ``--cached-latents`` (latent recipes) trains from the
-precomputed moments.
+1d_latent_edm`` and ``1d_latent_edm``; ``latent_consistency`` trains like
+``latent_edm``; ``1d_edm``, ``edm``, ``consistency`` and ``ddpm`` need no
+autoencoder.  ``latent_distill`` distills the EDM run ``--teacher`` (default:
+its run name with ``Distill`` -> ``EDM``, the flagship): the student is
+rebuilt at the teacher's stored widths and starts from its EMA weights.  A
+latent recipe reads its frozen autoencoder from the autoencoder's run in the
+workdir, or from ``--ae-weights ae.pt`` (a state dict, e.g. converted by
+``python -m tqdne_tpu_torch.utils.convert`` from a trained flax artifact).
+``--device-representation`` computes the spectrogram or the envelope on the
+device (every recipe but ``ddpm``); ``--skip-nonfinite N`` arms the
+non-finite guard; ``--cached-latents`` (the latent EDM, consistency and
+distill recipes) trains from the precomputed moments.
 
 Metrics go to ``W/outputs/<run>/metrics.jsonl`` and checkpoints under
 ``W/outputs/<run>/checkpoints``.  The dataset is HDF5 and needs ``h5py``.
-Not ported yet, and refused: ``consistency``, ``latent_consistency``,
-``latent_distill`` and ``ddpm`` (the next slice, with ``radam``),
-``cond_signal`` pairs and the sampling-eval callback.
+Not ported yet: ``cond_signal`` pairs and the sampling-eval callback.
 """
 
 from __future__ import annotations
@@ -45,11 +53,15 @@ import torch
 
 from tqdne_tpu_torch import configs
 from tqdne_tpu_torch.cli import common
-from tqdne_tpu_torch.cli.common import JAX_RECIPES, RECIPES
+from tqdne_tpu_torch.cli.common import RECIPES
 from tqdne_tpu_torch.cli.precompute_latents import ae_fingerprint, latents_path, sidecar_fingerprint
 from tqdne_tpu_torch.data.dataset import ClassificationDataset
 from tqdne_tpu_torch.data.pipeline import BatchLoader
 from tqdne_tpu_torch.data.representation import Identity
+from tqdne_tpu_torch.diffusion import ddpm as ddpm_lib
+from tqdne_tpu_torch.diffusion.consistency import ConsistencyConfig, make_consistency_steps
+from tqdne_tpu_torch.diffusion.distillation import make_distillation_steps
+from tqdne_tpu_torch.models.unet import UNet
 from tqdne_tpu_torch.models.classifier import Classifier
 from tqdne_tpu_torch.nn.layers import set_compute_dtype
 from tqdne_tpu_torch.ops.representation import device_representation_fn
@@ -63,7 +75,7 @@ from tqdne_tpu_torch.train.steps import (
 from tqdne_tpu_torch.utils import init_like_flax_, resolve_device
 
 RUN_NAME = common.RUN_NAME
-LEARNING_RATE = 1e-4  # every recipe's peak, under the cosine schedule
+LEARNING_RATE = 1e-4  # every recipe's: the cosine schedule's peak, or RAdam's constant rate
 
 
 def _device_representation(config):
@@ -74,11 +86,18 @@ def _device_representation(config):
     return rep
 
 
+def _max_steps(args, epochs: int, train_loader) -> int:
+    return args.max_steps or epochs * len(train_loader)
+
+
 def _fit(recipe, args, config, device, model, train_loader, val_loader, steps, hparams,
          epochs, metric_postprocess=None) -> TrainState:
-    """The optimizer, schedule, guard and ``Trainer`` around ``model``."""
-    max_steps = args.max_steps or epochs * len(train_loader)
-    lr_schedule = cosine_annealing(LEARNING_RATE, max_steps)
+    """The optimizer, schedule, guard and ``Trainer`` around ``model``: the
+    cosine schedule, except for RAdam, which runs at a constant rate as the
+    JAX CLI runs it."""
+    lr_schedule = None
+    if recipe.optimizer != "radam":
+        lr_schedule = cosine_annealing(LEARNING_RATE, _max_steps(args, epochs, train_loader))
     optimizer = make_optimizer(recipe.optimizer, model, LEARNING_RATE, recipe.weight_decay)
     state = TrainState(model, optimizer, lr_schedule, skip_nonfinite=args.skip_nonfinite)
     trainer = Trainer(*steps, config.outputdir / recipe.name, device=device, max_epochs=epochs,
@@ -94,11 +113,13 @@ def _placed(module, device):
 
 
 def run(args) -> TrainState:
-    if args.recipe not in RECIPES:
-        raise SystemExit(f"recipe {args.recipe!r} is not ported yet: it comes with the next "
-                         f"slice, with radam (have: {', '.join(RECIPES)})")
     recipe = RECIPES[args.recipe]
-    if args.cached_latents and not recipe.latent:
+    # the JAX CLI's refusals of a flag that would do nothing
+    if args.device_representation and recipe.kind == "ddpm":
+        raise SystemExit("--device-representation is supported for EDM, consistency, distill, "
+                         "autoencoder and classifier recipes")
+    if args.cached_latents and not (recipe.latent and
+                                    recipe.kind in ("edm", "consistency", "distill")):
         raise SystemExit("--cached-latents needs a latent EDM, consistency or distill recipe")
     logging.basicConfig(level=logging.INFO)
     device = resolve_device(args.device)
@@ -122,11 +143,12 @@ def run(args) -> TrainState:
                                        device_representation=device_rep)
         return _fit(recipe, args, config, device, _placed(ae, device), train_loader, val_loader,
                     steps, common.autoencoder_hparams(config, enc_cfg, dec_cfg), epochs)
-    return _run_edm(recipe, args, config, device, dtype, batch, epochs, device_rep)
+    return _run_diffusion(recipe, args, config, device, dtype, batch, epochs, device_rep)
 
 
-def _run_edm(recipe, args, config, device, dtype, batch, epochs, device_rep):
-    """An EDM recipe: over the signal, or over a frozen autoencoder's latent."""
+def _run_diffusion(recipe, args, config, device, dtype, batch, epochs, device_rep):
+    """An EDM, consistency, distill or DDPM recipe: over the signal, or over a
+    frozen autoencoder's latent."""
     ae, lat_path = None, None
     model_shape = common.signal_shape(config)
     if recipe.latent:
@@ -155,14 +177,33 @@ def _run_edm(recipe, args, config, device, dtype, batch, epochs, device_rep):
     train_loader, val_loader, _ = common.make_loaders(
         config, batch, cond=True, device=device, keys=keys,
         host_representation=device_rep is None and lat_path is None, latents_path=lat_path)
+    hparams = {"kind": recipe.kind, "dims": recipe.dims, "latent": recipe.latent,
+               "ae_name": recipe.ae_name, "dtype": args.dtype}
+    kw = dict(autoencoder=ae, latent_moments=lat_path is not None,
+              device_representation=device_rep)
     overrides = {"model_channels": common.TINY_CHANNELS} if args.tiny else {}
     unet, ucfg = common.build_unet(config, model_shape[-1], model_shape[-1], dtype,
                                    dims=recipe.dims, **overrides)
     init_like_flax_(unet, args.seed)
-    steps = make_edm_steps(autoencoder=ae, ema_decay=recipe.ema_decay,
-                           latent_moments=lat_path is not None, device_representation=device_rep)
-    hparams = {"kind": "edm", "dims": recipe.dims, "latent": recipe.latent,
-               "ae_name": recipe.ae_name, "unet": ucfg, "dtype": args.dtype}
+    if recipe.kind == "distill":
+        # the EDM teacher's run (default: the run name with Distill -> EDM) at its stored
+        # widths; teacher and student are two modules, the student starting from its weights
+        name = args.teacher or recipe.name.replace("Distill", "EDM")
+        weights, stored = common.run_checkpoint(config, name)
+        ucfg = common.tuplify(stored["unet"])
+        teacher, unet = (set_compute_dtype(UNet(**ucfg), dtype) for _ in range(2))
+        for module in (teacher, unet):
+            module.load_state_dict(weights)
+        steps = make_distillation_steps(_placed(teacher, device), ema_decay=args.ema_decay, **kw)
+        hparams["teacher"] = name
+    elif recipe.kind == "consistency":
+        steps = make_consistency_steps(ConsistencyConfig(), _max_steps(args, epochs, train_loader),
+                                       ema_decay=recipe.ema_decay, **kw)
+    elif recipe.kind == "ddpm":
+        steps = ddpm_lib.make_ddpm_steps(ddpm_lib.DDPMConfig(), ema_decay=recipe.ema_decay)
+    else:
+        steps = make_edm_steps(ema_decay=recipe.ema_decay, **kw)
+    hparams["unet"] = ucfg
     return _fit(recipe, args, config, device, _placed(unet, device), train_loader, val_loader,
                 steps, hparams, epochs)
 
@@ -197,8 +238,15 @@ def main(argv=None):
     parser = argparse.ArgumentParser("tqdne_tpu_torch.cli.train",
                                      description=__doc__.split("\n\n")[0])
     sub = parser.add_subparsers(dest="recipe", required=True)
-    for key in JAX_RECIPES:
-        common.add_common_args(sub.add_parser(key))
+    for key, recipe in RECIPES.items():
+        p = common.add_common_args(sub.add_parser(key))
+        if recipe.kind == "distill":
+            p.add_argument("--teacher", type=str, default=None,
+                           help="the teacher's EDM run under outputs/ (default: the recipe's "
+                                "run name with Distill -> EDM)")
+            p.add_argument("--ema-decay", type=float, default=recipe.ema_decay,
+                           help="CD target-network decay mu; the EMA is also the deployed "
+                                "student")
     return run(parser.parse_args(argv))
 
 

@@ -40,6 +40,27 @@ def _no_cond_signal(batch: dict):
         raise ValueError("cond_signal pairs are not ported yet")
 
 
+def training_sample(batch: dict, *, autoencoder=None, latent_moments: bool = False,
+                    device_representation=None, ae_eps=None,
+                    generator: torch.Generator | None = None) -> torch.Tensor:
+    """What a diffusion step trains on (the JAX ``_sample_of``): the cached
+    moments' sample mean + eps exp(log_std), or the signal (computed on the
+    device with a ``device_representation``), encoded by the frozen
+    ``autoencoder`` without gradients when there is one.  ``ae_eps`` is
+    drawn from ``generator`` when None."""
+    if latent_moments:
+        mean, log_std = batch["latent_mean"], batch["latent_log_std"]
+        if ae_eps is None:
+            ae_eps = torch.randn(mean.shape, generator=generator, device=mean.device,
+                                 dtype=mean.dtype)
+        return mean + ae_eps * torch.exp(log_std)
+    sample = _signal(batch, device_representation)
+    if autoencoder is not None:
+        with torch.no_grad():
+            sample = autoencoder.encode(sample, eps=ae_eps, generator=generator)
+    return sample
+
+
 def edm_step_loss(unet, batch: dict, edm_cfg: edm_lib.EDMConfig = edm_lib.EDMConfig(), *,
                   autoencoder=None, latent_moments: bool = False, device_representation=None,
                   draws: dict | None = None, generator: torch.Generator | None = None):
@@ -48,18 +69,9 @@ def edm_step_loss(unet, batch: dict, edm_cfg: edm_lib.EDMConfig = edm_lib.EDMCon
     ``ae_eps``, ``sigma_eps`` and ``noise``."""
     draws = draws or {}
     _no_cond_signal(batch)
-    if latent_moments:
-        mean, log_std = batch["latent_mean"], batch["latent_log_std"]
-        eps = draws.get("ae_eps")
-        if eps is None:
-            eps = torch.randn(mean.shape, generator=generator, device=mean.device,
-                              dtype=mean.dtype)
-        sample = mean + eps * torch.exp(log_std)
-    else:
-        sample = _signal(batch, device_representation)
-        if autoencoder is not None:
-            with torch.no_grad():
-                sample = autoencoder.encode(sample, eps=draws.get("ae_eps"), generator=generator)
+    sample = training_sample(batch, autoencoder=autoencoder, latent_moments=latent_moments,
+                             device_representation=device_representation,
+                             ae_eps=draws.get("ae_eps"), generator=generator)
     return edm_lib.edm_loss(edm_cfg, unet, sample, cond=batch.get("cond"),
                             sigma_eps=draws.get("sigma_eps"), noise=draws.get("noise"),
                             generator=generator)

@@ -12,8 +12,8 @@ PyTorch key one to one.  This module owns every layout change:
   <fourier>/W                            <fourier>.W
 
 ``load_flax_train_state`` carries a whole JAX train state (parameters, EMA,
-the optax Adam or AdamW moments and the non-finite guard's count) over into
-the port's ``TrainState``.
+the optax Adam, AdamW or RAdam moments and the non-finite guard's count)
+over into the port's ``TrainState``.
 
 It reads committed ``weights/*.msgpack`` artifacts (flax's msgpack layout,
 arrays as extension type 1) with the ``msgpack`` package, without flax:
@@ -89,9 +89,10 @@ def flax_to_state_dict(tree: dict) -> dict[str, torch.Tensor]:
 
 
 def optax_state_fields(opt_state) -> tuple[dict, dict, int, int]:
-    """(mu, nu, count, notfinite_count) of an optax state: ``adam``'s or
-    ``adamw``'s chain (``scale_by_adam``'s moments and update count), bare or
-    inside ``apply_if_finite`` (its count of consecutive non-finite steps;
+    """(mu, nu, count, notfinite_count) of an optax state: ``adam``'s,
+    ``adamw``'s or ``radam``'s chain (the ``ScaleByAdamState`` of
+    ``scale_by_adam`` or ``scale_by_radam``: moments and update count), bare
+    or inside ``apply_if_finite`` (its count of consecutive non-finite steps;
     0 without the guard).  Read by field name, without optax."""
     notfinite = int(getattr(opt_state, "notfinite_count", 0))
     todo = [getattr(opt_state, "inner_state", opt_state)]
@@ -106,7 +107,7 @@ def optax_state_fields(opt_state) -> tuple[dict, dict, int, int]:
 
 def load_flax_train_state(state, params: dict, ema_params: dict, mu: dict, nu: dict,
                           count: int, notfinite_count: int = 0, step: int | None = None) -> None:
-    """Carry a JAX ``TrainState`` with an optax Adam or AdamW state over into
+    """Carry a JAX ``TrainState`` with an optax Adam, AdamW or RAdam state over into
     the port's ``train.state.TrainState`` in place: ``params`` and
     ``ema_params`` into the live and EMA modules, the moments ``mu``/``nu``
     (trees shaped like the params, numpy arrays) and the update ``count``
