@@ -79,8 +79,16 @@ Phases (any failure exits non-zero and prints no result line):
    (RAdam at a constant rate; ``latent_distill`` with a seeded-random teacher,
    4 UNet forwards a step; the last 10 give its samples/s), and RAdam under
    the non-finite guard (a NaN batch
-   leaves the parameters, moments and count where they were); the counts must
-   be exact;
+   leaves the parameters, moments and count where they were); then (4l) the
+   sampling-eval callback: a ``Trainer.fit`` of the flagship at full width with
+   the callback firing once on two validation batches of 256 (Heun-25, decode,
+   Griffin-Lim 128, the ASD of each channel; no figures: matplotlib is absent
+   on the GPU machine), its pass timed by part and batch 0 bit for bit a
+   direct sample and inversion at its seed; a sample with a NaN row zeroed and
+   warned; the ``consistency`` callback and DDPM's at 20 timesteps; then the
+   seismology of the callback's 512 waveforms on the card against the host
+   (peaks, ``residual_report``, RotD50 SA against the plain loop), timed; the
+   counts must be exact;
 5. timings on the card: each kernel at the main paths' shapes beside its
    bound, its plain version and a PyTorch yardstick call (and, for the
    record, the bf16 flash forward at (128, 16, 4, 128)), GroupNorm per UNet
@@ -100,7 +108,7 @@ Phases (any failure exits non-zero and prints no result line):
    few-eval and DDPM recipes: a profiled step, each few-eval sampler's
    profiled device time, DDPM's device ms a step, and each kernel per call
    at the new shapes (a shape and batch is timed once a run, and its row
-   reused).
+   reused), and the callback's UNet eval and decode at batch 256.
 
 Prints the card's name and power limit and a ``{"kernels": [...]}`` line,
 then, last, ``{"ok": true, "device": {...}}``.
@@ -111,6 +119,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import functools
 import json
 import math
 import shutil
@@ -975,12 +984,12 @@ def want_launches(gn: int = 0, fa: int = 0, bwd: int = 0) -> dict:
 
 def counted_fit(label: str, steps, state, loader, *, max_steps: int, want: dict,
                 want_gn_bwd: int, val_loader=None, eval_every: int = 10**6,
-                metric_postprocess=None, lr_schedule=None):
-    """``Trainer.fit`` of ``state`` up to step ``max_steps``, with every launch
-    counter and the GroupNorm plain-backward count set to 0 just before and
-    read just after: they must equal ``want`` and ``want_gn_bwd``, every
-    logged training loss must be finite and the checkpoint written.  Returns
-    (counts, metric rows)."""
+                metric_postprocess=None, lr_schedule=None, callbacks=()):
+    """``Trainer.fit`` of ``state`` up to step ``max_steps`` (with
+    ``callbacks``), with every launch counter and the GroupNorm plain-backward
+    count set to 0 just before and read just after: they must equal ``want``
+    and ``want_gn_bwd``, every logged training loss must be finite and the
+    checkpoint written.  Returns (counts, metric rows)."""
     from tqdne_tpu_torch.ops.group_norm import group_norm_silu
     from tqdne_tpu_torch.train.loop import Trainer
 
@@ -989,7 +998,7 @@ def counted_fit(label: str, steps, state, loader, *, max_steps: int, want: dict,
     trainer = Trainer(*steps, workdir, device="cuda", max_epochs=10**4, max_steps=max_steps,
                       log_every=10, seed=SEED, checkpoint_every_epochs=10**6,
                       eval_every_epochs=eval_every, lr_schedule=lr_schedule,
-                      metric_postprocess=metric_postprocess)
+                      metric_postprocess=metric_postprocess, callbacks=callbacks)
     kernels = launch_counters()
     torch.cuda.synchronize()
     for fn in kernels:
@@ -1296,6 +1305,357 @@ def new_loss(key: str, model, frozen, teacher, batch, draws):
         18, cond=batch["cond"], i=draws["i"], eps=draws["eps"])
 
 
+# ---- the sampling-eval callback and the seismological evaluation ---------------------------
+CB_BATCH = 256  # the callback's validation batch: latent_edm's recipe batch over 512 waveforms
+CB_BATCHES = 2  # the validation batches it samples, as the train CLI holds them
+CB_STEPS = 4  # Trainer.fit steps around it: one epoch of the 512 waveforms at batch 128
+CB_SEED = 123  # SamplingEvalCallback's default seed
+HEUN_EVALS = 2 * 25 - 1  # the EDM kinds' callback sampler: Heun at 25 steps
+FEW_EVALS = 2  # the consistency kinds': one eval from sigma_max, one refinement at sigma 1
+DDPM_CB_STEPS = 20  # DDPM timesteps of its timed callback pass (the recipe's are 1000)
+SA_PERIODS = (0.1, 0.3, 1.0, 2.0)
+SA_LOOP_ROWS = 32  # rows whose RotD50 SA the plain loop recomputes on the host
+DEVICE = "cuda"  # the card; "cpu" runs phase 4l's functions on the plain versions
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    if not hasattr(card_line, "text"):
+        card_line.text = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60).stdout.strip()
+    return card_line.text
+
+
+def host_batches(arrays, config) -> list:
+    """The first CB_BATCHES validation batches as the train CLI holds them for
+    the callback: the conditioning and the channels-last waveforms, on the host."""
+    from tqdne_tpu_torch.data.dataset import ArrayDataset
+    from tqdne_tpu_torch.data.pipeline import BatchLoader
+
+    loader = BatchLoader(ArrayDataset(arrays, config.make_representation(), cut=config.t,
+                                      cond=True, split="full"),
+                         CB_BATCH, shuffle=False, device="cpu", keys=("cond", "waveform"),
+                         prefetch=0)
+    return [b for _, b in zip(range(CB_BATCHES), loader)]
+
+
+class Split:
+    """Seconds of callback passes by part; each timed call synchronises the
+    card before and after, so a part's device work is its own."""
+
+    def __init__(self):
+        self.seconds = collections.defaultdict(float)
+
+    def timed(self, part: str, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.seconds[part] += time.perf_counter() - t0
+            return out
+        return run
+
+    def representation(self, rep):
+        """``rep`` with its inversion timed as "inversion" (still its own class)."""
+        timed = type(f"Timed{type(rep).__name__}", (type(rep),), {
+            "invert_representation": self.timed("inversion", type(rep).invert_representation)})
+        out = copy.copy(rep)
+        out.__class__ = timed
+        return out
+
+    def metrics(self, metrics):
+        class Timed:
+            def __init__(self, metric, run):
+                self.name, self.run = metric.name, run
+
+            def __call__(self, pred, target):
+                return self.run(pred, target)
+
+        return [Timed(m, self.timed("metrics", m)) for m in metrics]
+
+
+def counted_callback(cb, sink: list):
+    """``cb`` wrapped to record each call's own launches and wall seconds."""
+    def run(trainer, state, epoch, gstep):
+        kernels = launch_counters()
+        torch.cuda.synchronize()
+        before = [fn.launches for fn in kernels]
+        t0 = time.perf_counter()
+        cb(trainer, state, epoch, gstep)
+        torch.cuda.synchronize()
+        sink.append(({fn.__name__: fn.launches - b for fn, b in zip(kernels, before)},
+                     time.perf_counter() - t0))
+    return run
+
+
+def asd_metrics(config) -> list:
+    """The train CLI's callback metrics: the isotropic ASD of each channel."""
+    from tqdne_tpu_torch.eval.metrics import AmplitudeSpectralDensity
+
+    return [AmplitudeSpectralDensity(fs=config.fs, channel=c, isotropic=True) for c in range(3)]
+
+
+def direct_callback(label: str, cb, state) -> tuple[dict, float, list]:
+    """One counted call of ``cb`` at epoch 0 outside a fit, with a trainer of
+    its own workdir; returns (launches, wall seconds, metric rows)."""
+    from types import SimpleNamespace
+
+    from tqdne_tpu_torch.train.loop import MetricWriter
+
+    workdir = Path(__file__).resolve().parent / "build" / f"chip_smoke_{label}"
+    shutil.rmtree(workdir, ignore_errors=True)
+    writer = MetricWriter(workdir)
+    windows = []
+    try:
+        counted_callback(cb, windows)(SimpleNamespace(workdir=workdir, writer=writer,
+                                                      device=torch.device(DEVICE)), state, 0, 0)
+    finally:
+        writer.close()
+    rows = [json.loads(line) for line in (workdir / "metrics.jsonl").open()]
+    shutil.rmtree(workdir, ignore_errors=True)
+    return windows[0][0], windows[0][1], rows
+
+
+def finite_evals(label: str, rows: list) -> dict:
+    evals = [{k: v for k, v in r.items() if k.startswith("eval/")} for r in rows]
+    evals = [e for e in evals if e]
+    if len(evals) != 1 or not all(math.isfinite(v) for v in evals[0].values()):
+        fail(f"{label}: eval scalars {evals} (want one finite row)")
+    return evals[0]
+
+
+def report_diff(got, want) -> tuple[float, bool]:
+    """(largest relative difference, NaN positions equal) over every number of
+    two residual reports."""
+    import numpy as np
+
+    worst, same_nan = 0.0, True
+    for key, value in want.items():
+        if isinstance(value, dict):
+            w, n = report_diff(got[key], value)
+            worst, same_nan = max(worst, w), same_nan and n
+            continue
+        a, b = np.asarray(got[key], np.float64), np.asarray(value, np.float64)
+        same_nan = same_nan and a.shape == b.shape and bool((np.isnan(a) == np.isnan(b)).all())
+        ok = ~np.isnan(b)
+        if ok.any():
+            worst = max(worst, float((np.abs(a[ok] - b[ok]) / np.maximum(np.abs(b[ok]), 1e-300))
+                                     .max()))
+    return worst, same_nan
+
+
+def seismology_on_card(pred, target, dist, mag, vs30):
+    """The seismological evaluation of the callback's waveforms against their
+    targets, on the card and on the host: the PGV and PGA peaks to rtol 1e-10,
+    ``residual_report`` (every binned list) to 1e-9 with NaN positions equal,
+    and the generated waveforms' RotD50 SA at SA_PERIODS over 18 angles to
+    rtol 1e-9 against the host's FFT formulation (every row) and its plain
+    loop (SA_LOOP_ROWS rows); each timed."""
+    import numpy as np
+
+    from tqdne_tpu_torch.eval import seismo
+    from tqdne_tpu_torch.eval.residuals import residual_report
+
+    dev = torch.device(DEVICE)
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    t_card, p_card = (torch.as_tensor(a, dtype=torch.float64, device=dev) for a in (target, pred))
+    peak_err = 0.0
+    for pgv in (True, False):
+        got = seismo.evaluate_pgx(t_card, p_card, pgv=pgv)
+        want = seismo.evaluate_pgx(target, pred, pgv=pgv)
+        for key in want:
+            g, w = got[key].cpu().numpy(), want[key].numpy()
+            if not (np.isnan(g) == np.isnan(w)).all():
+                fail(f"seismology: {key} NaN positions differ between the card and the host")
+            peak_err = max(peak_err, float(np.nanmax(np.abs(g - w) / np.abs(w))))
+    kw = dict(magnitude=mag, vs30=vs30)
+    residual_report(target[:8], pred[:8], dist[:8], device=dev)  # warm-up: cuFFT plans
+    rep_card, s_card = wall(lambda: residual_report(target, pred, dist, device=dev, **kw))
+    rep_host, s_host = wall(lambda: residual_report(target, pred, dist, device="cpu", **kw))
+    rep_err, rep_nan = report_diff(rep_card, rep_host)
+    c1, c2 = (torch.as_tensor(pred[:, i], dtype=torch.float64) for i in (0, 1))
+    seismo.sa_rotd(c1[:8].to(dev), c2[:8].to(dev), 0.01, SA_PERIODS)  # warm-up
+    sa_card, sa_s_card = wall(lambda: seismo.sa_rotd(c1.to(dev), c2.to(dev), 0.01, SA_PERIODS))
+    sa_host, sa_s_host = wall(lambda: seismo.sa_rotd(c1, c2, 0.01, SA_PERIODS))
+    n = SA_LOOP_ROWS
+    sa_loop, sa_s_loop = wall(lambda: seismo.sa_rotd(c1[:n], c2[:n], 0.01, SA_PERIODS,
+                                                      spectrum=seismo.response_spectrum_loop))
+    sa_card = sa_card.cpu()
+    loop_err = float(((sa_card[:n] - sa_loop).abs() / sa_loop.abs()).max())
+    host_err = float(((sa_card - sa_host).abs() / sa_host.abs()).max())
+    out = dict(rows=len(pred), peaks_rel_err=peak_err, report_rel_err=rep_err,
+               report_nan_equal=rep_nan, residual_report_s={"card": s_card, "host": s_host},
+               sa_rotd_rel_err={"vs_plain_loop": loop_err, "vs_host_fft": host_err},
+               sa_rotd_s={"card": sa_s_card, "host_fft": sa_s_host,
+                          f"host_plain_loop_{n}_rows": sa_s_loop},
+               card=card_line())
+    log(f"[seismo] the callback's {len(pred)} waveforms against their targets: "
+        f"{json.dumps(out)}")
+    if not (peak_err <= 1e-10 and rep_err <= 1e-9 and rep_nan and loop_err <= 1e-9
+            and host_err <= 1e-9):
+        fail("seismology on the card disagrees with the host")
+    return out
+
+
+def sampling_eval_path(*, state, steps, loader, ae, model_shape, config, schedule, arrays,
+                       flagship_want, per_eval, per_decode, few_runs) -> dict:
+    """The sampling-eval callback on the card.  A counted ``Trainer.fit`` of
+    the flagship at full width (CB_STEPS steps, the callback firing once on
+    CB_BATCHES validation batches of CB_BATCH): exact launches for the fit and
+    for the callback's own window, its wall split into sampling, inversion and
+    metrics, batch 0 bit for bit a direct ``sample_edm`` and inversion at the
+    callback's seed, finite ``eval/`` scalars; then a sample with a NaN row
+    (zeroed and warned), the ``consistency`` callback (1D, its few evals) and
+    DDPM's at DDPM_CB_STEPS timesteps (timed, for an estimate of its 1000),
+    and the seismology of the flagship's waveforms.  ``per_eval`` /
+    ``per_decode``: (GroupNorm, flash) launches of one UNet eval, GroupNorm
+    launches of one decode;
+    ``few_runs``: key -> (TrainState, model shape, per-eval launches).
+    Returns the counts by run."""
+    import importlib.util
+    import logging
+
+    import numpy as np
+
+    from tqdne_tpu_torch.cli.common import RECIPES, signal_shape
+    from tqdne_tpu_torch.cli.train import eval_sampler
+    from tqdne_tpu_torch.data.representation import invert
+    from tqdne_tpu_torch.diffusion import ddpm as ddpm_lib
+    from tqdne_tpu_torch.eval.metrics import MeanSquaredError
+    from tqdne_tpu_torch.train.callbacks import SamplingEvalCallback
+    from tqdne_tpu_torch.train.steps import sample_edm
+    from tqdne_tpu_torch.utils import fold_seed
+
+    dev = torch.device(DEVICE)
+    log(f"[callback] plots=(): the figures need matplotlib, which the GPU machine's image does "
+        f"not carry (installed here: {importlib.util.find_spec('matplotlib') is not None}); "
+        f"the CPU tests hold every figure against the JAX package's. Card: {card_line()}")
+
+    class Keep(MeanSquaredError):
+        """MSE over all channels that keeps the callback's waveforms."""
+
+        def compute(self, pred, target):
+            self.pred, self.target = pred, target
+            return super().compute(pred, target)
+
+    counts = {}
+    val = host_batches(arrays, config)
+    split, keep = Split(), Keep(channel=None)
+    stats = np.array([[arrays[k].mean(), arrays[k].std()] for k in config.features_keys])
+    cb = SamplingEvalCallback(
+        split.timed("sampling", eval_sampler("edm", ae, model_shape, dev)), val,
+        split.representation(config.make_representation()),
+        metrics=split.metrics(asd_metrics(config)) + [keep], every_n_epochs=1, seed=CB_SEED,
+        feature_stats=stats, features_keys=config.features_keys)
+    per_pass = want_launches(CB_BATCHES * (HEUN_EVALS * per_eval[0] + per_decode),
+                             CB_BATCHES * HEUN_EVALS * per_eval[1])
+    fit_want = {k: v + per_pass[k] for k, v in flagship_want(CB_STEPS).items()}
+    windows = []
+    counts["callback flagship fit"], rows = counted_fit(
+        "callback-flagship", steps, state, loader, max_steps=state.step + CB_STEPS,
+        want=fit_want, want_gn_bwd=per_eval[0] * CB_STEPS, lr_schedule=schedule,
+        callbacks=(counted_callback(cb, windows),))
+    scalars = finite_evals("the flagship callback", rows)
+    if len(windows) != 1 or windows[0][0] != per_pass:
+        fail(f"the flagship callback's window: {windows} (want one pass of {per_pass})")
+    counts["callback flagship pass"] = windows[0][0]
+    wall_s = windows[0][1]
+    log(f"[callback] latent_edm at full width (bf16 compute over f32 EMA weights), "
+        f"{CB_BATCHES} validation batches of {CB_BATCH}, Heun-25 ({HEUN_EVALS} evals) + decode + "
+        f"Griffin-Lim {config.griffin_lim_iters} + 3 ASD metrics: one pass {wall_s:.4f} s of "
+        f"wall, by part (s) {json.dumps(dict(split.seconds))}, the rest (host copies, NaN "
+        f"check, the kept MSE) {wall_s - sum(split.seconds.values()):.4f}; launches of the pass "
+        f"{windows[0][0]}, of the fit ({CB_STEPS} steps + the pass) "
+        f"{counts['callback flagship fit']}; eval scalars {json.dumps(scalars)}; card "
+        f"{card_line()}")
+    # batch 0, bit for bit: a direct sample and inversion at the callback's seed
+    gen = torch.Generator(device=dev).manual_seed(fold_seed(CB_SEED, 0))
+    cond0 = val[0]["cond"].to(dev)
+    signal = sample_edm(state.ema, (len(cond0), *model_shape), cond0, autoencoder=ae,
+                        generator=gen, device=dev)
+    if not bool(torch.isfinite(signal).all()):
+        signal = torch.nan_to_num(signal)
+    direct = invert(config.make_representation(), signal.movedim(-1, 1),
+                    generator=gen).cpu().numpy()
+    bit_equal = bool(np.array_equal(direct, keep.pred[:len(cond0)]))
+    log(f"[callback] batch 0 {direct.shape} bit-identical to a direct sample_edm + inversion at "
+        f"fold_seed({CB_SEED}, 0): {bit_equal}; peak {float(np.abs(direct).max()):.4e}")
+    if not bit_equal or keep.pred.shape != (CB_BATCHES * CB_BATCH, 3, config.t):
+        fail("the callback's waveforms differ from a direct sample at its seed")
+
+    # a sample function that returns one NaN row: zeroed and warned, not raised
+    sig_shape = signal_shape(config)
+
+    def nan_row(model, generator, batch):
+        out = torch.rand(len(batch["cond"]), *sig_shape, generator=generator, device=dev) * 2 - 1
+        out[0] = float("nan")
+        return out
+
+    warnings = []
+    handler = logging.Handler()
+    handler.emit = lambda record: warnings.append(record.getMessage())
+    logger = logging.getLogger("tqdne_tpu_torch")
+    logger.addHandler(handler)
+    try:
+        _, _, rows = direct_callback("callback-guard", SamplingEvalCallback(
+            nan_row, val[:1], config.make_representation(), metrics=asd_metrics(config),
+            every_n_epochs=1), state)
+    finally:
+        logger.removeHandler(handler)
+    guard = finite_evals("the NaN-row callback", rows)
+    warned = any("NaN guard" in w for w in warnings)
+    log(f"[callback] a sample with a NaN row: warned {warned}, eval scalars {json.dumps(guard)}")
+    if not warned:
+        fail("the callback did not warn about a non-finite sample")
+
+    # the consistency callback (1D, the JAX default's evals) and DDPM's, each counted
+    few_out = {}
+    saved = ddpm_lib.DDPMConfig
+    ddpm_lib.DDPMConfig = functools.partial(saved, num_train_timesteps=DDPM_CB_STEPS)
+    try:
+        for key, evals in (("consistency", FEW_EVALS), ("ddpm", DDPM_CB_STEPS)):
+            st, mshape, (gn, fa) = few_runs[key]
+            cfg = RECIPES[key].config_cls()
+            few_split = Split()
+            few_cb = SamplingEvalCallback(
+                few_split.timed("sampling", eval_sampler(RECIPES[key].kind, None, mshape, dev)),
+                host_batches(arrays, cfg), few_split.representation(cfg.make_representation()),
+                metrics=few_split.metrics(asd_metrics(cfg)), every_n_epochs=1, seed=CB_SEED)
+            want = want_launches(CB_BATCHES * evals * gn, CB_BATCHES * evals * fa)
+            got, sec, rows = direct_callback(f"callback-{key}", few_cb, st)
+            counts[f"callback {key} pass"] = got
+            few_out[key] = dict(evals=evals, wall_s=sec, **few_split.seconds,
+                                scalars=finite_evals(f"the {key} callback", rows))
+            if got != want:
+                fail(f"the {key} callback's launches {got} != {want}")
+    finally:
+        ddpm_lib.DDPMConfig = saved
+    d = few_out["ddpm"]
+    d["estimate_1000_steps_s"] = (d["sampling"] * 1000 / DDPM_CB_STEPS + d["inversion"]
+                                  + d["metrics"])
+    few_counts = {k: counts[f"callback {k} pass"] for k in few_out}
+    log(f"[callback] consistency ({FEW_EVALS} evals) and ddpm ({DDPM_CB_STEPS} of its 1000 "
+        f"timesteps), 1D UNet at full width, {CB_BATCHES} batches of {CB_BATCH}: "
+        f"{json.dumps(few_out)}; launches {json.dumps(few_counts)}; the ddpm estimate scales "
+        f"the sampling seconds to 1000 timesteps; card {card_line()}")
+
+    # the seismology of the flagship callback's waveforms
+    targets = np.concatenate([np.moveaxis(b["waveform"].numpy(), -1, 1) for b in val])
+    feats = {k: arrays[k][:len(targets)] for k in ("hypocentral_distance", "magnitude", "vs30")}
+    seismology_on_card(keep.pred.astype(np.float64), targets.astype(np.float64),
+                       feats["hypocentral_distance"], feats["magnitude"], feats["vs30"])
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1421,6 +1781,12 @@ def main():
                                     "cond": torch.zeros(2, 5, device=dev)}, autoencoder=ae_t)
     for h in hooks:
         h.remove()
+    # the sampling-eval callback's: the EMA flagship UNet (f32 weights, bf16 compute) and the
+    # frozen autoencoder's decoder, at the validation batch
+    x2 = torch.randn(2, *model_shape, generator=gen, device=dev)
+    cb_gn, cb_fa = record_calls([state.ema], lambda: state.ema(x2, torch.zeros(2, device=dev),
+                                                              cond[:2]))
+    cb_dec = record_calls([ae_t.decoder], lambda: ae_t.decode(x2.float()))[0]
     # the evaluation path's: the full-width bf16 classifier (seeded random weights)
     classifier = load_classifier(dtype=torch.bfloat16, device=dev, init_seed=CLASSIFIER_SEED)
     clf_gn, clf_fa = [], []
@@ -1443,6 +1809,13 @@ def main():
     if (len(unet_gn), len(unet_fa), len(train_gn)) != (51, 6, 51):
         fail(f"expected 45 + 6 GroupNorm and 6 attention calls per UNet eval, got "
              f"{len(unet_gn)} and {len(unet_fa)} ({len(train_gn)} in training)")
+    log(f"[shapes] sampling-eval callback at batch {CB_BATCH}: EMA UNet eval {len(cb_gn)} "
+        f"GroupNorm calls, {len(cb_fa)} attention calls {sorted(set(cb_fa), key=str)}; decode "
+        f"{len(cb_dec)} GroupNorm calls (S, C): "
+        f"{sorted(collections.Counter((s, c) for *_, s, c, _, _ in cb_dec).items())}, dtype "
+        f"pairs {sorted({(str(x)[6:], str(p)[6:]) for x, p, *_ in cb_gn + cb_dec})}")
+    if (len(cb_gn), len(cb_fa), len(cb_dec)) != (len(unet_gn), len(unet_fa), len(dec_gn)):
+        fail("the callback's UNet eval and decode differ from the sampling path's in count")
     if (len(clf_gn), len(clf_fa)) != (18, 2):
         fail(f"expected 18 GroupNorm and 2 attention calls per classifier forward, got "
              f"{len(clf_gn)} and {len(clf_fa)}")
@@ -1583,6 +1956,8 @@ def main():
                      (BATCH,))
     bad += gn_checks([c for key in NEW_RECIPES for c in new_calls[key][0] + new_calls[key][2]],
                      (NEW_BATCH,))
+    # the sampling-eval callback's: the EMA UNet and the decoder at the validation batch
+    bad += gn_checks(cb_gn + cb_dec, (CB_BATCH,))
     path_fa = [(CLF_TRAIN_BATCH, length, h, d) for _, length, h, d, _ in clf_train_fa]
     path_fa += [(BATCH, length, h, d) for key in SAMPLERS
                 for _, length, h, d, _ in sampler_calls[key][1]]
@@ -1592,6 +1967,7 @@ def main():
                 for _, length, h, d, _ in few_calls[key][1]]
     path_fa += [(NEW_BATCH, length, h, d) for key in NEW_RECIPES
                 for _, length, h, d, _ in new_calls[key][1]]
+    path_fa += [(CB_BATCH, length, h, d) for _, length, h, d, _ in cb_fa]
     bad += check_flash_kernels(gen, dev, errs, path_fa)
     torch.cuda.synchronize()
     if bad:
@@ -2071,6 +2447,21 @@ def main():
     for run_counts in few_counts.values():
         launches = {k: launches[k] + v for k, v in run_counts.items()}
 
+    # ---- 4l. the sampling-eval callback and the seismological evaluation ------------
+    phase("4l. the sampling-eval callback and the seismological evaluation")
+    cb_counts = sampling_eval_path(
+        state=state, steps=(train_step, eval_step), loader=loader, ae=ae_t,
+        model_shape=model_shape, config=config, schedule=schedule, arrays=arrays,
+        flagship_want=flagship_want, per_eval=(len(unet_gn), len(unet_fa)),
+        per_decode=len(dec_gn),
+        few_runs={key: (new_runs[key][0], new_models[key][5],
+                        (len(few_calls[key][0]), len(few_calls[key][1])))
+                  for key in ("consistency", "ddpm")})
+    for run, run_counts in cb_counts.items():
+        if run != "callback flagship pass":  # within the fit's count
+            launches = {k: launches[k] + v for k, v in run_counts.items()}
+    torch.cuda.empty_cache()
+
     # ---- 5. timings --------------------------------------------------------------
     phase("5. timings")
     for name, bundle in bundles.items():
@@ -2433,6 +2824,22 @@ def main():
                 else "operations"}
             log(f"[time] {name} over {label}: {json.dumps(few_sums[name][label])}")
     log(f"[few-rates] {json.dumps(few_rates)}")
+    # the sampling-eval callback's kernels at the validation batch: one EMA UNet eval and one
+    # decode (the decoder's GroupNorm at 256 is new)
+    cb_label = f"one flagship UNet eval (EMA) and one decode, batch {CB_BATCH}, bf16"
+    cb_rows = {"group_norm_silu": [gn_row(*k, calls=(cb_gn + cb_dec).count(k), batch=CB_BATCH)
+                                   for k in dict.fromkeys(cb_gn + cb_dec)],
+               "flash_attention": [fa_row(*cb_fa[0], calls=len(cb_fa), batch=CB_BATCH)]}
+    cb_sums = {}
+    for name, rs in cb_rows.items():
+        for r in rs:
+            log(f"[time] {cb_label}: {json.dumps(r)}")
+        cb_sums[name] = {k: summed(rs, k) for k in ("ms", "bound_ms", "plain_ms", "library_ms",
+                                                    "issue_ms")} | {
+            "calls": summed(rs, "one"), "per": cb_label,
+            "bound_by": "bytes" if summed(rs, "bytes_ms") >= summed(rs, "ops_ms")
+            else "operations"}
+        log(f"[time] {name} over {cb_label}: {json.dumps(cb_sums[name])}")
 
     phase("the kernels line")
     kernels = []
@@ -2458,12 +2865,14 @@ def main():
                               **{run: c[which] for run, c in path_counts.items()},
                               **{run: c[name] for run, c in recipe_counts.items()},
                               **{run: c[name] for run, c in new_counts.items()},
-                              **{run: c[name] for run, c in few_counts.items()}},
+                              **{run: c[name] for run, c in few_counts.items()},
+                              **{run: c[name] for run, c in cb_counts.items()}},
             classifier_forward=clf_sums[name] | {"per": f"one classifier forward, batch {BATCH}, "
                                                         f"bf16"},
             classifier_train_step=clf_step_sums[name],
             edm_recipes=new_sums[name],
             few_eval_ddpm_recipes=few_sums[name],
+            sampling_eval_callback=cb_sums[name],
         ))
     for name, line in (("flash_attention_bwd_dkdv", 209), ("flash_attention_bwd_dq", 274)):
         rows = [row[name] for row in bwd]
@@ -2481,7 +2890,8 @@ def main():
             launches_per_run={"train": train_counts[name],
                               **{run: c[name] for run, c in recipe_counts.items()},
                               **{run: c[name] for run, c in new_counts.items()},
-                              **{run: c[name] for run, c in few_counts.items()}},
+                              **{run: c[name] for run, c in few_counts.items()},
+                              **{run: c[name] for run, c in cb_counts.items()}},
             classifier_train_step=clf_step_sums[name],
             edm_recipes=new_sums[name],
             few_eval_ddpm_recipes=few_sums[name],

@@ -58,10 +58,11 @@ def _check_plan(p, b, s, c, g, x_dtype, aligned):
     assert p.rows_per_pass <= p.chunk_rows
 
 
-@pytest.mark.parametrize("b", [32, 128])
+@pytest.mark.parametrize("b", [32, 128, 256])
 @pytest.mark.parametrize("s,c", PATH_SHAPES)
 def test_group_norm_plan_on_the_paths(b, s, c):
-    """Every (B, S, C, G, dtype pair) of sampling (B 32) and training (B 128):
+    """Every (B, S, C, G, dtype pair) of sampling (B 32), training (B 128) and
+    the sampling-eval callback's validation batch (B 256, the decoder's too):
     one resident chunk a block, 16-byte loads, enough blocks to cover 132
     SMs, and clusters within the card's limit (16 blocks on an H100, 8 where
     a card co-schedules no more)."""

@@ -26,7 +26,7 @@ import torch
 from tqdne_tpu_torch import configs
 from tqdne_tpu_torch.data.dataset import CachedLatentsDataset, Dataset, make_synthetic_dataset
 from tqdne_tpu_torch.data.pipeline import BatchLoader, DeviceResidentLoader
-from tqdne_tpu_torch.data.representation import Identity, LogSpectrogram
+from tqdne_tpu_torch.data.representation import Identity, invert
 from tqdne_tpu_torch.diffusion import ddpm as ddpm_lib
 from tqdne_tpu_torch.diffusion.consistency import sample_consistency
 from tqdne_tpu_torch.diffusion.distillation import sample_distilled
@@ -202,9 +202,12 @@ def ensure_dataset(config, synthetic_n: int | None):
 
 
 def make_loaders(config, batch_size: int, *, cond: bool, device, val_batch: int | None = None,
-                 keys=("signal", "cond"), host_representation: bool = True, latents_path=None):
+                 keys=("signal", "cond"), val_keys=None, host_representation: bool = True,
+                 latents_path=None):
     """Train and validation loaders over the HDF5 dataset; returns (train,
-    validation, representation).
+    validation, representation).  ``val_keys``: the validation batches'
+    columns (default ``keys``), e.g. with the ``waveform`` targets of the
+    sampling-eval callback.
 
     ``host_representation=False``: the datasets ship raw waveforms (the
     step computes the signal on the device); the representation returned
@@ -226,7 +229,8 @@ def make_loaders(config, batch_size: int, *, cond: bool, device, val_batch: int 
         train_loader = DeviceResidentLoader(ds_train, batch_size, device=device, keys=keys)
     else:
         train_loader = BatchLoader(ds_train, batch_size, device=device, keys=keys)
-    val_loader = BatchLoader(ds_val, vb, shuffle=False, drop_last=True, device=device, keys=keys)
+    val_loader = BatchLoader(ds_val, vb, shuffle=False, drop_last=True, device=device,
+                             keys=val_keys or keys)
     return train_loader, val_loader, representation
 
 
@@ -248,6 +252,8 @@ def add_common_args(parser):
                              "from tqdne_tpu_torch.utils.convert); default: the port's own "
                              "autoencoder run in the workdir")
     parser.add_argument("--no-resume", action="store_true")
+    parser.add_argument("--eval-every", type=int, default=10,
+                        help="sampling-eval callback period in epochs (the diffusion recipes)")
     parser.add_argument("--val-every", type=int, default=1,
                         help="validation-loss pass period in epochs")
     parser.add_argument("--checkpoint-every", type=int, default=1,
@@ -330,12 +336,8 @@ class InferenceBundle:
         """Channels-last signal (B, *sig_shape) -> waveforms (B, 3, t) on the
         signal's device: Griffin-Lim for a spectrogram (``init_phase`` or
         ``generator`` seeds it), the elementwise inverse for the envelope."""
-        signal = signal.movedim(-1, 1)
-        if isinstance(self.representation, LogSpectrogram):
-            wave = self.representation.invert_representation(signal, init_phase=init_phase,
-                                                             generator=generator)
-        else:
-            wave = self.representation.invert_representation(signal)
+        wave = invert(self.representation, signal.movedim(-1, 1), init_phase=init_phase,
+                      generator=generator)
         return wave[..., : self.t]
 
     def padded_cond(self, cond, batch_size: int) -> torch.Tensor:

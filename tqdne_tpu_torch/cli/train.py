@@ -41,12 +41,20 @@ distill recipes) trains from the precomputed moments.
 
 Metrics go to ``W/outputs/<run>/metrics.jsonl`` and checkpoints under
 ``W/outputs/<run>/checkpoints``.  The dataset is HDF5 and needs ``h5py``.
-Not ported yet: ``cond_signal`` pairs and the sampling-eval callback.
+Every ``--eval-every`` epochs (10) the diffusion recipes' sampling-eval
+callback samples the first two validation batches with the EMA model at the
+JAX step factories' defaults (the EDM kinds Heun at 25 steps, decoded for a
+latent recipe; the consistency kinds one eval and one refinement at sigma 1;
+DDPM its timesteps), writes the isotropic ASD of each channel as
+``eval/<metric>`` and, where matplotlib is installed, the figures under
+``W/outputs/<run>/plots/epoch_<e>/``.  Not ported yet: ``cond_signal`` pairs.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
+import itertools
 import logging
 
 import torch
@@ -59,23 +67,30 @@ from tqdne_tpu_torch.data.dataset import ClassificationDataset
 from tqdne_tpu_torch.data.pipeline import BatchLoader
 from tqdne_tpu_torch.data.representation import Identity
 from tqdne_tpu_torch.diffusion import ddpm as ddpm_lib
-from tqdne_tpu_torch.diffusion.consistency import ConsistencyConfig, make_consistency_steps
-from tqdne_tpu_torch.diffusion.distillation import make_distillation_steps
+from tqdne_tpu_torch.diffusion.consistency import (ConsistencyConfig, make_consistency_steps,
+                                                   sample_consistency)
+from tqdne_tpu_torch.diffusion.distillation import make_distillation_steps, sample_distilled
+from tqdne_tpu_torch.eval.metrics import AmplitudeSpectralDensity
 from tqdne_tpu_torch.models.unet import UNet
 from tqdne_tpu_torch.models.classifier import Classifier
 from tqdne_tpu_torch.nn.layers import set_compute_dtype
 from tqdne_tpu_torch.ops.representation import device_representation_fn
+from tqdne_tpu_torch.train.callbacks import SamplingEvalCallback
 from tqdne_tpu_torch.train.loop import Trainer
 from tqdne_tpu_torch.train.state import TrainState, cosine_annealing, make_optimizer
 from tqdne_tpu_torch.train.steps import (
     make_autoencoder_steps,
     make_classifier_steps,
     make_edm_steps,
+    sample_edm,
 )
 from tqdne_tpu_torch.utils import init_like_flax_, resolve_device
 
 RUN_NAME = common.RUN_NAME
 LEARNING_RATE = 1e-4  # every recipe's: the cosine schedule's peak, or RAdam's constant rate
+EVAL_BATCHES = 2  # validation batches the sampling-eval callback samples
+WAVE_CHANNELS = 3
+logger = logging.getLogger("tqdne_tpu_torch")
 
 
 def _device_representation(config):
@@ -91,7 +106,7 @@ def _max_steps(args, epochs: int, train_loader) -> int:
 
 
 def _fit(recipe, args, config, device, model, train_loader, val_loader, steps, hparams,
-         epochs, metric_postprocess=None) -> TrainState:
+         epochs, metric_postprocess=None, callbacks=()) -> TrainState:
     """The optimizer, schedule, guard and ``Trainer`` around ``model``: the
     cosine schedule, except for RAdam, which runs at a constant rate as the
     JAX CLI runs it."""
@@ -103,7 +118,8 @@ def _fit(recipe, args, config, device, model, train_loader, val_loader, steps, h
     trainer = Trainer(*steps, config.outputdir / recipe.name, device=device, max_epochs=epochs,
                       max_steps=args.max_steps, seed=args.seed, lr_schedule=lr_schedule,
                       hparams=hparams, checkpoint_every_epochs=args.checkpoint_every,
-                      eval_every_epochs=args.val_every, metric_postprocess=metric_postprocess)
+                      eval_every_epochs=args.val_every, metric_postprocess=metric_postprocess,
+                      callbacks=callbacks)
     return trainer.fit(state, train_loader, val_loader, resume=not args.no_resume)
 
 
@@ -174,8 +190,10 @@ def _run_diffusion(recipe, args, config, device, dtype, batch, epochs, device_re
         keys = ("waveform", "cond")
     else:
         keys = ("signal", "cond")
-    train_loader, val_loader, _ = common.make_loaders(
-        config, batch, cond=True, device=device, keys=keys,
+    # the sampling-eval callback's validation batches also carry the waveform targets
+    val_keys = keys if "waveform" in keys else (*keys, "waveform")
+    train_loader, val_loader, representation = common.make_loaders(
+        config, batch, cond=True, device=device, keys=keys, val_keys=val_keys,
         host_representation=device_rep is None and lat_path is None, latents_path=lat_path)
     hparams = {"kind": recipe.kind, "dims": recipe.dims, "latent": recipe.latent,
                "ae_name": recipe.ae_name, "dtype": args.dtype}
@@ -204,8 +222,68 @@ def _run_diffusion(recipe, args, config, device, dtype, batch, epochs, device_re
     else:
         steps = make_edm_steps(ema_decay=recipe.ema_decay, **kw)
     hparams["unet"] = ucfg
+    callback = _sampling_eval(recipe, args, config, representation, val_loader, ae, model_shape,
+                              device)
     return _fit(recipe, args, config, device, _placed(unet, device), train_loader, val_loader,
-                steps, hparams, epochs)
+                steps, hparams, epochs, callbacks=(callback,))
+
+
+def eval_sampler(kind: str, autoencoder, model_shape, device):
+    """``(model, generator, batch) -> channels-last signal`` at the JAX step
+    factories' defaults: the EDM kinds' Heun at 25 steps (49 evals), the
+    consistency kinds' one eval from sigma_max and one refinement at sigma 1,
+    DDPM's ``DDPMConfig`` timesteps; decoded by a latent recipe's frozen
+    autoencoder."""
+    def sample(model, generator, batch):
+        cond = batch["cond"].to(device)
+        shape = (len(cond), *model_shape)
+        kw = dict(generator=generator, device=device)
+        if kind == "ddpm":
+            return ddpm_lib.ddpm_sample(ddpm_lib.DDPMConfig(), model, shape, cond=cond, **kw)
+        kw["autoencoder"] = autoencoder
+        if kind == "edm":
+            return sample_edm(model, shape, cond, **kw)
+        sampler = sample_consistency if kind == "consistency" else sample_distilled
+        return sampler(model, shape, cond, **kw)
+
+    return sample
+
+
+def _eval_plots(config) -> list:
+    """The JAX train CLI's figures of the sampling-eval callback: samples and
+    ASD of each channel, then the per-bin ASD and the envelope and ASD grids;
+    none where matplotlib is not installed (a GPU machine may lack it)."""
+    if importlib.util.find_spec("matplotlib") is None:
+        logger.warning("matplotlib is not installed: the sampling-eval callback writes no "
+                       "figures")
+        return []
+    from tqdne_tpu_torch.eval import plots as P
+
+    bins = configs.MAG_BINS, configs.DIST_BINS
+    return ([P.SamplePlot(plot_target=True, fs=config.fs, channel=c)
+             for c in range(WAVE_CHANNELS)]
+            + [P.AmplitudeSpectralDensityPlot(fs=config.fs, channel=c)
+               for c in range(WAVE_CHANNELS)]
+            + [P.BinPlot(AmplitudeSpectralDensity(fs=config.fs, channel=0, isotropic=True), *bins),
+               P.MovingAverageEnvelopeGrid(config.fs, 0, *bins),
+               P.AmplitudeSpectralDensityGrid(config.fs, 0, *bins)])
+
+
+def _sampling_eval(recipe, args, config, representation, val_loader, autoencoder, model_shape,
+                   device) -> SamplingEvalCallback:
+    """The JAX train CLI's sampling-eval callback over the first two
+    validation batches, held on the host: the isotropic ASD of each channel,
+    and the figures with the conditioning denormalised by the dataset's
+    feature statistics."""
+    val_batches = [{k: v.cpu() for k, v in b.items()}
+                   for b in itertools.islice(val_loader, EVAL_BATCHES)]
+    metrics = [AmplitudeSpectralDensity(fs=config.fs, channel=c, isotropic=True)
+               for c in range(WAVE_CHANNELS)]
+    return SamplingEvalCallback(
+        eval_sampler(recipe.kind, autoencoder, model_shape, device), val_batches,
+        representation, metrics=metrics, plots=_eval_plots(config),
+        every_n_epochs=args.eval_every, feature_stats=common.dataset_feature_stats(config),
+        features_keys=config.features_keys)
 
 
 def _run_classifier(recipe, args, config, device, dtype, batch, epochs, device_rep):

@@ -24,6 +24,9 @@ class Identity:
     def get_representation(self, waveform: torch.Tensor) -> torch.Tensor:
         return waveform
 
+    def invert_representation(self, representation: torch.Tensor) -> torch.Tensor:
+        return representation
+
 
 def moving_average_same(x: torch.Tensor, window: int) -> torch.Tensor:
     """Moving average along the last axis in float64, with the window
@@ -102,3 +105,14 @@ class LogSpectrogram:
         mag = torch.cat([mag, torch.zeros_like(mag[..., :1, :])], dim=-2)  # re-add Nyquist
         return spectral.griffin_lim(mag, self.n_fft, self.hop, self.length, n_iter=self.n_iter,
                                     init_phase=init_phase, generator=generator)
+
+
+def invert(representation, signal: torch.Tensor, *, init_phase=None,
+           generator: torch.Generator | None = None) -> torch.Tensor:
+    """Channels-first ``signal`` -> waveforms on its device: Griffin-Lim for
+    a spectrogram (``init_phase`` or ``generator`` seeds it), the elementwise
+    inverse otherwise."""
+    if isinstance(representation, LogSpectrogram):
+        return representation.invert_representation(signal, init_phase=init_phase,
+                                                    generator=generator)
+    return representation.invert_representation(signal)

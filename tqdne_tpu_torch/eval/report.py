@@ -1,5 +1,5 @@
-"""Evaluation report: the port of ``tqdne_tpu/eval/report.py`` (its
-``evaluation_report`` and ``main``).
+"""Evaluation report: the port of ``tqdne_tpu/eval/report.py``
+(``evaluation_report``, ``report_figures`` and ``main``).
 
 ``evaluation_report`` reads the HDF5 files ``cli.evaluate`` writes (one per
 rank) and hands their arrays to ``report_from_arrays``, which computes every
@@ -13,10 +13,11 @@ statistic:
 - per-bin matrices of FID, accuracy and ASD.
 
 ``report_from_arrays`` needs no HDF5, so callers that hold the arrays in
-memory (the GPU smoke run) take the same code.  Figures wait for the plots
-slice.
+memory (the GPU smoke run) take the same code.  ``report_figures`` renders
+the figure set of ``eval.plots`` (matplotlib) from the same files.
 
-    python -m tqdne_tpu_torch.eval.report evaluation/*-rank_0.h5 [--out report.json]
+    python -m tqdne_tpu_torch.eval.report evaluation/*-rank_0.h5 [--out report.json] \
+        [--figures DIR]
 """
 
 from __future__ import annotations
@@ -49,21 +50,23 @@ def _concat_ranks(paths: list[Path], key: str) -> np.ndarray:
     return np.concatenate(parts)
 
 
-def read_eval_files(eval_files) -> tuple[dict, dict | None]:
-    """(arrays, provenance) of evaluate output files: the datasets the report
-    reads, concatenated over the files in order, and their common provenance
-    (or, where the files differ, each file's under ``mixed``)."""
+def read_eval_files(eval_files, keys=None) -> tuple[dict, dict | None]:
+    """(arrays, provenance) of evaluate output files: the datasets ``keys``
+    (by default those the report reads: ``REPORT_KEYS``, and the
+    ``CLASSIFIER_KEYS`` where a classifier ran), concatenated over the files
+    in order, and their common provenance (or, where the files differ, each
+    file's under ``mixed``)."""
     import h5py
 
     paths = _paths(eval_files)
     provs = []
     for i, p in enumerate(paths):
         with h5py.File(p, "r") as f:
-            if i == 0:
-                has_classifier = "predicted_classifier_embedding" in f
+            if i == 0 and keys is None:
+                keys = REPORT_KEYS + (CLASSIFIER_KEYS if "predicted_classifier_embedding" in f
+                                      else ())
             provs.append(json.loads(f.attrs["provenance"])
                          if "provenance" in f.attrs else None)
-    keys = REPORT_KEYS + (CLASSIFIER_KEYS if has_classifier else ())
     arrays = {key: _concat_ranks(paths, key) for key in keys}
     # merged inputs (rank files, --suffix sweeps) must agree on what they
     # evaluated; labelling the report with the first file's provenance would
@@ -172,6 +175,61 @@ def evaluation_report(eval_files, mag_bins=MAG_BINS, dist_bins=DIST_BINS, fs: fl
                               calibration_embedding=calibration, provenance=provenance)
 
 
+def report_figures(eval_files, outdir, mag_bins=MAG_BINS, dist_bins=DIST_BINS, fs: float = 100.0,
+                   gallery_events: int = 3, gallery_samples: int = 5) -> list[Path]:
+    """Render the figure set of the evaluate outputs into ``outdir``: the ASD
+    comparison, a sample overlay, the envelope and ASD grids, the per-bin
+    ASD heatmap, the waveform gallery (each picked event beside the rows of
+    nearest conditioning) and the PGA likelihood heatmap.  Returns the PNG
+    paths, in that order."""
+    from tqdne_tpu_torch.eval import plots as P
+
+    arrays, _ = read_eval_files(eval_files, keys=REPORT_KEYS)
+    pred_wf, targ_wf = arrays["predicted_waveform"], arrays["target_waveform"]
+    mag, dist = arrays["magnitude"], arrays["hypocentral_distance"]
+    outdir = Path(outdir)
+    outdir.mkdir(parents=True, exist_ok=True)
+    mb, db = list(mag_bins), list(dist_bins)
+
+    figures = {
+        "asd_comparison": P.AmplitudeSpectralDensityPlot(fs=fs, channel=0),
+        "sample_overlay": P.SamplePlot(plot_target=True, fs=fs, channel=0, n=4),
+        "envelope_grid": P.MovingAverageEnvelopeGrid(fs, 0, mb, db),
+        "asd_grid": P.AmplitudeSpectralDensityGrid(fs, 0, mb, db),
+        "bin_asd": P.BinPlot(AmplitudeSpectralDensity(fs=fs, channel=0, isotropic=True), mb, db),
+    }
+    written = []
+
+    def save(fig, name):
+        path = outdir / f"{name}.png"
+        fig.savefig(path, dpi=110, bbox_inches="tight")
+        written.append(path)
+
+    for name, plot in figures.items():
+        binned = isinstance(plot, (P.BinPlot, P.GridPlot))
+        save(plot(pred_wf, targ_wf, **({"mag": mag, "dist": dist} if binned else {})), name)
+
+    # gallery: for each picked event, the generated rows of the nearest conditioning
+    # (each evaluate row has exactly one sample per conditioning)
+    order = np.argsort(mag)
+    picks = order[np.linspace(0, len(order) - 1, gallery_events).astype(int)]
+    gal_pred, labels = [], []
+    for e in picks:
+        score = (np.abs(mag - mag[e]) / 0.5) ** 2 + (np.abs(dist - dist[e]) / 20.0) ** 2
+        gal_pred.append(pred_wf[np.argsort(score)[1: gallery_samples + 1]])
+        labels.append(f"M{mag[e]:.1f}  {dist[e]:.0f} km")
+    save(P.WaveformGalleryGrid(fs=fs, channel=0, samples_per_event=gallery_samples)(
+        np.concatenate(gal_pred), targ_wf[picks], event_labels=labels), "waveform_gallery")
+
+    # the PGA likelihood heatmap over the horizontals' peaks
+    def pga(wf):
+        return np.abs(wf[:, :2]).max(axis=(1, 2))
+
+    save(P.CumulativeProbabilityPlot(mb, db, im_name="PGA")(pga(pred_wf), pga(targ_wf), mag=mag,
+                                                             dist=dist), "cumulative_probability")
+    return written
+
+
 def main(argv=None):
     import argparse
 
@@ -182,12 +240,17 @@ def main(argv=None):
     parser.add_argument("--calibration-files", nargs="+", default=None,
                         help="second evaluate-output set (train split) for the "
                              "train-vs-test calibration FID")
+    parser.add_argument("--figures", type=str, default=None,
+                        help="also render the figure set into this directory (matplotlib)")
     args = parser.parse_args(argv)
     report = evaluation_report(args.files, calibration_files=args.calibration_files)
     text = json.dumps(report, indent=2)
     if args.out:
         Path(args.out).write_text(text)
     print(text)
+    if args.figures:
+        for p in report_figures(args.files, args.figures):
+            print(f"wrote {p}")
 
 
 if __name__ == "__main__":

@@ -6,7 +6,10 @@ keep the best 3 by validation loss plus the last, with the epoch in
 ``progress.json``, so a resume is exact; metrics stream to ``metrics.jsonl``
 with the JAX package's keys (``training/loss``, ``traintime``, ``lr``,
 ``validation/loss``).  Validation means may be vectors (per-class counts)
-that ``metric_postprocess`` turns into the scalars written.
+that ``metric_postprocess`` turns into the scalars written.  Each of
+``callbacks`` is called ``cb(trainer, state, epoch, gstep)`` at the end of
+every epoch, after validation and before the checkpoint (the sampling-eval
+callback of ``train.callbacks``).
 
 Randomness is per step, as the JAX loop folds the step into its root key:
 step ``n`` seeds the step's ``torch.Generator`` (the encoder's eps, the
@@ -21,7 +24,7 @@ from __future__ import annotations
 import json
 import time
 from pathlib import Path
-from typing import Callable
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -57,14 +60,17 @@ class Trainer:
 
     ``metric_postprocess``: applied to the epoch's validation means before
     they are written, e.g. per-class confusion counts into macro precision,
-    recall and F1, which are only right after aggregation."""
+    recall and F1, which are only right after aggregation.  ``callbacks``:
+    called ``cb(trainer, state, epoch, gstep)`` after each epoch's
+    validation, before its checkpoint."""
 
     def __init__(self, train_step: Callable, eval_step: Callable, workdir: str | Path, *,
                  device: str | torch.device = "cuda", max_epochs: int = 100,
                  max_steps: int | None = None, log_every: int = 50, eval_every_epochs: int = 1,
                  checkpoint_every_epochs: int = 1, seed: int = 0,
                  lr_schedule: Callable | None = None, hparams: dict | None = None,
-                 metric_postprocess: Callable[[dict], dict] | None = None):
+                 metric_postprocess: Callable[[dict], dict] | None = None,
+                 callbacks: Sequence[Callable] = ()):
         self.train_step = train_step
         self.eval_step = eval_step
         self.workdir = Path(workdir)
@@ -79,6 +85,7 @@ class Trainer:
         self.lr_schedule = lr_schedule
         self.hparams = hparams
         self.metric_postprocess = metric_postprocess
+        self.callbacks = list(callbacks)
         self.writer = MetricWriter(self.workdir)
         self.checkpointer = Checkpointer(self.workdir / "checkpoints")
         self.generator = torch.Generator(device=self.device)
@@ -158,6 +165,9 @@ class Trainer:
             val_metrics = {}
             if val_loader is not None and (epoch + 1) % self.eval_every_epochs == 0:
                 val_metrics = self.validate(state, val_loader, gstep)
+
+            for cb in self.callbacks:
+                cb(self, state, epoch, gstep)
 
             if (epoch + 1) % self.checkpoint_every_epochs == 0 or hit_max:
                 self._save(gstep, state, epochs_done, val_metrics or None)
