@@ -87,8 +87,20 @@ Phases (any failure exits non-zero and prints no result line):
    direct sample and inversion at its seed; a sample with a NaN row zeroed and
    warned; the ``consistency`` callback and DDPM's at 20 timesteps; then the
    seismology of the callback's 512 waveforms on the card against the host
-   (peaks, ``residual_report``, RotD50 SA against the plain loop), timed; the
-   counts must be exact;
+   (peaks, ``residual_report``, RotD50 SA against the plain loop), timed; then
+   (4m) reference checkpoints and the data scans: full-width reference
+   Lightning checkpoints of the flagship UNet, the autoencoder and the
+   classifier (seeded random weights in the reference's key layout, each with
+   an EMA that differs from its live weights) imported by
+   ``cli.import_checkpoint``, the flagship sampled (bf16, batch 32,
+   dpmpp_2m-10, GL 32) from the imported runs and from the checkpoints
+   converted on the fly, each bit-identical to the EMA weights' ``.pt`` route
+   with the flagship's launches, one forward of the imported classifier
+   bit-identical to its ``.pt``; ``compute_validity_indices`` and
+   ``quality_report`` over 4096 records of 3 x 12501 f32 on the card against
+   the host over the first 512 (indices and flags exact, the linear-trend R^2
+   to 1e-9), import, first-waveform and scan seconds printed; the counts must
+   be exact;
 5. timings on the card: each kernel at the main paths' shapes beside its
    bound, its plain version and a PyTorch yardstick call (and, for the
    record, the bf16 flash forward at (128, 16, 4, 128)), GroupNorm per UNet
@@ -150,6 +162,8 @@ SERVE_DELAY_MS = 15.0  # the serve CLI's micro-batching window
 SERVE_FULL_CLIENTS, SERVE_FULL_ROUNDS = 4, 2  # concurrent requests of a full batch, 2 rounds
 EVAL_BATCHES = 2  # evaluate_batch calls at batch 32 (Heun-25, Griffin-Lim 128)
 CLASSIFIER_SEED = SEED + 2
+CKPT_STEP = 4321  # the reference checkpoints' global_step (4m)
+SCAN_RECORDS, SCAN_HOST, SCAN_T = 4096, 512, 12501  # 4m: records on the card, on the host; T
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor / f32 vector
 GN_OPS_PER_ELEM = {True: 10, False: 7}  # moments 2, normalise+affine 4 (+1 store), SiLU 3
@@ -1656,6 +1670,199 @@ def sampling_eval_path(*, state, steps, loader, ae, model_shape, config, schedul
     return counts
 
 
+def reference_checkpoints_path(dev, per_eval: tuple[int, int], per_decode: int,
+                               per_clf: tuple[int, int]) -> dict:
+    """4m: full-width reference Lightning checkpoints (seeded random live
+    weights and a different EMA; the UNet's EMA at the top level, the
+    autoencoder's under ``callbacks``, the classifier's at the top level)
+    imported by ``cli.import_checkpoint``, then the flagship sampled (bf16,
+    batch 32, dpmpp_2m-10, GL 32) by three routes, each from its own
+    ``build_inference``: (a) the imported runs, (b) the checkpoints converted
+    on the fly, (c) the EMA weights as the port's ``.pt`` files.  (a) and (b)
+    must equal (c) bit for bit, each run's GroupNorm and flash-forward launches
+    exactly the flagship's; one forward at 32 of the imported classifier run
+    bit-identical to its ``.pt``.  Returns each counted run's launches."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from lightning_layout import lightning_checkpoint, reference_state_dict
+
+    from tqdne_tpu_torch import configs
+    from tqdne_tpu_torch.cli.common import build_autoencoder, build_inference
+    from tqdne_tpu_torch.cli.evaluate import load_classifier, load_classifier_run
+    from tqdne_tpu_torch.cli.import_checkpoint import import_checkpoint
+    from tqdne_tpu_torch.models.classifier import Classifier
+    from tqdne_tpu_torch.models.unet import UNet
+    from tqdne_tpu_torch.ops.flash_attention import flash_attention
+    from tqdne_tpu_torch.ops.group_norm import group_norm_silu
+    from tqdne_tpu_torch.utils import randomize_
+
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_4m"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    config = configs.LatentSpectrogramConfig()
+    clf_config = configs.SpectrogramClassificationConfig()
+    models = {
+        "edm": (UNet(**configs.get_2d_unet_config(config, 8, 8)), "unet"),
+        "autoencoder": (build_autoencoder(config)[0], "autoencoder"),
+        "classifier": (Classifier(configs.get_classifier_encoder_config(clf_config),
+                                  clf_config.num_classes), "classifier"),
+    }
+    t0 = time.perf_counter()
+    for i, (kind, (module, layout)) in enumerate(models.items()):
+        live = reference_state_dict(randomize_(module, SEED + 40 + i), layout)
+        ema = reference_state_dict(randomize_(module, SEED + 50 + i), layout)
+        torch.save(lightning_checkpoint(live, ema, step=CKPT_STEP,
+                                        prefix="unet" if kind == "edm" else "",
+                                        in_callbacks=kind == "autoencoder"),
+                   work / f"{kind}.ckpt")
+        torch.save(module.state_dict(), work / f"{kind}-ema.pt")  # the module holds the EMA
+    n_params = {kind: sum(p.numel() for p in m.parameters()) for kind, (m, _) in models.items()}
+    log(f"[ckpt] three full-width reference checkpoints ({json.dumps(n_params)} parameters) "
+        f"written in {time.perf_counter() - t0:.2f} s")
+    del models
+
+    wd = work / "workdir"
+    import_s = {}
+    for kind in ("edm", "autoencoder", "classifier"):
+        t0 = time.perf_counter()
+        import_checkpoint(kind, work / f"{kind}.ckpt", wd)
+        import_s[kind] = round(time.perf_counter() - t0, 3)
+    log(f"[ckpt] import_checkpoint s by model: {json.dumps(import_s)}; {card_line()}")
+
+    kw = dict(dtype=torch.bfloat16, num_steps=10, solver="dpmpp_2m", gl_iters=32, device=dev)
+    routes = {
+        "imported run": lambda: build_inference(workdir=wd, **kw),
+        "on the fly": lambda: build_inference(edm_checkpoint=work / "edm.ckpt",
+                                              autoencoder_checkpoint=work / "autoencoder.ckpt",
+                                              **kw),
+        ".pt": lambda: build_inference(unet_weights=work / "edm-ema.pt",
+                                       ae_weights=work / "autoencoder-ema.pt", **kw),
+    }
+    want = {"group_norm_silu": per_eval[0] * 10 + per_decode,
+            "flash_attention": per_eval[1] * 10}
+    waves, counts, first_s = {}, {}, {}
+    for route, make in routes.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bundle = make()
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        cond = torch.randn(BATCH, 5, generator=gen, device=dev)
+        group_norm_silu.launches = flash_attention.launches = 0
+        waves[route] = bundle.generate(cond, generator=gen)
+        torch.cuda.synchronize()
+        first_s[route] = round(time.perf_counter() - t0, 3)
+        counts[route] = {"group_norm_silu": group_norm_silu.launches,
+                         "flash_attention": flash_attention.launches}
+        wave = waves[route]
+        if wave.shape != (BATCH, 3, 4064) or not torch.isfinite(wave).all():
+            fail(f"4m {route}: waveforms {tuple(wave.shape)} "
+                 f"finite={bool(torch.isfinite(wave).all())}")
+        if counts[route] != want:
+            fail(f"4m {route}: launches {counts[route]} != the flagship's {want}")
+        if route == "imported run" and bundle.provenance.get("checkpoint_step") != CKPT_STEP:
+            fail(f"4m: the imported run's provenance {bundle.provenance}")
+        del bundle
+    same = {route: torch.equal(waves[route], waves[".pt"]) for route in routes}
+    log(f"[ckpt] seconds to the first waveform (build_inference + one dpmpp_2m-10 generate at "
+        f"{BATCH}): {json.dumps(first_s)}; bit-identical to the .pt route: {json.dumps(same)}; "
+        f"launches {json.dumps(counts['imported run'])} each; peak "
+        f"{waves['.pt'].abs().max().item():.3e}; {card_line()}")
+    if not all(same.values()):
+        fail(f"4m: the routes' waveforms differ: {same}")
+    del waves
+
+    clf_run = load_classifier_run(wd, "Classifier-LogSpectrogram", dtype=torch.bfloat16,
+                                  device=dev)
+    clf_pt = load_classifier(work / "classifier-ema.pt", dtype=torch.bfloat16, device=dev)
+    x = torch.randn(BATCH, 128, 128, 3, generator=torch.Generator(device=dev).manual_seed(SEED),
+                    device=dev)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        group_norm_silu.launches = flash_attention.launches = 0
+        got = clf_run.embed_and_logits(x)
+        torch.cuda.synchronize()
+        counts["classifier run"] = {"group_norm_silu": group_norm_silu.launches,
+                                    "flash_attention": flash_attention.launches}
+        ref = clf_pt.embed_and_logits(x)
+    same = all(torch.equal(a, b) for a, b in zip(got, ref))
+    log(f"[ckpt] imported classifier forward at {BATCH}: embeddings and logits bit-identical to "
+        f"the .pt route {same}, launches {json.dumps(counts['classifier run'])}")
+    if not same or tuple(counts["classifier run"].values()) != per_clf:
+        fail(f"4m: the imported classifier: identical {same}, launches "
+             f"{counts['classifier run']} (want {per_clf})")
+    shutil.rmtree(work, ignore_errors=True)
+    return {run: want_launches(c["group_norm_silu"], c["flash_attention"]) for run, c in
+            counts.items()}
+
+
+def synthetic_records(n: int, t: int, dev) -> torch.Tensor:
+    """(n, 3, t) f32 raw-length records made on ``dev`` from a seed: noise, then
+    a decaying arrival at 5-20 s; every 8th record dead from a random sample
+    on (trailing zeros), every 16th with a constant channel, every 32nd with
+    a straight-line tail."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+    time_s = torch.arange(t, device=dev) / 100.0
+    onset = 5 + 15 * torch.rand(n, 1, 1, generator=gen, device=dev)
+    freq = 1 + 6 * torch.rand(n, 3, 1, generator=gen, device=dev)
+    lag = (time_s - onset).clamp(min=0)
+    wf = (0.01 * torch.randn(n, 3, t, generator=gen, device=dev)
+          + (time_s > onset) * torch.sin(2 * math.pi * freq * lag) * torch.exp(-lag / 10))
+    dead = torch.randint(t // 4, t, (n, 1, 1), generator=gen, device=dev)
+    wf = torch.where((torch.arange(n, device=dev) % 8 == 0)[:, None, None]
+                     & (torch.arange(t, device=dev) >= dead), 0.0, wf)
+    wf[::16, 1] = 0.5
+    wf[::32, 0, -2000:] = torch.linspace(0.0, 0.8, 2000, device=dev)
+    return wf
+
+
+def data_scans(dev) -> dict:
+    """4m: ``compute_validity_indices`` and ``quality_report`` on the card over
+    SCAN_RECORDS raw-length records, against the same functions on the host
+    over the first SCAN_HOST: validity indices, trailing-zero and small-range
+    flags exact, the linear-trend R^2 of every tail window to 1e-9 relative,
+    and the linear-trend flags that differ counted (the run fails on any)."""
+    from tqdne_tpu_torch.data.quality import compute_validity_indices, linear_trend_r2, \
+        quality_report
+
+    wf = synthetic_records(SCAN_RECORDS, SCAN_T, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    validity = compute_validity_indices(wf)
+    torch.cuda.synchronize()
+    validity_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report = quality_report(wf)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    host = wf[:SCAN_HOST].cpu()
+    t0 = time.perf_counter()
+    host_validity = compute_validity_indices(host)
+    host_validity_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_report = quality_report(host)
+    host_s = time.perf_counter() - t0
+    r2, host_r2 = linear_trend_r2(wf[:SCAN_HOST]).cpu(), linear_trend_r2(host)
+    r2_rel = ((r2 - host_r2).abs() / host_r2.abs().clamp(min=1e-300)).max().item()
+    exact = {key: torch.equal(report[key][:SCAN_HOST].cpu(), host_report[key])
+             for key in ("has_trailing_zeros", "trailing_zero_index", "has_small_range",
+                         "validity_index")}
+    exact["compute_validity_indices"] = torch.equal(validity[:SCAN_HOST].cpu(), host_validity)
+    trend_diff = int((report["has_linear_trend"][:SCAN_HOST].cpu()
+                      != host_report["has_linear_trend"]).sum())
+    flagged = {key: int(report[key].sum()) for key in
+               ("has_trailing_zeros", "has_small_range", "has_linear_trend")}
+    gb = wf.numel() * wf.element_size() / 1e9
+    log(f"[scan] {SCAN_RECORDS} records x 3 x {SCAN_T} f32 ({gb:.3f} GB) on the card: "
+        f"compute_validity_indices {validity_s:.4f} s, quality_report {card_s:.4f} s; the first "
+        f"{SCAN_HOST} on the host: {host_validity_s:.4f} s and {host_s:.4f} s; flagged of "
+        f"{SCAN_RECORDS}: {json.dumps(flagged)}, median validity index "
+        f"{int(validity.median())}; exact: {json.dumps(exact)}; linear-trend R^2 max rel diff "
+        f"{r2_rel:.3e}, flags that differ {trend_diff}; {card_line()}")
+    if not all(exact.values()) or r2_rel > 1e-9 or trend_diff:
+        fail(f"4m scans: exact {exact}, R^2 rel diff {r2_rel:.3e}, trend flags differ "
+             f"{trend_diff}")
+    return {"card_s": card_s, "host_s": host_s}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2462,6 +2669,15 @@ def main():
             launches = {k: launches[k] + v for k, v in run_counts.items()}
     torch.cuda.empty_cache()
 
+    # ---- 4m. reference checkpoints and the data scans ------------------------------------
+    phase("4m. reference checkpoints and the data scans")
+    ckpt_counts = reference_checkpoints_path(dev, (len(unet_gn), len(unet_fa)), len(dec_gn),
+                                             (len(clf_gn), len(clf_fa)))
+    for run_counts in ckpt_counts.values():
+        launches = {k: launches[k] + v for k, v in run_counts.items()}
+    data_scans(dev)
+    torch.cuda.empty_cache()
+
     # ---- 5. timings --------------------------------------------------------------
     phase("5. timings")
     for name, bundle in bundles.items():
@@ -2866,7 +3082,8 @@ def main():
                               **{run: c[name] for run, c in recipe_counts.items()},
                               **{run: c[name] for run, c in new_counts.items()},
                               **{run: c[name] for run, c in few_counts.items()},
-                              **{run: c[name] for run, c in cb_counts.items()}},
+                              **{run: c[name] for run, c in cb_counts.items()},
+                              **{f"4m {run}": c[name] for run, c in ckpt_counts.items()}},
             classifier_forward=clf_sums[name] | {"per": f"one classifier forward, batch {BATCH}, "
                                                         f"bf16"},
             classifier_train_step=clf_step_sums[name],

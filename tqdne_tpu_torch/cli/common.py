@@ -9,14 +9,17 @@ that every CLI reads.
 
 Weights come from ``.pt`` state dicts written by
 ``python -m tqdne_tpu_torch.utils.convert`` from the JAX package's flax
-artifacts, or from the port's own training runs under ``outputs/``.  A model
-given neither gets seeded random weights (``utils.randomize_``), which is
-what smoke runs and tests use.
+artifacts, from the reference's Lightning checkpoints (converted on the fly
+by ``utils.torch_convert``, or imported into runs by
+``cli.import_checkpoint``), from artifacts of ``cli.export_weights``, or
+from the port's own runs under ``outputs/``.  A model given none gets seeded
+random weights (``utils.randomize_``), which is what smoke runs and tests use.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 from pathlib import Path
 
@@ -36,6 +39,12 @@ from tqdne_tpu_torch.nn.layers import set_compute_dtype
 from tqdne_tpu_torch.train.checkpoint import Checkpointer, hparams_diff
 from tqdne_tpu_torch.train.steps import sample_edm
 from tqdne_tpu_torch.utils import randomize_, resolve_device
+from tqdne_tpu_torch.utils.convert import flax_to_state_dict
+from tqdne_tpu_torch.utils.torch_convert import (
+    convert_autoencoder,
+    convert_unet,
+    load_lightning_checkpoint,
+)
 
 logger = logging.getLogger("tqdne_tpu_torch")
 
@@ -44,6 +53,7 @@ AE_NAME = "Autoencoder-32x32x4-LogSpectrogram"  # its frozen autoencoder's run
 DTYPES = {"f32": torch.float32, "float32": torch.float32, "bf16": torch.bfloat16,
           "bfloat16": torch.bfloat16}
 TINY_CHANNELS = 32  # model_channels of the --tiny UNet and autoencoder
+TINY_CLASSIFIER = {"model_channels": 16, "out_channels": 32}  # the --tiny classifier encoder
 
 
 @dataclasses.dataclass
@@ -131,18 +141,31 @@ def autoencoder_hparams(config, enc_cfg: dict, dec_cfg: dict) -> dict:
             "decoder": dec_cfg, "kl_weight": config.kl_weight}
 
 
-def run_checkpoint(config, run_name: str) -> tuple[dict, dict]:
+def run_checkpoint(config, run_name: str, provenance: dict | None = None) -> tuple[dict, dict]:
     """(the EMA weights of the newest checkpoint, the stored hyperparameters)
     of the port's run ``outputs/<run_name>``; SystemExit when the run has no
-    checkpoint or no ``hparams.json``."""
+    checkpoint or no ``hparams.json``.  ``provenance``: receives the
+    checkpoint's step and the run's ``progress.json`` (as ``train_*``, or
+    under ``progress_mismatch`` when it records another step: a training
+    process saved since)."""
     ckpt = Checkpointer(Path(config.outputdir) / run_name / "checkpoints")
     restored = ckpt.restore_latest_raw()
     stored = ckpt.restore_hyperparameters()
     if restored is None or stored is None:
         raise SystemExit(f"no checkpoint with its hparams.json under {ckpt.directory} (train its "
                          f"recipe with `python -m tqdne_tpu_torch.cli.train <recipe> --workdir "
-                         f"...`, or pass the weights file)")
+                         f"...`, import one with tqdne_tpu_torch.cli.import_checkpoint, or pass "
+                         f"the weights file)")
     logger.info("loaded %s (EMA weights, step %d) from %s", run_name, restored[1], ckpt.directory)
+    if provenance is not None:
+        provenance["checkpoint_step"] = int(restored[1])
+        progress = ckpt.directory / "progress.json"
+        if progress.exists():
+            prog = {f"train_{k}": v for k, v in json.loads(progress.read_text()).items()}
+            if prog.get("train_step") == int(restored[1]):
+                provenance.update(prog)
+            else:
+                provenance["progress_mismatch"] = prog
     return restored[0]["ema"], stored
 
 
@@ -194,8 +217,9 @@ def ensure_dataset(config, synthetic_n: int | None):
     if not Path(config.datapath).exists():
         if not synthetic_n:
             raise FileNotFoundError(
-                f"dataset not found: {config.datapath}. Build it with the JAX package's "
-                "tqdne-build-dataset, or pass --synthetic N for a smoke run.")
+                f"dataset not found: {config.datapath}. Build it with `python -m "
+                "tqdne_tpu_torch.cli.build_dataset --workdir ...` (from the raw_waveforms.h5 "
+                "of cli.preprocess or cli.build_stead), or pass --synthetic N for a smoke run.")
         logger.warning("no dataset at %s: generating synthetic data (n=%d)", config.datapath,
                        synthetic_n)
         make_synthetic_dataset(config.datapath, n=synthetic_n, t=config.t)
@@ -303,6 +327,7 @@ class InferenceBundle:
         self.consistency_noise = consistency_noise
         self.refine_sigma = refine_sigma
         self.ddpm_cfg = ddpm_lib.DDPMConfig()
+        self.provenance = {}  # which weights: run, step, checkpoint or artifact (build_inference)
 
     @property
     def t(self) -> int:
@@ -372,9 +397,11 @@ class InferenceBundle:
 
 @torch.no_grad()
 def build_inference(recipe_key: str = "latent_edm", *, workdir=None, unet_weights=None,
-                    ae_weights=None, dtype=torch.bfloat16, num_steps: int = 25,
-                    solver: str = "heun", gl_iters: int | None = None, device="cuda",
-                    tiny: bool = False, init_seed: int = 0, consistency_noise: str = "auto",
+                    ae_weights=None, run_name: str | None = None, ae_name: str | None = None,
+                    edm_checkpoint=None, autoencoder_checkpoint=None, exported_weights=None,
+                    dtype=torch.bfloat16, num_steps: int = 25, solver: str = "heun",
+                    gl_iters: int | None = None, device="cuda", tiny: bool = False,
+                    init_seed: int = 0, consistency_noise: str = "auto",
                     refine_sigma: float = 1.0) -> InferenceBundle:
     """Build the sampler of a diffusion recipe on ``device`` (``cuda``
     unless asked): an EDM recipe (``latent_edm``, ``edm``, ``1d_edm``,
@@ -385,11 +412,21 @@ def build_inference(recipe_key: str = "latent_edm", *, workdir=None, unet_weight
     passes run at ``refine_sigma`` in the ``consistency_noise`` convention
     (``auto``, ``song`` or ``reference``); DDPM runs its 1000 steps.
 
-    Each model's weights come from its ``.pt`` state dict (``unet_weights``,
-    ``ae_weights``), else from the port's run in ``workdir`` (its newest
+    The UNet's weights come from the first of: its ``.pt`` state dict
+    (``unet_weights``); a reference Lightning checkpoint converted on the fly
+    (``edm_checkpoint``, its EMA weights where it holds them); an exported
+    artifact (``exported_weights``, ``cli.export_weights``: digest-checked
+    against its manifest, the UNet built at the manifest's widths); the port's
+    run ``run_name`` (default: the recipe's) in ``workdir``, its newest
     checkpoint's EMA weights, the model rebuilt at the widths its
-    ``hparams.json`` stores, as the JAX ``build_inference`` rebuilds it), else,
+    ``hparams.json`` stores, as the JAX ``build_inference`` rebuilds it; and,
     without a workdir, seeded random weights (``init_seed``) at the preset.
+    A latent recipe's autoencoder likewise: ``ae_weights``,
+    ``autoencoder_checkpoint``, the run ``ae_name`` (default: the recipe's),
+    random.  ``bundle.provenance`` records the source (``run_name``,
+    ``recipe``, and ``checkpoint_step`` with the run's progress,
+    ``torch_checkpoint``, or ``exported_weights`` with its step and
+    ``weights_sha256``).
     ``dtype``: compute dtype; bf16 casts the bundle's UNet parameters once
     (the JAX ``cast_params``) and runs the autoencoder's convolutions in bf16.
     ``tiny``: 32-channel presets (the JAX ``--tiny`` widths).  ``gl_iters``
@@ -416,30 +453,51 @@ def build_inference(recipe_key: str = "latent_edm", *, workdir=None, unet_weight
         config.griffin_lim_iters = gl_iters
     representation = config.make_representation()
     sig_shape = model_shape = signal_shape(config)
+    provenance = {"run_name": run_name or recipe.name, "recipe": recipe_key}
 
     autoencoder = None
     preset = {"model_channels": TINY_CHANNELS} if tiny else {}
     if recipe.latent:
-        if ae_weights is None and workdir is not None:
-            state, stored = run_checkpoint(config, recipe.ae_name)
+        if ae_weights is None and autoencoder_checkpoint is None and workdir is not None:
+            state, stored = run_checkpoint(config, ae_name or recipe.ae_name)
             enc_cfg = tuplify(stored["encoder"])
             autoencoder = set_compute_dtype(
                 AutoencoderKL(enc_cfg, tuplify(stored["decoder"])), dtype)
             autoencoder.load_state_dict(state)
         else:
-            autoencoder, enc_cfg, _ = build_autoencoder(config, dtype, dims=recipe.dims,
-                                                        tiny=tiny)
-            load_weights(autoencoder, ae_weights, init_seed + 1)
+            autoencoder, enc_cfg, dec_cfg = build_autoencoder(config, dtype, dims=recipe.dims,
+                                                              tiny=tiny)
+            if autoencoder_checkpoint is not None:
+                sd, _ = load_lightning_checkpoint(autoencoder_checkpoint, prefix="", ema=True)
+                autoencoder.load_state_dict(convert_autoencoder(sd, enc_cfg, dec_cfg))
+            else:
+                load_weights(autoencoder, ae_weights, init_seed + 1)
         model_shape = latent_shape(enc_cfg, sig_shape)
 
-    if unet_weights is None and workdir is not None:
-        state, stored = run_checkpoint(config, recipe.name)
+    if unet_weights is edm_checkpoint is exported_weights is None and workdir is not None:
+        state, stored = run_checkpoint(config, run_name or recipe.name, provenance)
         unet = UNet(**tuplify(stored["unet"]))
         unet.load_state_dict(state)
     else:
-        unet, _ = build_unet(config, model_shape[-1], model_shape[-1], dims=recipe.dims,
-                             **preset)
-        load_weights(unet, unet_weights, init_seed)
+        unet, ucfg = build_unet(config, model_shape[-1], model_shape[-1], dims=recipe.dims,
+                                **preset)
+        if unet_weights is not None or edm_checkpoint is None and exported_weights is None:
+            load_weights(unet, unet_weights, init_seed)
+        elif edm_checkpoint is not None:
+            sd, _ = load_lightning_checkpoint(edm_checkpoint, prefix="unet", ema=True)
+            unet.load_state_dict(convert_unet(sd, ucfg))
+            provenance["torch_checkpoint"] = str(edm_checkpoint)
+        else:
+            from tqdne_tpu_torch.cli.export_weights import load_exported
+
+            params, manifest = load_exported(exported_weights)
+            provenance["exported_weights"] = str(exported_weights)
+            if manifest is not None:
+                provenance["checkpoint_step"] = manifest.get("checkpoint_step")
+                provenance["weights_sha256"] = manifest.get("sha256")
+                if "unet" in manifest.get("hparams", {}):  # the artifact's own widths
+                    unet = UNet(**tuplify(manifest["hparams"]["unet"]))
+            unet.load_state_dict(flax_to_state_dict(params))
     if dtype == torch.bfloat16:
         unet.to(dtype)  # the bundle's own UNet: its parameters are cast once
     for module in (unet, autoencoder):
@@ -447,9 +505,12 @@ def build_inference(recipe_key: str = "latent_edm", *, workdir=None, unet_weight
             module.to(device).eval()
             if device.type == "cuda":
                 module.to(memory_format=torch.channels_last)
-    return InferenceBundle(config, representation, unet, autoencoder, sig_shape, model_shape,
-                           num_steps=num_steps, solver=solver, device=device, kind=recipe.kind,
-                           consistency_noise=consistency_noise, refine_sigma=refine_sigma)
+    bundle = InferenceBundle(config, representation, unet, autoencoder, sig_shape, model_shape,
+                             num_steps=num_steps, solver=solver, device=device,
+                             kind=recipe.kind, consistency_noise=consistency_noise,
+                             refine_sigma=refine_sigma)
+    bundle.provenance = provenance
+    return bundle
 
 
 def route_solver(config: str, solver: str, num_steps: int | None) -> tuple[str, int]:

@@ -129,7 +129,10 @@ def main(argv=None):
                         choices=["train", "validation", "test", "train_validation", "full"])
     parser.add_argument("-b", "--batchsize", type=int, default=32)
     parser.add_argument("--name", type=str, default=None,
-                        help="run name of the output file (default: the recipe's)")
+                        help="run name under outputs/, and of the output file (default: the "
+                             "recipe's run name)")
+    parser.add_argument("--ae-name", type=str, default=None,
+                        help="the frozen autoencoder's run name (default: the recipe's)")
     parser.add_argument("--unet-weights", type=str, default=None,
                         help="UNet state dict (.pt) from tqdne_tpu_torch.utils.convert "
                              "(default: the recipe's run in the workdir)")
@@ -172,9 +175,9 @@ def main(argv=None):
     dtype = common.parse_dtype(args.dtype)
     bundle = common.build_inference(
         args.config, workdir=args.workdir, unet_weights=args.unet_weights,
-        ae_weights=args.ae_weights, dtype=dtype, num_steps=args.num_steps, solver=args.solver,
-        device=args.device, tiny=args.tiny, consistency_noise=args.consistency_noise,
-        refine_sigma=args.refine_sigma)
+        ae_weights=args.ae_weights, run_name=args.name, ae_name=args.ae_name, dtype=dtype,
+        num_steps=args.num_steps, solver=args.solver, device=args.device, tiny=args.tiny,
+        consistency_noise=args.consistency_noise, refine_sigma=args.refine_sigma)
     config = bundle.config
     run_name = args.name or RECIPES[args.config].name
     dataset = Dataset(config.datapath, bundle.representation, cut=config.t, cond=True,
@@ -212,11 +215,11 @@ def main(argv=None):
         # provenance: which weights were sampled and the sampler's settings,
         # copied into the report JSON by eval.report
         f.attrs["provenance"] = json.dumps(
-            {"run_name": run_name, "recipe": args.config, "unet_weights": args.unet_weights,
-             "ae_weights": args.ae_weights, "num_steps": args.num_steps,
-             "solver": args.solver, "seed": args.seed, "dtype": args.dtype,
-             "split": args.split, "consistency_noise": args.consistency_noise,
-             "refine_sigma": args.refine_sigma})
+            bundle.provenance
+            | {"unet_weights": args.unet_weights, "ae_weights": args.ae_weights,
+               "num_steps": args.num_steps, "solver": args.solver, "seed": args.seed,
+               "dtype": args.dtype, "split": args.split,
+               "consistency_noise": args.consistency_noise, "refine_sigma": args.refine_sigma})
         for key in config.features_keys:
             f.create_dataset(key, data=dataset.get_feature(key)[all_idx])
         dsets = {

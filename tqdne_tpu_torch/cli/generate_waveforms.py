@@ -13,12 +13,17 @@ or ``distill`` routes ``latent_edm`` to ``latent_consistency`` or
 ``latent_distill`` and refuses another EDM recipe; ``--num_steps`` counts the
 network evals of a few-eval recipe (default 2) or the EDM ODE's steps
 (default 25).  Weights are ``.pt`` state dicts written by ``python -m
-tqdne_tpu_torch.utils.convert``, or the port's own runs in ``--workdir``:
+tqdne_tpu_torch.utils.convert``, the reference's Lightning checkpoints
+converted on the fly (``--edm-checkpoint`` with ``--autoencoder-checkpoint``),
+an exported artifact (``--weights``, digest-checked), or the port's own runs
+in ``--workdir`` (``--name``, ``--ae-name``):
 
     python -m tqdne_tpu_torch.cli.generate_waveforms --csv examples/demo_conditioning.csv \\
         --unet-weights unet.pt --ae-weights ae.pt --outfile out.h5 --device cuda
     python -m tqdne_tpu_torch.cli.generate_waveforms --solver distill --workdir W \\
         --csv examples/demo_conditioning.csv --outfile out.h5
+    python -m tqdne_tpu_torch.cli.generate_waveforms --edm-checkpoint edm.ckpt \\
+        --autoencoder-checkpoint ae.ckpt --csv examples/demo_conditioning.csv --outfile out.h5
 """
 
 from __future__ import annotations
@@ -83,6 +88,20 @@ def main(argv=None):
                              "latent_consistency, latent_distill or ddpm")
     parser.add_argument("--workdir", type=str, default=None,
                         help="read each model without a weights file from the port's run here")
+    parser.add_argument("--name", type=str, default=None,
+                        help="run name under outputs/ (default: the recipe's run name)")
+    parser.add_argument("--ae-name", type=str, default=None,
+                        help="the frozen autoencoder's run name (default: the recipe's)")
+    parser.add_argument("--edm-checkpoint", "--edm_checkpoint", type=str, default=None,
+                        help="reference Lightning EDM .ckpt (converted on the fly)")
+    parser.add_argument("--autoencoder-checkpoint", "--autoencoder_checkpoint", type=str,
+                        default=None, help="reference Lightning autoencoder .ckpt")
+    parser.add_argument("--weights", type=str, default=None,
+                        help="UNet EMA weights from an exported artifact (.msgpack, "
+                             "digest-checked against its manifest; cli.export_weights)")
+    parser.add_argument("--stats-from-dataset", action="store_true",
+                        help="normalize conditioning with the workdir dataset's feature "
+                             "statistics instead of the published summary table")
     parser.add_argument("--unet-weights", type=str, default=None,
                         help="UNet state dict (.pt) from tqdne_tpu_torch.utils.convert")
     parser.add_argument("--ae-weights", type=str, default=None,
@@ -111,19 +130,31 @@ def main(argv=None):
     args = parser.parse_args(argv)
     args.config, args.num_steps = common.route_solver(args.config, args.solver, args.num_steps)
 
+    if bool(args.edm_checkpoint) != bool(args.autoencoder_checkpoint):
+        raise SystemExit("either both or none of the torch checkpoints must be provided")
     latent = getattr(RECIPES.get(args.config), "latent", False)
-    if args.workdir is None and (args.unet_weights is None or latent and args.ae_weights is None):
-        raise SystemExit("give the weights files (--unet-weights, and --ae-weights for a latent "
-                         "recipe) or the --workdir of the runs")
+    unet_given = args.unet_weights or args.edm_checkpoint or args.weights
+    ae_given = args.ae_weights or args.autoencoder_checkpoint
+    if args.workdir is None and (not unet_given or latent and not ae_given):
+        raise SystemExit("give the weights files (--unet-weights, --edm-checkpoint or --weights, "
+                         "and --ae-weights or --autoencoder-checkpoint for a latent recipe) or "
+                         "the --workdir of the runs")
     import h5py
 
     cond_raw = read_conditioning(args)
     bundle = common.build_inference(
         args.config, workdir=args.workdir, unet_weights=args.unet_weights,
-        ae_weights=args.ae_weights, dtype=common.DTYPES[args.dtype], num_steps=args.num_steps,
-        solver=args.solver, gl_iters=args.gl_iters, device=args.device, tiny=args.tiny,
-        consistency_noise=args.consistency_noise)
-    cond = torch.as_tensor(normalize(cond_raw), dtype=torch.float32)
+        ae_weights=args.ae_weights, run_name=args.name, ae_name=args.ae_name,
+        edm_checkpoint=args.edm_checkpoint, autoencoder_checkpoint=args.autoencoder_checkpoint,
+        exported_weights=args.weights, dtype=common.DTYPES[args.dtype],
+        num_steps=args.num_steps, solver=args.solver, gl_iters=args.gl_iters,
+        device=args.device, tiny=args.tiny, consistency_noise=args.consistency_noise)
+    if args.stats_from_dataset:
+        stats = common.dataset_feature_stats(bundle.config)
+        cond_norm = (cond_raw - stats[:, 0]) / stats[:, 1]
+    else:
+        cond_norm = normalize(cond_raw)
+    cond = torch.as_tensor(cond_norm, dtype=torch.float32)
     generator = torch.Generator(device=bundle.device).manual_seed(args.seed)
 
     n, bs = len(cond), args.batch_size

@@ -53,6 +53,10 @@ def parse_args(argv=None):
     parser.add_argument("--config", type=str, default="latent_edm",
                         help="recipe: latent_edm, edm, 1d_edm, 1d_latent_edm, consistency, "
                              "latent_consistency, latent_distill or ddpm")
+    parser.add_argument("--name", type=str, default=None,
+                        help="run name under outputs/ (default: the recipe's run name)")
+    parser.add_argument("--ae-name", type=str, default=None,
+                        help="the frozen autoencoder's run name (default: the recipe's)")
     parser.add_argument("--unet-weights", type=str, default=None,
                         help="UNet state dict (.pt) from tqdne_tpu_torch.utils.convert "
                              "(default: seeded random weights)")
@@ -104,7 +108,8 @@ def build_server(args):
         gl_iters = SERVE_GL_ITERS
     bundle = common.build_inference(
         args.config, workdir=args.workdir, unet_weights=args.unet_weights,
-        ae_weights=args.ae_weights, dtype=common.parse_dtype(args.dtype),
+        ae_weights=args.ae_weights, run_name=args.name, ae_name=args.ae_name,
+        dtype=common.parse_dtype(args.dtype),
         num_steps=args.num_steps, solver=args.solver, gl_iters=gl_iters, device=args.device,
         tiny=args.tiny, consistency_noise=args.consistency_noise)
     if args.workdir is None and (args.unet_weights is None or

@@ -301,7 +301,7 @@ def _run_classifier(recipe, args, config, device, dtype, batch, epochs, device_r
                              drop_last=True, device=device, keys=keys)
     enc_cfg = configs.get_classifier_encoder_config(config)
     if args.tiny:
-        enc_cfg |= {"model_channels": 16, "out_channels": 32}
+        enc_cfg |= common.TINY_CLASSIFIER
     clf = set_compute_dtype(Classifier(enc_cfg, config.num_classes), dtype)
     init_like_flax_(clf, args.seed)
     train_step, eval_step, metric_post = make_classifier_steps(

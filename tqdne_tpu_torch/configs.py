@@ -39,6 +39,7 @@ class Config:
         self.datasetdir = path / "data"
         self.outputdir = path / "outputs"
         self.datapath = self.datasetdir / "preprocessed_waveforms.h5"
+        self.original_datapath = self.datasetdir / "raw_waveforms.h5"
 
 
 @dataclasses.dataclass

@@ -44,17 +44,45 @@ def _array_from_ext(data: bytes) -> torch.Tensor:
     return t.reshape(shape)
 
 
-def read_msgpack(path) -> dict:
-    """A flax ``serialization.to_bytes`` file -> nested dict of tensors."""
+def unpack_msgpack(data: bytes, what: str = "msgpack data") -> dict:
+    """flax ``serialization.to_bytes`` bytes -> nested dict of tensors
+    (bfloat16 arrays come back as float32)."""
     import msgpack
 
-    def ext_hook(code, data):
+    def ext_hook(code, payload):
         if code != _NDARRAY_EXT:
-            raise ValueError(f"{path}: unsupported msgpack extension type {code}")
-        return _array_from_ext(data)
+            raise ValueError(f"{what}: unsupported msgpack extension type {code}")
+        return _array_from_ext(payload)
 
-    return msgpack.unpackb(Path(path).read_bytes(), ext_hook=ext_hook, raw=False,
-                           strict_map_key=False)
+    return msgpack.unpackb(data, ext_hook=ext_hook, raw=False, strict_map_key=False)
+
+
+def read_msgpack(path) -> dict:
+    """A flax ``serialization.to_bytes`` file -> nested dict of tensors."""
+    return unpack_msgpack(Path(path).read_bytes(), str(path))
+
+
+def pack_msgpack(tree: dict) -> bytes:
+    """A nested dict of tensors -> the bytes flax ``serialization.to_bytes``
+    writes for the same arrays: keys sorted at every level (as a JAX tree
+    map leaves them), each array an extension of type 1 holding (shape, dtype
+    name, C-order bytes); bfloat16 as its raw 16-bit words."""
+    import msgpack
+
+    def ext(t: torch.Tensor) -> msgpack.ExtType:
+        t = t.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            name, buf = "bfloat16", t.view(torch.int16).numpy().tobytes()
+        else:
+            arr = t.numpy()
+            name, buf = arr.dtype.name, arr.tobytes("C")
+        return msgpack.ExtType(_NDARRAY_EXT,
+                               msgpack.packb((list(t.shape), name, buf), use_bin_type=True))
+
+    def sort(node):
+        return {k: sort(node[k]) for k in sorted(node)} if isinstance(node, dict) else node
+
+    return msgpack.packb(sort(tree), default=ext, strict_types=True)
 
 
 def _flatten(tree: dict, prefix: tuple = ()):
@@ -86,6 +114,28 @@ def flax_to_state_dict(tree: dict) -> dict[str, torch.Tensor]:
             raise ValueError(f"unexpected flax parameter {'/'.join(path)}")
         sd[".".join([*scope, leaf])] = t.contiguous()
     return sd
+
+
+def state_dict_to_flax(sd: dict[str, torch.Tensor]) -> dict:
+    """A port module's ``state_dict`` -> its flax variables tree
+    (``{"params": ...}``), the inverse of ``flax_to_state_dict``: a 1-D
+    ``weight`` and its ``bias`` are a norm's ``GroupNorm_0`` scale and bias;
+    any other ``weight`` is a kernel, (O, I, K...) -> (K..., I, O)."""
+    tree: dict = {}
+    for key, t in sd.items():
+        *scope, leaf = key.split(".")
+        if leaf in ("weight", "bias") and sd[".".join([*scope, "weight"])].ndim == 1:
+            scope, leaf = [*scope, "GroupNorm_0"], {"weight": "scale", "bias": "bias"}[leaf]
+        elif leaf == "weight":
+            leaf = "kernel"
+            t = t.permute(*range(2, t.ndim), 1, 0)
+        elif leaf not in ("bias", "W"):
+            raise ValueError(f"unexpected parameter {key}")
+        node = tree
+        for name in scope:
+            node = node.setdefault(name, {})
+        node[leaf] = t.contiguous()
+    return {"params": tree}
 
 
 def optax_state_fields(opt_state) -> tuple[dict, dict, int, int]:
