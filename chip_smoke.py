@@ -33,7 +33,10 @@ Phases (any failure exits non-zero and prints no result line):
    (``consistency``, ``latent_consistency``, ``latent_distill``, ``ddpm``)
    (shape, batch) pairs not held above: their samplers' at batch 32 and their
    train steps' at batch 256 (the flagship UNet and encoder, and the flash
-   kernels at (256, 16, 4, 128));
+   kernels at (256, 16, 4, 128)); and at the shapes of 4n below (GroupNorm without SiLU
+   at every scale-shift ``out_norm`` of the options UNet, its resample-free
+   autoencoder's, the paired 1D UNet's at batch 64 with its flash kernels at
+   (64, 508, 4, 64));
 3. full-width flagship sampling in f32, 2 Heun steps, once through the
    kernels and once through the plain versions: the decoded spectrograms
    must agree (TF32 off); the full-width f32 classifier the same way (its
@@ -99,8 +102,21 @@ Phases (any failure exits non-zero and prints no result line):
    bit-identical to its ``.pt``; ``compute_validity_indices`` and
    ``quality_report`` over 4096 records of 3 x 12501 f32 on the card against
    the host over the first 512 (indices and flags exact, the linear-trend R^2
-   to 1e-9), import, first-waveform and scan seconds printed; the counts must
-   be exact;
+   to 1e-9), import, first-waveform and scan seconds printed; then (4n) the
+   UNet's options and paired data: the flagship UNet with every option of the
+   JAX UNet (``cond_emb_scale``, ``use_scale_shift_norm``,
+   ``conv_resample=False``, ``use_checkpoint``) over the autoencoder without
+   resampling convolutions, 10 ``Trainer.fit`` steps at 128 checkpointed and
+   the same 10 from the same state without (the first loss bit-identical, the
+   parameters to the bf16 bound, a step's memory both ways), saved as runs and
+   rebuilt by ``build_inference`` from their ``hparams.json`` (Heun-25 and
+   dpmpp_2m-10 at 32 with Griffin-Lim 32, an f32 sample against the plain
+   versions), one autoencoder step at 128; the paired flagship over a
+   ``PairedDataset`` of two in-memory tables (10 steps at 128, both signals
+   encoded; one autoencoder step with its ``cond_*`` losses; a dpmpp_2m-10
+   sample at 32 from a validation ``cond_signal``, Griffin-Lim 32); paired
+   ``consistency`` and ``ddpm`` on the ``1d_edm`` UNet (2 steps at 64, a sample
+   at 32 of 2 evals and of 20 DDPM timesteps); the counts must be exact;
 5. timings on the card: each kernel at the main paths' shapes beside its
    bound, its plain version and a PyTorch yardstick call (and, for the
    record, the bf16 flash forward at (128, 16, 4, 128)), GroupNorm per UNet
@@ -120,7 +136,8 @@ Phases (any failure exits non-zero and prints no result line):
    few-eval and DDPM recipes: a profiled step, each few-eval sampler's
    profiled device time, DDPM's device ms a step, and each kernel per call
    at the new shapes (a shape and batch is timed once a run, and its row
-   reused), and the callback's UNet eval and decode at batch 256.
+   reused), and the callback's UNet eval and decode at batch 256; GroupNorm
+   without SiLU at the options UNet's shapes at batch 128.
 
 Prints the card's name and power limit and a ``{"kernels": [...]}`` line,
 then, last, ``{"ok": true, "device": {...}}``.
@@ -1863,6 +1880,366 @@ def data_scans(dev) -> dict:
     return {"card_s": card_s, "host_s": host_s}
 
 
+# ---- 4n: the UNet's and autoencoder's options, and paired (cond_signal) data -------------
+UNET_OPTIONS = {"cond_emb_scale": 1.0, "use_scale_shift_norm": True, "conv_resample": False,
+                "use_checkpoint": True}  # every option of the JAX UNet
+OPT_STEPS = 10  # Trainer.fit steps of the options flagship at 128, checkpointed, then plain
+PAIRED_STEPS = 10  # of the paired flagship at 128
+PAIRED_1D_BATCH, PAIRED_1D_STEPS = 64, 2  # paired consistency and DDPM, at reduced depth
+PAIRED_DDPM_STEPS = 20  # the paired DDPM sample's timesteps
+
+
+def paired_tables(waveforms) -> tuple[dict, dict]:
+    """Observed and synthetic tables of the records ``waveforms`` (N, 3, T):
+    the observed as they are, the synthetic a 9-sample moving average of them
+    (a coarse simulation of the same events); an SNR of 0.5 on every channel of
+    every 16th observed record and a data ratio of 50 on every 32nd synthetic
+    one from row 8, so 48 of 512 rows fail the filters."""
+    import numpy as np
+    from scipy.ndimage import uniform_filter1d
+
+    n = len(waveforms)
+    snr = np.full((n, waveforms.shape[1]), 5.0, np.float32)
+    snr[::16] = 0.5
+    ratio = np.ones(n, np.float32)
+    ratio[8::32] = 50.0
+    syn = uniform_filter1d(waveforms, 9, axis=-1).astype(np.float32)
+    return {"waveforms": waveforms, "snr": snr}, {"waveforms": syn, "data_ratio": ratio}
+
+
+def setup_4n(dev, gen):
+    """4n's models at full width (seeded random weights, bf16 compute over f32
+    parameters) and the kernel calls of one forward of each: (a) the flagship
+    UNet with every option of the JAX UNet, over the latent of the autoencoder
+    without resampling convolutions; (b) the flagship UNet for paired latents
+    (the latent and the encoded ``cond_signal`` in, no features); (c) the
+    ``1d_edm`` UNet for paired envelopes (twice the signal's channels in, no
+    features), one for consistency and one for DDPM."""
+    from types import SimpleNamespace
+
+    from tqdne_tpu_torch import configs
+    from tqdne_tpu_torch.cli import common
+    from tqdne_tpu_torch.models.unet import ResBlock
+    from tqdne_tpu_torch.utils import randomize_
+
+    s = SimpleNamespace(config=configs.LatentSpectrogramConfig(),
+                        env_config=configs.MovingAverageEnvelopeConfig())
+    s.ae, s.enc_cfg, s.dec_cfg = common.build_autoencoder(s.config, torch.bfloat16,
+                                                          conv_resample=False)
+    s.model_shape = common.latent_shape(s.enc_cfg, common.signal_shape(s.config))
+    c = s.model_shape[-1]
+    s.unet, s.ucfg = common.build_unet(s.config, c, c, torch.bfloat16, **UNET_OPTIONS)
+    s.unet_p = common.build_unet(s.config, 2 * c, c, torch.bfloat16, cond_features=None)[0]
+    s.sig_1d = common.signal_shape(s.env_config)
+    c1 = s.sig_1d[-1]
+    s.cons_unet, s.ddpm_unet = (common.build_unet(s.env_config, 2 * c1, c1, torch.bfloat16,
+                                                  dims=1, cond_features=None)[0]
+                                for _ in range(2))
+    for i, module in enumerate((s.unet, s.ae, s.unet_p)):
+        randomize_(module, SEED + 60 + i).to(dev, memory_format=torch.channels_last)
+    for i, module in enumerate((s.cons_unet, s.ddpm_unet)):
+        randomize_(module, SEED + 63 + i).to(dev)
+    x = torch.randn(2, *s.model_shape, generator=gen, device=dev)
+    t2 = torch.zeros(2, device=dev)
+    cond = torch.randn(2, 5, generator=gen, device=dev)
+    s.opt_gn, s.opt_fa = record_calls([s.unet], lambda: s.unet(x, t2, cond))
+    s.n_res = sum(isinstance(m, ResBlock) for m in s.unet.modules())
+    s.opt_enc_gn = record_calls([s.ae.encoder], lambda: s.ae.moments(
+        torch.zeros(2, *common.signal_shape(s.config), device=dev)))[0]
+    s.opt_dec_gn = record_calls([s.ae.decoder], lambda: s.ae.decode(x.float()))[0]
+    s.p_gn, s.p_fa = record_calls([s.unet_p], lambda: s.unet_p(torch.cat([x, x], -1), t2))
+    x1 = torch.randn(2, *s.sig_1d[:-1], 2 * c1, generator=gen, device=dev)
+    s.u1_gn, s.u1_fa = record_calls([s.cons_unet], lambda: s.cons_unet(x1, t2))
+    plain_norms = collections.Counter((sh, ch) for *_, sh, ch, _, silu in s.opt_gn if not silu)
+    log(f"[shapes] 4n options UNet ({sum(p.numel() for p in s.unet.parameters())} parameters, "
+        f"{s.n_res} ResBlocks): {len(s.opt_gn)} GroupNorm calls, "
+        f"{sum(plain_norms.values())} without SiLU (S, C): {sorted(plain_norms.items())}; "
+        f"{len(s.opt_fa)} attention calls; the resample-free encoder {len(s.opt_enc_gn)} and "
+        f"decoder {len(s.opt_dec_gn)} GroupNorm calls, latent {s.model_shape}; the paired UNet "
+        f"{len(s.p_gn)} GroupNorm and {len(s.p_fa)} attention calls; the paired 1D UNet "
+        f"{len(s.u1_gn)} GroupNorm and {len(s.u1_fa)} attention calls "
+        f"{sorted(set(s.u1_fa), key=str)}")
+    # the scale-shift out_norm (no SiLU) of every ResBlock, besides the attention blocks' norms
+    if sum(plain_norms.values()) != s.n_res + len(s.opt_fa) or not s.opt_fa or not s.u1_fa:
+        fail(f"4n: {sum(plain_norms.values())} GroupNorm calls without SiLU, {s.n_res} "
+             f"ResBlocks, {len(s.opt_fa)} attention calls")
+    return s
+
+
+def options_and_paired_path(dev, s, arrays, ae_t, enc_gn: list, dec_gn: list) -> dict:
+    """4n: (a) the flagship with every option of the JAX UNet: ``Trainer.fit``
+    of ``OPT_STEPS`` at batch 128 (the frozen autoencoder without resampling
+    convolutions), checkpointed, then the same steps from the same state and
+    draws without checkpointing (the first loss bit-identical, the parameters
+    after them to the bf16 bound, a step's peak memory both ways); the trained
+    UNet and the autoencoder saved as the port's runs and rebuilt by
+    ``build_inference`` from their ``hparams.json``, Heun-25 and dpmpp_2m-10 at
+    32 with decode and Griffin-Lim 32, an f32 sample against the plain
+    versions, one autoencoder step at 128; (b) the paired flagship: a
+    ``PairedDataset`` of two in-memory tables through ``LogSpectrogram`` into
+    ``BatchLoader``, ``PAIRED_STEPS`` at 128 with the frozen flagship
+    autoencoder encoding ``signal`` and ``cond_signal``, one autoencoder step on
+    the paired batches, a dpmpp_2m-10 sample at 32 from a validation batch's
+    ``cond_signal`` decoded with Griffin-Lim 32; (c) paired ``consistency`` and
+    ``ddpm`` on the ``1d_edm`` UNet, ``PAIRED_1D_STEPS`` at 64, then a sample at
+    32 (2 evals; DDPM at ``PAIRED_DDPM_STEPS``).  Every launch count exact.
+    Returns each counted run's launches."""
+    from tqdne_tpu_torch import configs
+    from tqdne_tpu_torch.cli import common
+    from tqdne_tpu_torch.data.dataset import ArrayDataset, PairedDataset
+    from tqdne_tpu_torch.data.pipeline import BatchLoader
+    from tqdne_tpu_torch.diffusion import ddpm as ddpm_lib
+    from tqdne_tpu_torch.diffusion.consistency import (ConsistencyConfig, make_consistency_steps,
+                                                       sample_consistency)
+    from tqdne_tpu_torch.ops.group_norm import group_norm_silu
+    from tqdne_tpu_torch.train.checkpoint import Checkpointer, hparams_diff
+    from tqdne_tpu_torch.train.state import TrainState, cosine_annealing, make_optimizer
+    from tqdne_tpu_torch.train.steps import make_autoencoder_steps, make_edm_steps, sample_edm
+
+    config, counts, rates = s.config, {}, {}
+    representation = config.make_representation()
+    gl32 = copy.copy(config)
+    gl32.griffin_lim_iters = 32
+    gl32 = gl32.make_representation()
+    kernels = launch_counters()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 70)
+
+    def counted(label, fn, want):
+        """``fn()`` with every counter set to 0 just before and read just after."""
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        group_norm_silu.backward_calls = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts[label] = {k.__name__: k.launches for k in kernels}
+        log(f"[4n] {label}: {sec:.3f} s, launches {counts[label]}")
+        if counts[label] != want or group_norm_silu.backward_calls:
+            fail(f"4n {label}: launches {counts[label]} != expected {want} (GroupNorm backward "
+                 f"{group_norm_silu.backward_calls})")
+        return out, sec
+
+    def waveforms_ok(label, wave):
+        finite = bool(torch.isfinite(wave).all())
+        log(f"[4n] {label}: waveforms {tuple(wave.shape)} finite {finite}, peak "
+            f"{wave.abs().max().item():.3e}")
+        if wave.shape != (BATCH, 3, config.t) or not finite:
+            fail(f"4n {label}: waveforms {tuple(wave.shape)} finite {finite}")
+
+    def flagship_loader(keys=("signal", "cond")):
+        return BatchLoader(ArrayDataset(arrays, representation, cut=config.t, cond=True,
+                                        split="full"),
+                           TRAIN_BATCH, device=dev, keys=keys, seed=SEED)
+
+    # (a) the options flagship: Trainer.fit checkpointed, then plain from the same state
+    schedule = cosine_annealing(1e-4, 100_000)
+    plain = copy.deepcopy(s.unet)
+    plain.use_checkpoint = False
+    steps = make_edm_steps(autoencoder=s.ae)
+    per_step = len(s.opt_gn) + len(s.opt_enc_gn)
+    runs = {}
+    for mode, unet in (("checkpointed", s.unet), ("plain", plain)):
+        st = TrainState(unet, make_optimizer("adam", unet, 1e-4), schedule)
+        losses = []
+        timed, marks = tail_timed(steps[0], OPT_STEPS, OPT_STEPS // 2)
+
+        def step(state, batch, _timed=timed, _losses=losses, **kw):
+            out = _timed(state, batch, **kw)
+            _losses.append(out["loss"])
+            return out
+
+        # the recomputation relaunches each ResBlock's two GroupNorms in the backward
+        gn = (per_step + 2 * s.n_res * (mode == "checkpointed")) * OPT_STEPS
+        counts[f"options {mode} train"], _ = counted_fit(
+            f"options-{mode}", (step, steps[1]), st, flagship_loader(), max_steps=OPT_STEPS,
+            want=want_launches(gn, len(s.opt_fa) * OPT_STEPS, len(s.opt_fa) * OPT_STEPS),
+            want_gn_bwd=len(s.opt_gn) * OPT_STEPS, lr_schedule=schedule)
+        rates[f"options {mode}"] = tail_rate(
+            f"options flagship, {mode}, batch {TRAIN_BATCH}, bf16", marks, TRAIN_BATCH,
+            OPT_STEPS // 2)
+        runs[mode] = (st, losses)
+    (ckpt_state, ckpt_losses), (plain_state, plain_losses) = runs["checkpointed"], runs["plain"]
+    first_equal = torch.equal(ckpt_losses[0], plain_losses[0])
+    loss_rel = max(abs(a.item() - b.item()) / abs(b.item())
+                   for a, b in zip(ckpt_losses, plain_losses))
+    shares = [tol_share(a, b, torch.bfloat16, TOL) for a, b in
+              zip(ckpt_state.model.parameters(), plain_state.model.parameters())]
+    mem = {}
+    batch = next(iter(flagship_loader()))
+    for mode, (st, _) in runs.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        steps[0](st, batch, generator=torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        mem[mode] = {"step_gib": round((peak - base) / 2**30, 3),
+                     "peak_gib": round(peak / 2**30, 3)}
+    log(f"[options] first step's loss checkpointed {ckpt_losses[0].item():.8e} plain "
+        f"{plain_losses[0].item():.8e} bit-identical {first_equal}; largest relative loss "
+        f"difference over {OPT_STEPS} steps {loss_rel:.3e}; parameters after them: largest error "
+        f"as a share of the bf16 tolerance {max(shares):.3f} over {len(shares)} tensors; "
+        f"memory of one step (allocated above the state, and the peak) {json.dumps(mem)}; "
+        f"samples/s {json.dumps({k: round(v, 2) for k, v in rates.items()})}; {card_line()}")
+    if not first_equal or max(shares) > 1.0:
+        fail("4n: the checkpointed options flagship departs from the plain one")
+    del plain, plain_state, runs
+    torch.cuda.empty_cache()
+
+    # the trained UNet and the autoencoder as the port's runs, rebuilt from hparams.json
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_4n"
+    shutil.rmtree(work, ignore_errors=True)
+    outputs = Path(configs.LatentSpectrogramConfig(workdir=str(work)).outputdir)
+    ae_train = copy.deepcopy(s.ae).requires_grad_(True).train()
+    ae_state = TrainState(ae_train, make_optimizer("adamw", ae_train, 1e-4, 1e-4))
+    for name, st, hparams in (
+            (common.RUN_NAME, ckpt_state, {"kind": "edm", "dims": 2, "latent": True,
+                                           "ae_name": common.AE_NAME, "dtype": "bf16",
+                                           "unet": s.ucfg}),
+            (common.AE_NAME, ae_state, common.autoencoder_hparams(config, s.enc_cfg,
+                                                                 s.dec_cfg))):
+        ckpt = Checkpointer(outputs / name / "checkpoints")
+        ckpt.save(st.step, st)
+        ckpt.save_hyperparameters(hparams)
+        diffs = hparams_diff(ckpt.restore_hyperparameters(), hparams)
+        if diffs:
+            fail(f"4n: {name}'s hparams.json does not round-trip: {diffs}")
+    heun = common.build_inference(workdir=work, dtype=torch.bfloat16, num_steps=25,
+                                  solver="heun", gl_iters=32, device=dev)
+    unet = heun.unet
+    rebuilt = (unet.cond_embed is not None and unet.use_checkpoint
+               and unet.mid_res1.use_scale_shift_norm and heun.model_shape == s.model_shape
+               and all(m.op is None for n, m in unet.named_children() if n.endswith("sample")
+                       and hasattr(m, "op")))
+    if not rebuilt:
+        fail(f"4n: build_inference rebuilt another UNet or latent {heun.model_shape}")
+    dpmpp = copy.copy(heun)
+    dpmpp.num_steps, dpmpp.solver = 10, "dpmpp_2m"
+    cond = torch.randn(BATCH, 5, generator=gen, device=dev)
+    dpmpp.generate(cond, generator=gen)  # warm-up at its shapes (cuDNN plans)
+    for name, bundle, evals in (("heun-25", heun, 49), ("dpmpp_2m-10", dpmpp, 10)):
+        wave, sec = counted(f"options {name}", lambda: bundle.generate(cond, generator=gen),
+                            want_launches(evals * len(s.opt_gn) + len(s.opt_dec_gn),
+                                          evals * len(s.opt_fa)))
+        rates[f"options {name}"] = BATCH / sec
+        waveforms_ok(f"options {name} + Griffin-Lim 32, {BATCH / sec:.2f} waveforms/s", wave)
+    del heun, dpmpp, unet
+    b32 = common.build_inference(workdir=work, dtype=torch.float32, num_steps=2, solver="heun",
+                                 device=dev)
+    noise = torch.randn(F32_BATCH, *b32.model_shape, generator=gen, device=dev)
+    with torch.no_grad():
+        with_kernels = b32.sample(cond[:F32_BATCH], noise=noise)
+        with plain_versions():
+            want = b32.sample(cond[:F32_BATCH], noise=noise)
+    peak, err = want.abs().max().item(), (with_kernels - want).abs().max().item()
+    log(f"[options-f32] Heun-2 decoded spectrograms {tuple(want.shape)} of the rebuilt run: "
+        f"kernels vs plain max_abs_err={err:.3e} (peak {peak:.3e}, tol 1e-4 * peak)")
+    if not (torch.isfinite(with_kernels).all() and err <= 1e-4 * peak):
+        fail("4n: the f32 options sample through the kernels disagrees with the plain versions")
+    del b32
+    shutil.rmtree(work, ignore_errors=True)
+    n_ae = len(s.opt_enc_gn) + len(s.opt_dec_gn)
+    counts["options autoencoder train"], _ = counted_fit(
+        "options-ae", make_autoencoder_steps(kl_weight=config.kl_weight, ema_decay=0.0),
+        ae_state, flagship_loader(("signal",)), max_steps=1, want=want_launches(n_ae),
+        want_gn_bwd=n_ae)
+    del ae_state, ae_train, ckpt_state
+    torch.cuda.empty_cache()
+
+    # (b) the paired flagship
+    obs, syn = paired_tables(arrays["waveforms"])
+    paired = {training: PairedDataset(obs, syn, representation, cut=config.t, training=training)
+              for training in (True, False)}
+    n = len(arrays["waveforms"])
+    dropped = len(set(range(0, n, 16)) | set(range(8, n, 32)))
+    log(f"[paired] {n} records, {dropped} filtered out: {len(paired[True])} for training, "
+        f"{len(paired[False])} for validation")
+    if len(paired[True]) + len(paired[False]) != n - dropped:
+        fail(f"4n: the paired filters kept {len(paired[True])} + {len(paired[False])} rows")
+
+    def paired_loader(datasets, batch_size=TRAIN_BATCH, training=True,
+                      keys=("signal", "cond_signal")):
+        return BatchLoader(datasets[training], batch_size, shuffle=training, device=dev,
+                           keys=keys, seed=SEED)
+
+    pstate = TrainState(s.unet_p, make_optimizer("adam", s.unet_p, 1e-4), schedule)
+    psteps = make_edm_steps(autoencoder=ae_t)
+    timed, marks = tail_timed(psteps[0], PAIRED_STEPS, PAIRED_STEPS // 2)
+    counts["paired train"], _ = counted_fit(
+        "paired-train", (timed, psteps[1]), pstate, paired_loader(paired),
+        max_steps=PAIRED_STEPS,
+        want=want_launches((len(s.p_gn) + 2 * len(enc_gn)) * PAIRED_STEPS,
+                           len(s.p_fa) * PAIRED_STEPS, len(s.p_fa) * PAIRED_STEPS),
+        want_gn_bwd=len(s.p_gn) * PAIRED_STEPS, lr_schedule=schedule)
+    rates["paired train"] = tail_rate(f"paired flagship, batch {TRAIN_BATCH}, bf16", marks,
+                                      TRAIN_BATCH, PAIRED_STEPS // 2)
+    pae = copy.deepcopy(ae_t).requires_grad_(True).train()
+    n_ae = len(enc_gn) + len(dec_gn)
+    counts["paired autoencoder train"], rows = counted_fit(
+        "paired-ae", make_autoencoder_steps(kl_weight=config.kl_weight, ema_decay=0.0),
+        TrainState(pae, make_optimizer("adamw", pae, 1e-4, 1e-4)), paired_loader(paired),
+        max_steps=1, want=want_launches(2 * n_ae), want_gn_bwd=2 * n_ae)
+    metrics = {k: v for r in rows for k, v in r.items() if k.startswith("training/")}
+    log(f"[paired-ae] one step on a paired batch of {TRAIN_BATCH}: {json.dumps(metrics)}")
+    if not {"training/cond_reconstruction_loss", "training/cond_kl_divergence"} <= set(metrics) \
+            or not all(map(math.isfinite, metrics.values())):
+        fail(f"4n: the paired autoencoder step's metrics {metrics}")
+    del pae
+    cond_signal = next(iter(paired_loader(paired, BATCH, False, ("cond_signal",)))
+                       )["cond_signal"]
+
+    def paired_sample():
+        z = sample_edm(pstate.ema, (BATCH, *s.model_shape), autoencoder=ae_t, num_steps=10,
+                       solver="dpmpp_2m", cast_params=torch.bfloat16, cond_signal=cond_signal,
+                       generator=gen, device=dev)
+        return gl32.invert_representation(z.movedim(-1, 1), generator=gen)
+
+    paired_sample()  # warm-up at its shapes
+    wave, sec = counted("paired dpmpp_2m-10", paired_sample, want_launches(
+        10 * len(s.p_gn) + len(enc_gn) + len(dec_gn), 10 * len(s.p_fa)))
+    rates["paired dpmpp_2m-10"] = BATCH / sec
+    waveforms_ok(f"paired dpmpp_2m-10 from a validation cond_signal + Griffin-Lim 32, "
+                 f"{BATCH / sec:.2f} waveforms/s", wave)
+    del pstate
+    torch.cuda.empty_cache()
+
+    # (c) paired consistency and DDPM on the 1d_edm UNet, at reduced depth
+    env = s.env_config
+    envelope = env.make_representation()
+    paired_1d = {training: PairedDataset(obs, syn, envelope, cut=env.t, training=training)
+                 for training in (True, False)}
+    cond_signal = next(iter(paired_loader(paired_1d, BATCH, False, ("cond_signal",)))
+                       )["cond_signal"]
+    n1, f1, k = len(s.u1_gn), len(s.u1_fa), PAIRED_1D_STEPS
+    shape = (BATCH, *s.sig_1d)
+    cst = TrainState(s.cons_unet, make_optimizer("radam", s.cons_unet, 1e-4))
+    counts["paired consistency train"], _ = counted_fit(
+        "paired-consistency", make_consistency_steps(ConsistencyConfig(), NEW_MAX_STEPS), cst,
+        paired_loader(paired_1d, PAIRED_1D_BATCH), max_steps=k,
+        want=want_launches(2 * n1 * k, 2 * f1 * k, f1 * k), want_gn_bwd=n1 * k)
+    dst = TrainState(s.ddpm_unet, make_optimizer("adamw", s.ddpm_unet, 1e-4, 0.0))
+    counts["paired ddpm train"], _ = counted_fit(
+        "paired-ddpm", ddpm_lib.make_ddpm_steps(ddpm_lib.DDPMConfig()), dst,
+        paired_loader(paired_1d, PAIRED_1D_BATCH), max_steps=k,
+        want=want_launches(n1 * k, f1 * k, f1 * k), want_gn_bwd=n1 * k)
+    with torch.no_grad():
+        for label, fn, evals in (
+                ("paired consistency 2 evals", lambda: sample_consistency(
+                    cst.ema, shape, None, sigmas=(1.0,), cond_signal=cond_signal, generator=gen,
+                    device=dev), 2),
+                (f"paired ddpm {PAIRED_DDPM_STEPS} timesteps", lambda: ddpm_lib.ddpm_sample(
+                    ddpm_lib.DDPMConfig(num_train_timesteps=PAIRED_DDPM_STEPS), dst.ema, shape,
+                    cond_signal=cond_signal, generator=gen, device=dev), PAIRED_DDPM_STEPS)):
+            signal, sec = counted(label, fn, want_launches(evals * n1, evals * f1))
+            rates[label] = BATCH / sec
+            waveforms_ok(f"{label}, the envelope inverse, {BATCH / sec:.2f} waveforms/s",
+                         envelope.invert_representation(signal.movedim(-1, 1)))
+    log(f"[4n-rates] {json.dumps({k_: round(v, 2) for k_, v in rates.items()})}; {card_line()}")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2140,6 +2517,10 @@ def main():
         if (len(gn), len(fa)) != (NEW_FORWARDS[key] * len(u_gn), NEW_FORWARDS[key] * len(u_fa)):
             fail(f"{key}: a train step's forwards are not {NEW_FORWARDS[key]} UNet evals")
 
+    # the UNet's options and paired data (4n): the options flagship and its resample-free
+    # autoencoder, the paired flagship UNet and the paired 1D UNets, one forward each
+    s4n = setup_4n(dev, gen)
+
     # ---- 2. kernels against their plain versions ------------------------------
     phase("2. kernels against their plain versions")
     errs = {}
@@ -2165,6 +2546,11 @@ def main():
                      (NEW_BATCH,))
     # the sampling-eval callback's: the EMA UNet and the decoder at the validation batch
     bad += gn_checks(cb_gn + cb_dec, (CB_BATCH,))
+    # 4n's: the options flagship's (GroupNorm without SiLU at every scale-shift out_norm) and
+    # its autoencoder's at the training and sampling batches, the paired 1D UNet's at 64 and 32
+    bad += gn_checks(s4n.opt_gn + s4n.opt_enc_gn + s4n.opt_dec_gn + s4n.p_gn,
+                     (TRAIN_BATCH, BATCH))
+    bad += gn_checks(s4n.u1_gn, (PAIRED_1D_BATCH, BATCH))
     path_fa = [(CLF_TRAIN_BATCH, length, h, d) for _, length, h, d, _ in clf_train_fa]
     path_fa += [(BATCH, length, h, d) for key in SAMPLERS
                 for _, length, h, d, _ in sampler_calls[key][1]]
@@ -2175,6 +2561,10 @@ def main():
     path_fa += [(NEW_BATCH, length, h, d) for key in NEW_RECIPES
                 for _, length, h, d, _ in new_calls[key][1]]
     path_fa += [(CB_BATCH, length, h, d) for _, length, h, d, _ in cb_fa]
+    path_fa += [(b_, length, h, d) for _, length, h, d, _ in s4n.opt_fa + s4n.p_fa
+                for b_ in (TRAIN_BATCH, BATCH)]
+    path_fa += [(b_, length, h, d) for _, length, h, d, _ in s4n.u1_fa
+                for b_ in (PAIRED_1D_BATCH, BATCH)]
     bad += check_flash_kernels(gen, dev, errs, path_fa)
     torch.cuda.synchronize()
     if bad:
@@ -2678,6 +3068,13 @@ def main():
     data_scans(dev)
     torch.cuda.empty_cache()
 
+    # ---- 4n. the UNet's options and paired (cond_signal) data --------------------------------
+    phase("4n. the UNet's options and paired (cond_signal) data")
+    opt_counts = options_and_paired_path(dev, s4n, arrays, ae_t, enc_gn, dec_gn)
+    for run_counts in opt_counts.values():
+        launches = {k: launches[k] + v for k, v in run_counts.items()}
+    torch.cuda.empty_cache()
+
     # ---- 5. timings --------------------------------------------------------------
     phase("5. timings")
     for name, bundle in bundles.items():
@@ -3057,6 +3454,22 @@ def main():
             else "operations"}
         log(f"[time] {name} over {cb_label}: {json.dumps(cb_sums[name])}")
 
+    # 4n: GroupNorm without SiLU (the scale-shift out_norm of every ResBlock and the
+    # attention blocks' norms) in one options flagship train step's UNet forward
+    opt_label = (f"the GroupNorm calls without SiLU of one options flagship UNet forward, "
+                 f"batch {TRAIN_BATCH}, bf16")
+    plain_gn = [key for key in s4n.opt_gn if not key[-1]]
+    opt_rows = [gn_row(*key, calls=plain_gn.count(key), batch=TRAIN_BATCH)
+                for key in dict.fromkeys(plain_gn)]
+    for r in opt_rows:
+        log(f"[time] {opt_label}: {json.dumps(r)}")
+    opt_sums = {k: summed(opt_rows, k) for k in ("ms", "bound_ms", "plain_ms", "library_ms",
+                                                 "issue_ms")} | {
+        "calls": summed(opt_rows, "one"), "per": opt_label,
+        "bound_by": "bytes" if summed(opt_rows, "bytes_ms") >= summed(opt_rows, "ops_ms")
+        else "operations"}
+    log(f"[time] group_norm_silu over {opt_label}: {json.dumps(opt_sums)}")
+
     phase("the kernels line")
     kernels = []
     for name, rows, source, replaces in (
@@ -3083,7 +3496,8 @@ def main():
                               **{run: c[name] for run, c in new_counts.items()},
                               **{run: c[name] for run, c in few_counts.items()},
                               **{run: c[name] for run, c in cb_counts.items()},
-                              **{f"4m {run}": c[name] for run, c in ckpt_counts.items()}},
+                              **{f"4m {run}": c[name] for run, c in ckpt_counts.items()},
+                              **{f"4n {run}": c[name] for run, c in opt_counts.items()}},
             classifier_forward=clf_sums[name] | {"per": f"one classifier forward, batch {BATCH}, "
                                                         f"bf16"},
             classifier_train_step=clf_step_sums[name],
@@ -3091,6 +3505,7 @@ def main():
             few_eval_ddpm_recipes=few_sums[name],
             sampling_eval_callback=cb_sums[name],
         ))
+    kernels[0]["scale_shift_norm"] = opt_sums
     for name, line in (("flash_attention_bwd_dkdv", 209), ("flash_attention_bwd_dq", 274)):
         rows = [row[name] for row in bwd]
         kernels.append(dict(
@@ -3108,7 +3523,8 @@ def main():
                               **{run: c[name] for run, c in recipe_counts.items()},
                               **{run: c[name] for run, c in new_counts.items()},
                               **{run: c[name] for run, c in few_counts.items()},
-                              **{run: c[name] for run, c in cb_counts.items()}},
+                              **{run: c[name] for run, c in cb_counts.items()},
+                              **{f"4n {run}": c[name] for run, c in opt_counts.items()}},
             classifier_train_step=clf_step_sums[name],
             edm_recipes=new_sums[name],
             few_eval_ddpm_recipes=few_sums[name],

@@ -33,7 +33,7 @@ def _reference_unet_key(key: str, port_sd: dict) -> str:
         return f"middle_block.{0 if top == 'mid_res1' else 2}.{_block('res', rest)}"
     if top in ("time_mlp", "cond_mlp"):
         return f"{top}.{ {'fc1': '0', 'fc2': '2'}[rest.split('.')[0]]}.{rest.split('.')[1]}"
-    if top == "time_embed":
+    if top in ("time_embed", "cond_embed"):
         return key
     side, i, kind = re.fullmatch(r"(down|up)_(\d+)_(\w+)", top).groups()
     i = int(i)

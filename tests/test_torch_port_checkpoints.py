@@ -166,10 +166,23 @@ def test_converter_matches_jax(ckpts, rng, name):
         np.testing.assert_allclose(g.numpy(), w, rtol=RTOL, atol=ATOL)
 
 
-def test_unet_with_a_conditioning_embedding_is_refused(ckpts):
-    sd = dict(ckpts["edm"]["live"], **{"cond_embed.W": np.zeros(16, np.float32)})
-    with pytest.raises(ValueError, match="per-feature conditioning embedding"):
-        convert.convert_unet(sd, ckpts["edm"]["cfg"])
+@pytest.mark.parametrize("cond_emb_scale", [None, 1.0])
+def test_unet_with_a_conditioning_embedding_is_refused(ckpts, cond_emb_scale):
+    """A checkpoint with the per-feature conditioning embedding converts when
+    the config sets ``cond_emb_scale`` (``cond_embed.W`` carried over, the
+    conditioning MLP then as wide as the embedding), and is refused, naming
+    the option, when it does not."""
+    w = np.arange(16, dtype=np.float32)
+    sd = dict(ckpts["edm"]["live"], **{"cond_embed.W": w})
+    cfg = dict(ckpts["edm"]["cfg"], cond_emb_scale=cond_emb_scale)
+    if cond_emb_scale is None:
+        with pytest.raises(ValueError, match="per-feature conditioning embedding.*cond_emb_scale"):
+            convert.convert_unet(sd, cfg)
+        return
+    sd["cond_mlp.0.weight"] = np.zeros((sd["cond_mlp.0.weight"].shape[0], 5 * 32), np.float32)
+    got = convert.convert_unet(sd, cfg)
+    np.testing.assert_array_equal(got["cond_embed.W"].numpy(), w)
+    UNet(**cfg).load_state_dict(got)  # strict: every name and shape
 
 
 @pytest.mark.parametrize("where", ["top", "callbacks", "absent"])

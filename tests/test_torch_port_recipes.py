@@ -248,8 +248,13 @@ def test_autoencoder_step_matches_jax(rng):
     for k in ("reconstruction_loss", "kl_divergence", "loss"):
         np.testing.assert_allclose(got[k].item(), float(want[k]), rtol=RTOL, atol=ATOL, err_msg=k)
     assert_grads_close(port, want_grads)
-    with pytest.raises(ValueError, match="cond_signal"):
-        autoencoder_losses(port, {"signal": _t(signal), "cond_signal": _t(signal)})
+    # a paired batch is taken: the signal again as its cond_signal, with the same eps,
+    # gives the same terms, and the objective adds them
+    paired = autoencoder_losses(port, {"signal": _t(signal), "cond_signal": _t(signal)},
+                                kl_weight=0.1, draws={"ae_eps": _t(eps), "cond_ae_eps": _t(eps)})
+    for k in ("reconstruction_loss", "kl_divergence"):
+        assert paired[f"cond_{k}"].item() == paired[k].item(), k
+    np.testing.assert_allclose(paired["loss"].item(), 2 * got["loss"].item(), rtol=1e-6)
 
 
 @pytest.fixture(scope="module")

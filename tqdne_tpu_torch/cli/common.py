@@ -123,15 +123,16 @@ def tuplify(cfg: dict) -> dict:
     return {k: tuple(v) if isinstance(v, list) else v for k, v in cfg.items()}
 
 
-def build_autoencoder(config, dtype=None, *, dims: int = 2, tiny: bool = False):
+def build_autoencoder(config, dtype=None, *, dims: int = 2, tiny: bool = False, **overrides):
     """The 1D or 2D autoencoder preset computing in ``dtype`` over f32
-    parameters (None: in its weights' dtype); returns (module, encoder config,
-    decoder config)."""
+    parameters (None: in its weights' dtype), with ``overrides`` (e.g.
+    ``conv_resample``) set in both the encoder's and the decoder's config;
+    returns (module, encoder config, decoder config)."""
     get = configs.get_1d_autoencoder_configs if dims == 1 else configs.get_2d_autoencoder_configs
     enc_cfg, dec_cfg = get(config)
     if tiny:
-        enc_cfg = enc_cfg | {"model_channels": TINY_CHANNELS}
-        dec_cfg = dec_cfg | {"model_channels": TINY_CHANNELS}
+        overrides = {"model_channels": TINY_CHANNELS} | overrides
+    enc_cfg, dec_cfg = enc_cfg | overrides, dec_cfg | overrides
     return set_compute_dtype(AutoencoderKL(enc_cfg, dec_cfg), dtype), enc_cfg, dec_cfg
 
 
@@ -207,9 +208,12 @@ def signal_shape(config) -> tuple[int, ...]:
 
 def latent_shape(enc_cfg: dict, sig_shape: tuple[int, ...]) -> tuple[int, ...]:
     """Channels-last latent shape (the JAX ``infer_latent_shape``): one
-    stride-2 convolution per extra level."""
+    stride-2 convolution (rounding up) or, without ``conv_resample``, one
+    2-wide average pool (rounding down) per extra level."""
     factor = 2 ** (len(enc_cfg["channel_mult"]) - 1)
-    return (*(-(-s // factor) for s in sig_shape[:-1]), enc_cfg["out_channels"] // 2)
+    if enc_cfg.get("conv_resample", True):
+        return (*(-(-s // factor) for s in sig_shape[:-1]), enc_cfg["out_channels"] // 2)
+    return (*(s // factor for s in sig_shape[:-1]), enc_cfg["out_channels"] // 2)
 
 
 def ensure_dataset(config, synthetic_n: int | None):

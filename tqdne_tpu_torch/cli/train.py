@@ -47,7 +47,7 @@ JAX step factories' defaults (the EDM kinds Heun at 25 steps, decoded for a
 latent recipe; the consistency kinds one eval and one refinement at sigma 1;
 DDPM its timesteps), writes the isotropic ASD of each channel as
 ``eval/<metric>`` and, where matplotlib is installed, the figures under
-``W/outputs/<run>/plots/epoch_<e>/``.  Not ported yet: ``cond_signal`` pairs.
+``W/outputs/<run>/plots/epoch_<e>/``.
 """
 
 from __future__ import annotations

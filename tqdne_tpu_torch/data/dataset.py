@@ -1,6 +1,6 @@
 """Waveform datasets: the port of ``Dataset``, ``CachedLatentsDataset``,
-``ClassificationDataset``, ``split_indices``, ``_row_gather`` and
-``make_synthetic_dataset`` in ``tqdne_tpu/data/dataset.py``.
+``ClassificationDataset``, ``PairedDataset``, ``split_indices``,
+``_row_gather`` and ``make_synthetic_dataset`` in ``tqdne_tpu/data/dataset.py``.
 
 Storage contract of ``preprocessed_waveforms.h5``: ``waveforms`` (N, 3, T)
 float32, ``normalized_features`` (N, 5) float32, ``indices_valid_waveforms``
@@ -191,6 +191,69 @@ class ClassificationDataset(_Batches):
         if keys is None or "label" in keys:
             out["label"] = self.labels[self.indices[batch_indices]].astype(np.int32)
         return out
+
+
+class PairedDataset:
+    """Paired observed/synthetic waveforms for signal-to-signal tasks
+    (upsampling, simulation enhancement): ``obs`` and ``syn``, each an HDF5
+    file or a dict of arrays with ``waveforms`` (N, C, T) and optional
+    per-trace ``snr`` (N, C) and ``data_ratio`` (N,).
+
+    Rows are kept where every channel's SNR exceeds ``snr_min`` and the data
+    ratio is under ``ratio_max`` in both tables, over their first
+    min(N_obs, N_syn) rows; a seed-42 permutation of the kept rows gives the
+    first 90% to training and the rest to ``training=False``.  Batches hold
+    ``waveform`` and ``cond_waveform`` (the observed and synthetic records,
+    cut to ``cut`` samples and zero-padded to it, NaNs as 0) and their
+    representations ``signal`` and ``cond_signal``, all channels-first.
+    ``load_batch`` returns the rows in storage order, not in the order asked,
+    as the JAX class does."""
+
+    def __init__(self, obs, syn, representation, cut: int | None = None, training: bool = True,
+                 snr_min: float = 1.5, ratio_max: float = 10.0):
+        self.representation = representation
+        self.cut = cut
+        self.obs, self.obs_file = _open(obs)
+        self.syn, self.syn_file = _open(syn)
+        n = min(len(self.obs["waveforms"]), len(self.syn["waveforms"]))
+        mask = np.ones(n, bool)
+        for table in (self.obs, self.syn):
+            if "snr" in table:
+                mask &= (np.asarray(table["snr"][:n]) > snr_min).all(axis=-1)
+            if "data_ratio" in table:
+                mask &= np.asarray(table["data_ratio"][:n]) < ratio_max
+        indices = np.nonzero(mask)[0]
+        shuffled = np.random.default_rng(seed=42).permutation(indices)
+        n_train = int(len(indices) * 0.9)
+        self.indices = shuffled[:n_train] if training else shuffled[n_train:]
+
+    def __len__(self) -> int:
+        return len(self.indices)
+
+    def close(self):
+        for file in (self.obs_file, self.syn_file):
+            if file is not None:
+                file.close()
+
+    def _fit(self, x: np.ndarray) -> np.ndarray:
+        if self.cut:
+            x = x[..., : self.cut]
+            if x.shape[-1] < self.cut:
+                x = np.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, self.cut - x.shape[-1])])
+        return np.nan_to_num(x).astype(np.float32)
+
+    def load_batch(self, batch_indices: np.ndarray, keys: tuple[str, ...] | None = None) -> dict:
+        """The rows ``batch_indices`` (split-relative) in sorted order; ``keys``
+        is accepted as the loaders pass it, and every column is read."""
+        idx = np.sort(self.indices[batch_indices])
+        obs = self._fit(self.obs["waveforms"][idx])
+        syn = self._fit(self.syn["waveforms"][idx])
+
+        def rep(x):
+            return self.representation.get_representation(torch.from_numpy(x)).numpy() \
+                .astype(np.float32, copy=False)
+
+        return {"waveform": obs, "cond_waveform": syn, "signal": rep(obs), "cond_signal": rep(syn)}
 
 
 def synthetic_arrays(n: int = 64, channels: int = 3, t: int = 4096, seed: int = 0) -> dict:

@@ -110,7 +110,8 @@ def sample(denoise_fn: DenoiseFn, shape: tuple[int, ...], cfg: EDMConfig = EDMCo
            device="cuda") -> torch.Tensor:
     """Integrate the EDM probability-flow ODE from ``noise`` (a standard-normal
     draw of ``shape``; drawn from ``generator`` on ``device`` when None) with
-    f32 accumulators.
+    f32 accumulators (float64 ones for a float64 ``noise``, as parity tests
+    take them).
 
     solver: "heun" (2N-1 evaluations) or "dpmpp_2m" (N, deterministic only).
     """
@@ -121,7 +122,7 @@ def sample(denoise_fn: DenoiseFn, shape: tuple[int, ...], cfg: EDMConfig = EDMCo
     sigmas = sampling_sigmas(cfg, num_steps)
     if noise is None:
         noise = torch.randn(shape, generator=generator, device=resolve_device(device))
-    eps = noise.float() * sigmas[0].item()
+    eps = noise.to(torch.promote_types(noise.dtype, torch.float32)) * sigmas[0].item()
     if solver == "dpmpp_2m":
         return dpmpp_2m(denoise_fn, eps, sigmas)
     if deterministic:

@@ -59,7 +59,8 @@ class Encoder(_ConvStack):
     def __init__(self, in_channels: int, model_channels: int, out_channels: int,
                  num_res_blocks: int, attention_resolutions: Sequence[int] = (),
                  dropout: float = 0.0, channel_mult: Sequence[int] = (1, 2, 4, 8),
-                 conv_kernel_size: int = 3, dims: int = 2, num_heads: int = 1):
+                 conv_kernel_size: int = 3, conv_resample: bool = True, dims: int = 2,
+                 num_heads: int = 1):
         super().__init__()
         self.order = []
         k = conv_kernel_size
@@ -75,7 +76,7 @@ class Encoder(_ConvStack):
                     self._add(f"down_{block}_attn", AttentionBlock(ch, num_heads, dims))
                 block += 1
             if level != len(channel_mult) - 1:
-                self._add(f"down_{block}_downsample", Downsample(ch, dims, ch))
+                self._add(f"down_{block}_downsample", Downsample(ch, conv_resample, dims, ch))
                 ds *= 2
                 block += 1
         self.out_conv = conv_nd(dims, ch, out_channels, k)
@@ -87,7 +88,8 @@ class Decoder(_ConvStack):
     def __init__(self, in_channels: int, model_channels: int, out_channels: int,
                  num_res_blocks: int, attention_resolutions: Sequence[int] = (),
                  dropout: float = 0.0, channel_mult: Sequence[int] = (1, 2, 4, 8),
-                 conv_kernel_size: int = 3, dims: int = 2, num_heads: int = 1):
+                 conv_kernel_size: int = 3, conv_resample: bool = True, dims: int = 2,
+                 num_heads: int = 1):
         super().__init__()
         self.order = []
         k = conv_kernel_size
@@ -96,7 +98,7 @@ class Decoder(_ConvStack):
         ds, block = 2 ** (len(channel_mult) - 1), 0
         for level, mult in reversed(list(enumerate(channel_mult))):
             if level != len(channel_mult) - 1:
-                self._add(f"up_{block}_upsample", Upsample(ch, dims, ch))
+                self._add(f"up_{block}_upsample", Upsample(ch, conv_resample, dims, ch))
                 ds //= 2
                 block += 1
             for _ in range(num_res_blocks):

@@ -101,6 +101,7 @@ class GaussianFourierProjection(nn.Module):
 
     def __init__(self, channels: int, scale: float = 0.02):
         super().__init__()
+        self.scale = scale  # W ~ N(0, scale^2)
         self.W = nn.Parameter(torch.randn(channels // 2) * scale, requires_grad=False)
 
     def forward(self, x):
@@ -109,27 +110,35 @@ class GaussianFourierProjection(nn.Module):
 
 
 class Upsample(nn.Module):
-    """Nearest-neighbour x2 upsampling then a convolution."""
+    """Nearest-neighbour x2 upsampling, then a convolution when ``use_conv``."""
 
-    def __init__(self, channels: int, dims: int = 2, out_channels: int | None = None,
-                 kernel_size: int = 3):
+    def __init__(self, channels: int, use_conv: bool = True, dims: int = 2,
+                 out_channels: int | None = None, kernel_size: int = 3):
         super().__init__()
-        self.conv = conv_nd(dims, channels, out_channels or channels, kernel_size)
+        self.conv = conv_nd(dims, channels, out_channels or channels, kernel_size) \
+            if use_conv else None
 
     def forward(self, x):
-        return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
+        x = F.interpolate(x, scale_factor=2, mode="nearest")
+        return x if self.conv is None else self.conv(x)
 
 
 class Downsample(nn.Module):
-    """Stride-2 convolution."""
+    """Stride-2 convolution, or without ``use_conv`` a 2-wide average pool
+    with stride 2 (flax ``avg_pool``: VALID, an odd last row dropped)."""
 
-    def __init__(self, channels: int, dims: int = 2, out_channels: int | None = None,
-                 kernel_size: int = 3):
+    def __init__(self, channels: int, use_conv: bool = True, dims: int = 2,
+                 out_channels: int | None = None, kernel_size: int = 3):
         super().__init__()
-        self.op = conv_nd(dims, channels, out_channels or channels, kernel_size, stride=2)
+        if not use_conv and (out_channels or channels) != channels:
+            raise ValueError(f"an average-pool Downsample keeps its {channels} channels, "
+                             f"not {out_channels}")
+        self.op = conv_nd(dims, channels, out_channels or channels, kernel_size, stride=2) \
+            if use_conv else None
+        self.pool = F.avg_pool1d if dims == 1 else F.avg_pool2d
 
     def forward(self, x):
-        return self.op(x)
+        return self.pool(x, 2, 2) if self.op is None else self.op(x)
 
 
 class MLP(nn.Module):

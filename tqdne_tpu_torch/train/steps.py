@@ -5,13 +5,16 @@
 
 Batches are dicts of channels-last tensors: ``signal`` (B, *S, C), or with
 a ``device_representation`` the raw ``waveform`` (B, T, C) that the step
-turns into the signal on the device; ``cond`` (B, F); with cached latents
-``latent_mean``/``latent_log_std``; ``label`` (B,) for the classifier.
-The frozen autoencoder encodes the signal inside the EDM step, without
-gradients.  Every random draw of a step (the encoder's eps, the sigma
-normal, the diffusion noise) is injectable, as the parity tests need; left
-out, each comes from the step's ``generator`` in that order.  Dropout draws
-from the device's default generator.
+turns into the signal on the device; ``cond`` (B, F); a paired batch's
+``cond_signal`` (B, *S, C), which the network sees concatenated after its
+input on the channel axis; with cached latents ``latent_mean``/
+``latent_log_std``; ``label`` (B,) for the classifier.  The frozen
+autoencoder encodes the signal (and a ``cond_signal``, with a draw of its
+own) inside the EDM step, without gradients.  Every random draw of a step
+(the encoder's eps, the ``cond_signal`` encoder's eps, the sigma normal,
+the diffusion noise) is injectable, as the parity tests need; left out,
+each comes from the step's ``generator`` in that order.  Dropout draws from
+the device's default generator.
 """
 
 from __future__ import annotations
@@ -33,11 +36,6 @@ def _signal(batch: dict, device_representation=None):
     if device_representation is not None:
         return device_representation(batch["waveform"])
     return batch["signal"]
-
-
-def _no_cond_signal(batch: dict):
-    if batch.get("cond_signal") is not None:
-        raise ValueError("cond_signal pairs are not ported yet")
 
 
 def training_sample(batch: dict, *, autoencoder=None, latent_moments: bool = False,
@@ -65,16 +63,23 @@ def edm_step_loss(unet, batch: dict, edm_cfg: edm_lib.EDMConfig = edm_lib.EDMCon
                   autoencoder=None, latent_moments: bool = False, device_representation=None,
                   draws: dict | None = None, generator: torch.Generator | None = None):
     """The JAX ``_loss`` of ``make_edm_steps``: encode (or sample the cached
-    moments), then ``edm_loss`` through ``unet``.  ``draws`` may hold
-    ``ae_eps``, ``sigma_eps`` and ``noise``."""
+    moments), encode a ``cond_signal`` with its own draw when there is an
+    autoencoder, then ``edm_loss`` through ``unet``.  ``draws`` may hold
+    ``ae_eps``, ``cond_ae_eps``, ``sigma_eps`` and ``noise``."""
     draws = draws or {}
-    _no_cond_signal(batch)
+    cond_signal = batch.get("cond_signal")
+    if latent_moments and cond_signal is not None:
+        raise ValueError("cached latents do not support cond_signal pairs")
     sample = training_sample(batch, autoencoder=autoencoder, latent_moments=latent_moments,
                              device_representation=device_representation,
                              ae_eps=draws.get("ae_eps"), generator=generator)
-    return edm_lib.edm_loss(edm_cfg, unet, sample, cond=batch.get("cond"),
-                            sigma_eps=draws.get("sigma_eps"), noise=draws.get("noise"),
-                            generator=generator)
+    if cond_signal is not None and autoencoder is not None:
+        with torch.no_grad():
+            cond_signal = autoencoder.encode(cond_signal, eps=draws.get("cond_ae_eps"),
+                                             generator=generator)
+    return edm_lib.edm_loss(edm_cfg, unet, sample, cond_signal=cond_signal,
+                            cond=batch.get("cond"), sigma_eps=draws.get("sigma_eps"),
+                            noise=draws.get("noise"), generator=generator)
 
 
 def make_edm_steps(edm_cfg: edm_lib.EDMConfig = edm_lib.EDMConfig(), *, autoencoder=None,
@@ -114,19 +119,30 @@ def autoencoder_losses(ae, batch: dict, *, kl_weight: float = 1e-6, device_repre
                        draws: dict | None = None, generator: torch.Generator | None = None) -> dict:
     """The JAX ``_losses`` of ``make_autoencoder_steps``: ``moments`` ->
     mean + eps exp(log_std) -> ``decode``; reconstruction MSE plus
-    ``kl_weight`` x the mean KL.  ``draws`` may hold ``ae_eps``; left out, it
-    comes from ``generator``."""
-    _no_cond_signal(batch)
-    x = _signal(batch, device_representation)
-    mean, log_std = ae.moments(x)
-    eps = (draws or {}).get("ae_eps")
-    if eps is None:
-        eps = torch.randn(mean.shape, generator=generator, device=mean.device, dtype=mean.dtype)
-    recon = ae.decode(mean + eps.to(mean.dtype) * torch.exp(log_std))
-    recon_loss = torch.mean((x - recon) ** 2)
-    kl = torch.mean(kl_divergence(mean, log_std))
-    return {"reconstruction_loss": recon_loss, "kl_divergence": kl,
-            "loss": recon_loss + kl_weight * kl}
+    ``kl_weight`` x the mean KL.  A paired batch's ``cond_signal`` is
+    reconstructed the same way with its own eps, reported as
+    ``cond_reconstruction_loss`` and ``cond_kl_divergence``, and its
+    reconstruction plus ``kl_weight`` x its KL added to ``loss``, the
+    objective.  ``draws`` may hold ``ae_eps`` and ``cond_ae_eps``; left out,
+    each comes from ``generator`` in that order."""
+    draws = draws or {}
+
+    def run(x, eps):
+        mean, log_std = ae.moments(x)
+        if eps is None:
+            eps = torch.randn(mean.shape, generator=generator, device=mean.device,
+                              dtype=mean.dtype)
+        recon = ae.decode(mean + eps.to(mean.dtype) * torch.exp(log_std))
+        return torch.mean((x - recon) ** 2), torch.mean(kl_divergence(mean, log_std))
+
+    recon_loss, kl = run(_signal(batch, device_representation), draws.get("ae_eps"))
+    metrics = {"reconstruction_loss": recon_loss, "kl_divergence": kl,
+               "loss": recon_loss + kl_weight * kl}
+    if batch.get("cond_signal") is not None:
+        c_recon, c_kl = run(batch["cond_signal"], draws.get("cond_ae_eps"))
+        metrics |= {"cond_reconstruction_loss": c_recon, "cond_kl_divergence": c_kl,
+                    "loss": metrics["loss"] + c_recon + kl_weight * c_kl}
+    return metrics
 
 
 def make_autoencoder_steps(*, kl_weight: float = 1e-6, ema_decay: float = 0.999,
@@ -217,13 +233,17 @@ def make_classifier_steps(class_weights, *, ema_decay: float = 0.999,
 @torch.no_grad()
 def sample_edm(unet, shape: tuple[int, ...], cond=None, *, autoencoder=None,
                edm_cfg: edm_lib.EDMConfig = edm_lib.EDMConfig(), num_steps: int = 25,
-               solver: str = "heun", cast_params=None, noise=None, generator=None,
-               device="cuda"):
+               solver: str = "heun", cast_params=None, cond_signal=None, cond_eps=None,
+               noise=None, generator=None, device="cuda"):
     """Sample channels-last arrays of ``shape`` with the EDM ODE solver: the
     JAX ``sample_fn``.  With an ``autoencoder``, ``shape`` is the latent's and
     the sample is decoded to the signal (B, *spatial, C); without one the
     sample is the signal.  float32 either way.
 
+    ``cond_signal``: a paired batch's conditioning signal, concatenated after
+    the network's input at every eval; with an ``autoencoder`` it is first
+    encoded stochastically, mean + ``cond_eps`` std (``cond_eps`` drawn from
+    ``generator`` before the sampler's noise when None).
     ``cast_params``: sample with a copy of the UNet whose parameters are cast
     to this dtype once, before the loop (the JAX ``cast_params``); the
     caller's module keeps its dtype.  The autoencoder computes in its own
@@ -231,9 +251,12 @@ def sample_edm(unet, shape: tuple[int, ...], cond=None, *, autoencoder=None,
     """
     if cast_params is not None:
         unet = copy.deepcopy(unet).to(cast_params)
+    if cond_signal is not None and autoencoder is not None:
+        cond_signal = autoencoder.encode(cond_signal, eps=cond_eps, generator=generator)
 
     def denoise_fn(x, sigma):
-        return edm_lib.precondition(edm_cfg, unet, x, sigma, cond=cond)
+        return edm_lib.precondition(edm_cfg, unet, x, sigma, cond_signal=cond_signal,
+                                    cond=cond)
 
     out = sampler_lib.sample(denoise_fn, shape, edm_cfg, num_steps=num_steps, solver=solver,
                              noise=noise, generator=generator, device=device)

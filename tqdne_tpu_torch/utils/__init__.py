@@ -34,12 +34,12 @@ def randomize_(module: torch.nn.Module, seed: int) -> torch.nn.Module:
     """Fill every parameter from a seeded normal, zero-init layers included,
     so an untrained model computes something non-trivial: weights with
     fan-in n get std 1/sqrt(n), norm scales 1 + 0.1 N(0, 1), the Fourier
-    frequencies keep their N(0, 0.02^2) scale and other vectors 0.05 N(0, 1)."""
+    frequencies keep their module's N(0, scale^2) and other vectors 0.05 N(0, 1)."""
     gen = torch.Generator().manual_seed(seed)
     for name, p in module.named_parameters():
         draw = torch.randn(p.shape, generator=gen, dtype=torch.float32)
         if name.endswith("W"):
-            draw = draw * 0.02
+            draw = draw * module.get_submodule(name.rpartition(".")[0]).scale
         elif p.ndim >= 2:
             draw = draw / (p[0].numel() ** 0.5)
         elif name.endswith("norm.weight"):
@@ -59,7 +59,7 @@ def init_like_flax_(module: torch.nn.Module, seed: int) -> torch.nn.Module:
     """Initialise as the JAX modules' ``init`` does (the draws differ): conv and
     dense weights lecun-normal (truncated at 2 sigma), biases zero, the UNet's
     zero-init layers (``out_conv``, ``proj_out``) zero, norms 1 and 0, and the
-    Fourier frequencies N(0, 0.02^2)."""
+    Fourier frequencies N(0, scale^2)."""
     from tqdne_tpu_torch.nn.layers import GaussianFourierProjection, Norm32, _Cast
 
     gen = torch.Generator().manual_seed(seed)
@@ -76,5 +76,5 @@ def init_like_flax_(module: torch.nn.Module, seed: int) -> torch.nn.Module:
             m.weight.fill_(1.0)
             m.bias.zero_()
         elif isinstance(m, GaussianFourierProjection):
-            m.W.copy_(torch.randn(m.W.shape, generator=gen) * 0.02)
+            m.W.copy_(torch.randn(m.W.shape, generator=gen) * m.scale)
     return module

@@ -29,10 +29,13 @@ every tensor keeps its layout (convolutions OIHW, linear layers (O, I)):
            down_blocks.k / up_blocks.k     down_{b}_* / up_{b}_* (flattened)
   classifier output_MLP.1 / .3, output_layer  mlp1 / mlp2, head
 
-The reference's per-feature conditioning embedding (``cond_embed.W``, its
-``cond_emb_scale``) has no counterpart in the port's UNet: a checkpoint that
-holds one is refused.  ``load_state_dict(strict=True)`` of the result into
-the port's module checks every name and shape.
+A UNet's per-feature conditioning embedding ``cond_embed.W`` is taken when
+its ``cfg`` has ``cond_emb_scale``, and refused when it does not (the port's
+UNet would have no place for it).  A scale-shift ``emb_layers.1`` is twice
+as wide and maps as any other; a model without resampling convolutions
+(``conv_resample=False``) has no ``op`` or ``conv`` to map.
+``load_state_dict(strict=True)`` of the result into the port's module checks
+every name and shape.
 """
 
 from __future__ import annotations
@@ -77,12 +80,14 @@ def convert_unet(state_dict: dict, cfg: dict) -> dict[str, torch.Tensor]:
     ``cfg`` is the architecture (model_channels, channel_mult,
     num_res_blocks, attention_resolutions, cond_features, ...)."""
     sd = state_dict
-    if "cond_embed.W" in sd:
+    embedded = cfg.get("cond_features") is not None and cfg.get("cond_emb_scale") is not None
+    if "cond_embed.W" in sd and not embedded:
         raise ValueError("the checkpoint's UNet has a per-feature conditioning embedding "
-                         "(cond_embed, cond_emb_scale), which the port's UNet does not have")
+                         "(cond_embed.W), but its config sets no cond_emb_scale")
     mult = tuple(cfg["channel_mult"])
     nrb = int(cfg["num_res_blocks"])
     attn_res = set(cfg.get("attention_resolutions", ()))
+    resample = cfg.get("conv_resample", True)
 
     pairs = [("time_mlp.0", "time_mlp.fc1"), ("time_mlp.2", "time_mlp.fc2"),
              ("input_blocks.0.0", "in_conv"), ("out.0", "out_norm"), ("out.2", "out_conv"),
@@ -101,7 +106,8 @@ def convert_unet(state_dict: dict, cfg: dict) -> dict[str, torch.Tensor]:
                 pairs += _attention(f"input_blocks.{i}.1", f"down_{i - 1}_attn")
             i += 1
         if level != len(mult) - 1:
-            pairs.append((f"input_blocks.{i}.0.op", f"down_{i - 1}_downsample.op"))
+            if resample:
+                pairs.append((f"input_blocks.{i}.0.op", f"down_{i - 1}_downsample.op"))
             i += 1
             ds *= 2
 
@@ -115,11 +121,13 @@ def convert_unet(state_dict: dict, cfg: dict) -> dict[str, torch.Tensor]:
                 pairs += _attention(f"output_blocks.{j}.{idx}", f"up_{j}_attn")
                 idx += 1
             if level and k == nrb:
-                pairs.append((f"output_blocks.{j}.{idx}.conv", f"up_{j}_upsample.conv"))
+                if resample:
+                    pairs.append((f"output_blocks.{j}.{idx}.conv", f"up_{j}_upsample.conv"))
                 ds //= 2
             j += 1
 
-    return _modules(sd, pairs) | {"time_embed.W": _tensor(sd["time_embed.W"])}
+    fourier = ["time_embed.W"] + (["cond_embed.W"] if embedded else [])
+    return _modules(sd, pairs) | {key: _tensor(sd[key]) for key in fourier}
 
 
 def _conv_stack(sd: dict, cfg: dict, prefix: str, *, decoder: bool) -> list:
@@ -128,6 +136,7 @@ def _conv_stack(sd: dict, cfg: dict, prefix: str, *, decoder: bool) -> list:
     mult = tuple(cfg["channel_mult"])
     nrb = int(cfg["num_res_blocks"])
     attn_res = set(cfg.get("attention_resolutions", ()))
+    resample = cfg.get("conv_resample", True)
     seq = f"{prefix}.up_blocks" if decoder else f"{prefix}.down_blocks"
     pairs = [(f"{prefix}.input_layer", f"{prefix}.in_conv"),
              (f"{prefix}.output_layer", f"{prefix}.out_conv")]
@@ -144,7 +153,8 @@ def _conv_stack(sd: dict, cfg: dict, prefix: str, *, decoder: bool) -> list:
                     k += 1
                 b += 1
             if level != len(mult) - 1:
-                pairs.append((f"{seq}.{k}.op", f"{prefix}.down_{b}_downsample.op"))
+                if resample:
+                    pairs.append((f"{seq}.{k}.op", f"{prefix}.down_{b}_downsample.op"))
                 k += 1
                 b += 1
                 ds *= 2
@@ -152,7 +162,8 @@ def _conv_stack(sd: dict, cfg: dict, prefix: str, *, decoder: bool) -> list:
         ds = 2 ** (len(mult) - 1)
         for level in reversed(range(len(mult))):
             if level != len(mult) - 1:
-                pairs.append((f"{seq}.{k}.conv", f"{prefix}.up_{b}_upsample.conv"))
+                if resample:
+                    pairs.append((f"{seq}.{k}.conv", f"{prefix}.up_{b}_upsample.conv"))
                 k += 1
                 b += 1
                 ds //= 2
