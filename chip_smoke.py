@@ -117,6 +117,19 @@ Phases (any failure exits non-zero and prints no result line):
    sample at 32 from a validation ``cond_signal``, Griffin-Lim 32); paired
    ``consistency`` and ``ddpm`` on the ``1d_edm`` UNet (2 steps at 64, a sample
    at 32 of 2 evals and of 20 DDPM timesteps); the counts must be exact;
+   then (4o) data parallelism: (a) in a subprocess, phase 4's flagship
+   ``Trainer.fit`` without a process group, again in an NCCL group of one
+   (joined through torchrun's environment) and again once the group is
+   destroyed: no collective issued, the launches equal to phase 4's and the
+   parameters bit-identical, samples/s beside phase 4's; (d) there too, one flagship step through
+   ``parallel.fsdp.shard_with_ema`` at world size 1 against the plain step;
+   (b) two ranks sharing the card over gloo: 2 f32 flagship steps at 2 x 64
+   (dropout 0, plain SGD) against one rank's at 128 (losses to 1e-5, the
+   averaged gradients to 1e-4 of each one's peak plus 1e-6 of the largest,
+   parameters to the f32 bound, the ranks bit-identical), then 5 bf16 steps with their
+   launches, walls and the gradient all-reduce's share (not a scaling
+   figure); (c) the train CLI's ``-d 2`` refused on one card, its ``-d 1``
+   reaching the run;
 5. timings on the card: each kernel at the main paths' shapes beside its
    bound, its plain version and a PyTorch yardstick call (and, for the
    record, the bf16 flash forward at (128, 16, 4, 128)), GroupNorm per UNet
@@ -2240,6 +2253,390 @@ def options_and_paired_path(dev, s, arrays, ae_t, enc_gn: list, dec_gn: list) ->
     return counts
 
 
+# ---- 4o. data parallelism: world size 1 through the process group, two gloo ranks on one
+# card, the -d refusal, FSDP at world size 1 ----------------------------------------------
+DP_F32_STEPS = 2  # f32 steps of the two gloo ranks held against one rank at the global batch
+DP_BF16_STEPS = 5  # bf16 steps of the two gloo ranks, timed
+DP_RESULTS = Path(__file__).resolve().parent / "build" / "chip_smoke_4o"
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(fn, args: tuple, nprocs: int, timeout: float = 600.0):
+    """``fn(rank, *args)`` in ``nprocs`` spawned processes; fails (killing
+    them) when one fails or they are not all done within ``timeout`` s."""
+    ctx = torch.multiprocessing.start_processes(fn, args=args, nprocs=nprocs, join=False,
+                                                start_method="spawn")
+    deadline = time.perf_counter() + timeout
+    try:
+        while not ctx.join(timeout=1):
+            if time.perf_counter() > deadline:
+                fail(f"{fn.__name__}: {nprocs} processes not done in {timeout:.0f} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+
+
+def flagship_loader(config, dev):
+    """Phase 4's training loader: the 512 seeded synthetic waveforms at batch 128."""
+    from tqdne_tpu_torch.data.dataset import ArrayDataset, synthetic_arrays
+    from tqdne_tpu_torch.data.pipeline import BatchLoader
+
+    arrays = synthetic_arrays(TRAIN_SAMPLES, t=config.t, seed=SEED)
+    dataset = ArrayDataset(arrays, config.make_representation(), cut=config.t, cond=True,
+                           split="full")
+    return BatchLoader(dataset, TRAIN_BATCH, device=dev, keys=("signal", "cond"), seed=SEED)
+
+
+def count_collectives():
+    """Wrap torch.distributed's collectives to count their calls; returns the counts."""
+    import torch.distributed as dist
+
+    counts = collections.Counter()
+    for name in ("all_reduce", "broadcast", "barrier", "all_gather_into_tensor",
+                 "reduce_scatter_tensor", "all_gather"):
+        fn = getattr(dist, name)
+
+        def counted(*a, _fn=fn, _name=name, **k):
+            counts[_name] += 1
+            return _fn(*a, **k)
+
+        setattr(dist, name, counted)
+    return counts
+
+
+def zero_launches():
+    from tqdne_tpu_torch.ops.group_norm import group_norm_silu
+
+    torch.cuda.synchronize()
+    for fn in launch_counters():
+        fn.launches = 0
+    group_norm_silu.backward_calls = 0
+
+
+def read_launches() -> dict:
+    torch.cuda.synchronize()
+    return {fn.__name__: fn.launches for fn in launch_counters()}
+
+
+def params_of(module) -> dict:
+    return {n: (p.full_tensor() if hasattr(p, "full_tensor") else p).detach().clone()
+            for n, p in module.named_parameters()}
+
+
+def param_diff(got: dict, want: dict) -> tuple[int, float, float, str]:
+    """(tensors not bit-identical, max |got - want|, max of that over TOL[f32]'s
+    bound, the tensor where that share is largest)."""
+    rtol, atol = TOL[torch.float32]
+    differ, worst, share, where = 0, 0.0, 0.0, ""
+    for name, w in want.items():
+        g = got[name].to(w.device)
+        if not torch.equal(g, w):
+            differ += 1
+            d = (g - w).abs()
+            worst = max(worst, d.max().item())
+            s = (d / (atol + rtol * w.abs())).max().item()
+            if s > share:
+                share, where = s, name
+    return differ, worst, share, where
+
+
+def dp_world1_worker(_index: int, port: int, want: dict, want_gn_bwd: int, out: str):
+    """Phase 4o (a) and (d) in a subprocess of their own: after two warm-up
+    steps, phase 4's flagship fit without a process group, then in a group of
+    one (NCCL, joined through torchrun's environment), which must issue no
+    collective, count the same launches and end bit-identical; then one
+    flagship step through ``shard_with_ema`` at world size 1 against the
+    plain step; then, the group destroyed, the fit without a group again (its
+    rate tells the group's cost from the order's)."""
+    import os
+
+    import torch.distributed as dist
+
+    from tqdne_tpu_torch.parallel import make_mesh, maybe_initialize_distributed, world_size
+    from tqdne_tpu_torch.parallel.fsdp import shard_with_ema
+    from tqdne_tpu_torch.train.loop import step_seed
+    from tqdne_tpu_torch.train.state import TrainState, make_optimizer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    result, fits = {}, {}
+
+    def fit(label: str):
+        config, state, steps, _, _, schedule = training_setup(dev, torch.bfloat16)
+        counts, rows = counted_fit(f"4o-{label}", steps, state, flagship_loader(config, dev),
+                                   max_steps=TRAIN_STEPS, want=want, want_gn_bwd=want_gn_bwd,
+                                   lr_schedule=schedule)
+        fits[label] = params_of(state.model)
+        result[label] = {"launches": counts,
+                         "samples_per_s": TRAIN_BATCH * TRAIN_STEPS / rows[-1]["traintime"]}
+        del state, steps
+        torch.cuda.empty_cache()
+
+    # warm-up: the process's first steps (cuDNN plans, the allocator) outside the fits
+    config, state, (train_step, _), _, _, _ = training_setup(dev, torch.bfloat16)
+    for batch, _ in zip(flagship_loader(config, dev), range(2)):
+        train_step(state, batch, generator=torch.Generator(device=dev).manual_seed(SEED))
+    del state
+    fit("plain")
+    os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    if not maybe_initialize_distributed(DEVICE) or world_size() != 1:
+        fail("4o: no process group of one")
+    result["backend"] = dist.get_backend()
+    collectives = count_collectives()
+    fit("world1")
+    result["collectives"] = dict(collectives)
+
+    # (d) one flagship step through FSDP at world size 1 against the plain step
+    config, plain, (train_step, _), _, _, schedule = training_setup(dev, torch.bfloat16)
+    model, ema = shard_with_ema(copy.deepcopy(plain.model), make_mesh())
+    sharded = TrainState(model, make_optimizer("adam", model, 1e-4), schedule, ema=ema)
+    conv = next(p for n, p in model.named_parameters() if p.ndim == 4 and p.numel() >= 2**16)
+    result["fsdp_layout"] = {"placements": [repr(pl) for pl in conv.placements],
+                             "local_shape": list(conv.to_local().shape),
+                             "channels_last": conv.to_local().is_contiguous(
+                                 memory_format=torch.channels_last)}
+    batch = next(iter(flagship_loader(config, dev)))
+    for label, state in (("plain", plain), ("fsdp", sharded)):
+        gen = torch.Generator(device=dev).manual_seed(step_seed(SEED, 0, 0))
+        torch.manual_seed(step_seed(SEED, 0, 1))
+        zero_launches()
+        t0 = time.perf_counter()
+        loss = train_step(state, batch, generator=gen)["loss"]
+        torch.cuda.synchronize()
+        result[f"step_{label}"] = {"loss": loss.item(), "launches": read_launches(),
+                                   "ms": (time.perf_counter() - t0) * 1e3}
+    differ, worst, share, _ = param_diff(params_of(sharded.model), params_of(plain.model))
+    result["fsdp_params_differ"], result["fsdp_max_abs"], result["fsdp_tol_share"] = \
+        differ, worst, share
+    del plain, sharded, model, ema
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    fit("plain_after")
+    result["params"] = len(fits["plain"])
+    result["params_differ"] = {k: param_diff(fits[k], fits["plain"])[0]
+                               for k in ("world1", "plain_after")}
+    Path(out).write_text(json.dumps(result))
+
+
+def dp_gloo_worker(rank: int, port: int, want_step: dict, out_dir: str):
+    """Phase 4o (b): rank ``rank`` of two sharing card 0 over gloo.  Rank 0
+    first runs the 1-rank f32 reference (DP_F32_STEPS flagship steps at the
+    global batch, dropout 0, no group); then both ranks run the same steps
+    on their 64 rows, and DP_BF16_STEPS flagship bf16 steps (Adam, dropout
+    on) timed, with the gradient all-reduce timed inside them.  The f32
+    steps descend by plain SGD at 1e-4 and keep the gradients each update
+    reads: Adam divides each gradient by its own magnitude, so an element
+    whose gradient is zero up to rounding moves by up to the learning rate
+    either way, and its parameters say nothing finer about the all-reduce."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from tqdne_tpu_torch.train import state as state_mod
+    from tqdne_tpu_torch.train.loop import step_seed
+
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    result = {"rank": rank}
+
+    def batches(loader, n: int):
+        """The loader's first ``n`` batches, over as many epochs as it takes."""
+        while n > 0:
+            for batch in loader:
+                if n == 0:
+                    break
+                n -= 1
+                yield batch
+
+    def run(dtype, steps: int, sgd: bool):
+        config, state, (train_step, _), _, _, _ = training_setup(dev, dtype)
+        grads = []
+        if sgd:  # dropout 0, plain gradient descent, the gradients of each update kept
+            for m in state.model.modules():
+                if isinstance(m, torch.nn.Dropout):
+                    m.p = 0.0
+            names = {p: n for n, p in state.model.named_parameters()}
+            state.optimizer = torch.optim.SGD(list(names), lr=1e-4)
+            state.lr_schedule = None
+            state.optimizer.register_step_pre_hook(lambda opt, *_: grads.append(
+                {names[p]: p.grad.detach().cpu() for p in names if p.grad is not None}))
+        losses, walls = [], []
+        for n, batch in enumerate(batches(flagship_loader(config, dev), steps)):
+            gen = torch.Generator(device=dev).manual_seed(step_seed(SEED, n, 0))
+            torch.manual_seed(step_seed(SEED, n, 1, dist.get_rank() if dist.is_initialized()
+                                        else 0))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(train_step(state, batch, generator=gen)["loss"].item())
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return state, losses, walls, grads
+
+    if rank == 0:  # the reference: one rank, the global batch, before the group exists
+        ref_state, ref_losses, _, ref_grads = run(torch.float32, DP_F32_STEPS, sgd=True)
+        ref_params = {n: p.cpu() for n, p in params_of(ref_state.model).items()}
+        del ref_state
+        torch.cuda.empty_cache()
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=2)
+    reduce_ms = []
+    reduce = state_mod.all_reduce_gradients_
+
+    def timed_reduce(params):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reduce(params)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+
+    state_mod.all_reduce_gradients_ = timed_reduce
+    state, losses, _, grads = run(torch.float32, DP_F32_STEPS, sgd=True)
+    got = params_of(state.model)
+    digest = hashlib.sha256()
+    for name in sorted(got):
+        digest.update(got[name].cpu().numpy().tobytes())
+    digests = [None, None]
+    dist.all_gather_object(digests, digest.hexdigest())
+    all_losses = [None, None]
+    dist.all_gather_object(all_losses, losses)
+    result["ranks_bit_identical"] = digests[0] == digests[1]
+    if rank == 0:
+        mean = [sum(ls) / 2 for ls in zip(*all_losses)]
+        worst, where = 0.0, ""
+        for step_got, step_want in zip(grads, ref_grads):
+            # 1e-4 of each gradient's peak, plus 1e-6 of the largest for those zero up to
+            # rounding (a bias before a GroupNorm whose groups it shifts alike)
+            largest = max(w.abs().max().item() for w in step_want.values())
+            for name, want in step_want.items():
+                err = (step_got[name] - want).abs().max().item()
+                share = err / (1e-4 * want.abs().max().item() + 1e-6 * largest)
+                if share > worst:
+                    worst, where = share, name
+        result["f32"] = {"losses_2ranks": mean, "losses_1rank": ref_losses,
+                         "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(mean, ref_losses)),
+                         "grad_share": worst, "grad_worst_at": where,
+                         "grads": sum(len(g) for g in ref_grads)}
+        differ, worst, share, where = param_diff(got, {n: p.to(dev)
+                                                       for n, p in ref_params.items()})
+        result["f32"] |= {"params_differ": differ, "max_abs": worst, "tol_share": share,
+                          "worst_at": where}
+    del state, got, grads
+    torch.cuda.empty_cache()
+    reduce_ms.clear()
+    zero_launches()
+    _, losses, walls, _ = run(torch.bfloat16, DP_BF16_STEPS, sgd=False)
+    result["bf16"] = {"launches": read_launches(), "wall_ms": walls, "all_reduce_ms": reduce_ms,
+                      "losses": losses, "want_launches": {k: v * DP_BF16_STEPS
+                                                          for k, v in want_step.items()}}
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(result))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def data_parallel_path(train_want: dict, want_gn_bwd: int, step_want: dict,
+                       phase4_rate: float) -> dict:
+    """Phase 4o: (a) and (d) in a subprocess, (b) in two, (c) the train CLI's
+    refusal of ``-d 2`` on one card and its ``-d 1``.  Returns the launch
+    counts by run."""
+    shutil.rmtree(DP_RESULTS, ignore_errors=True)
+    DP_RESULTS.mkdir(parents=True)
+    card = card_line()
+
+    # (a) world size 1 through the new code, and (d) FSDP at world size 1
+    out = DP_RESULTS / "world1.json"
+    t0 = time.perf_counter()
+    spawn_ranks(dp_world1_worker, (free_port(), train_want, want_gn_bwd, str(out)), 1)
+    w1 = json.loads(out.read_text())
+    log(f"[4o] (a) world size 1 ({w1['backend']} group of one, in a subprocess, "
+        f"{time.perf_counter() - t0:.1f} s with (d)): Trainer.fit {TRAIN_STEPS} steps, "
+        f"launches {w1['world1']['launches']} (phase 4's {train_want}; the subprocess's fits "
+        f"without a group {w1['plain']['launches']}, {w1['plain_after']['launches']}); "
+        f"collectives issued {w1['collectives']}; of {w1['params']} parameters, not "
+        f"bit-identical to the first fit without a group: {w1['params_differ']}; samples/s of "
+        f"traintime: without a group {w1['plain']['samples_per_s']:.2f}, world 1 "
+        f"{w1['world1']['samples_per_s']:.2f}, without a group again (after it was destroyed) "
+        f"{w1['plain_after']['samples_per_s']:.2f}; phase 4's fit {phase4_rate:.2f} ({card})")
+    if (any(w1[k]["launches"] != train_want for k in ("plain", "world1", "plain_after"))
+            or any(w1["collectives"].values()) or any(w1["params_differ"].values())):
+        fail("4o (a): world size 1 through the process group differs from the plain fit")
+    fsdp, plain = w1["step_fsdp"], w1["step_plain"]
+    log(f"[4o] (d) FSDP at world size 1 (every DTensor whole): one flagship bf16 step at "
+        f"{TRAIN_BATCH}, loss {fsdp['loss']:.6e} (plain {plain['loss']:.6e}), launches "
+        f"{fsdp['launches']} (plain {plain['launches']}), {w1['fsdp_params_differ']} parameters "
+        f"not bit-identical, max abs {w1['fsdp_max_abs']:.3e} ({w1['fsdp_tol_share']:.3f} of "
+        f"the f32 bound); a large conv weight: {w1['fsdp_layout']}; step wall {fsdp['ms']:.1f} "
+        f"ms (plain {plain['ms']:.1f} ms, first calls) ({card})")
+    log("[4o] (d) FSDP and HSDP over several ranks are held on the CPU only "
+        "(tests/test_torch_port_parallel.py); this card shows world size 1")
+    if (fsdp["launches"] != plain["launches"] or plain["launches"] != step_want
+            or w1["fsdp_tol_share"] > 1.0 or abs(fsdp["loss"] - plain["loss"]) > 1e-5 * abs(
+                plain["loss"])):
+        fail("4o (d): the FSDP step at world size 1 disagrees with the plain step")
+
+    # (b) two ranks sharing the one card over gloo
+    t0 = time.perf_counter()
+    spawn_ranks(dp_gloo_worker, (free_port(), step_want, str(DP_RESULTS)), 2)
+    ranks = [json.loads((DP_RESULTS / f"rank{r}.json").read_text()) for r in range(2)]
+    f32 = ranks[0]["f32"]
+    log(f"[4o] (b) two ranks sharing one card over gloo ({time.perf_counter() - t0:.1f} s): "
+        f"{DP_F32_STEPS} f32 flagship steps (dropout 0, SGD at 1e-4) at 2 x "
+        f"{TRAIN_BATCH // 2}: losses {f32['losses_2ranks']} vs one rank at {TRAIN_BATCH} "
+        f"{f32['losses_1rank']} (max rel {f32['loss_rel']:.3e}, tol 1e-5); the {f32['grads']} "
+        f"averaged gradients the updates read: worst max abs err {f32['grad_share']:.3f} of "
+        f"its bound (1e-4 of its peak + 1e-6 of the largest) at {f32['grad_worst_at']}; "
+        f"parameters: "
+        f"{f32['params_differ']} tensors not "
+        f"bit-identical to one rank, max abs {f32['max_abs']:.3e}, {f32['tol_share']:.3f} of "
+        f"the f32 bound (rtol, atol {TOL[torch.float32]}) at {f32['worst_at']}; ranks bit-identical to each other: "
+        f"{ranks[0]['ranks_bit_identical']}")
+    for r in ranks:
+        b = r["bf16"]
+        log(f"[4o] (b) rank {r['rank']}, two ranks sharing one card over gloo; not a scaling "
+            f"figure: {DP_BF16_STEPS} bf16 steps at {TRAIN_BATCH // 2} rows, launches "
+            f"{b['launches']} (want {b['want_launches']}), wall ms a step "
+            f"{[round(w, 1) for w in b['wall_ms']]}, of which the gradient all-reduce "
+            f"{[round(w, 1) for w in b['all_reduce_ms']]} ({card})")
+    if (not ranks[0]["ranks_bit_identical"] or f32["loss_rel"] > 1e-5 or f32["tol_share"] > 1.0
+            or f32["grad_share"] > 1.0
+            or any(r["bf16"]["launches"] != r["bf16"]["want_launches"] for r in ranks)
+            or not all(map(math.isfinite, ranks[0]["bf16"]["losses"]))):
+        fail("4o (b): the two gloo ranks disagree with one rank or with each other")
+
+    # (c) the train CLI refuses -d 2 on one card, and takes -d 1 to run
+    cmd = [sys.executable, "-m", "tqdne_tpu_torch.cli.train", "latent_edm", "--tiny",
+           "--device", "cuda", "--workdir", str(DP_RESULTS / "cli")]
+    root = Path(__file__).resolve().parent
+    refused = subprocess.run([*cmd, "-d", "2"], capture_output=True, text=True, cwd=root,
+                             timeout=300)
+    stub = ("import sys; from tqdne_tpu_torch.cli import train; "
+            "train.run = lambda args: print('RAN', args.num_devices); "
+            "train.main(sys.argv[1:])")
+    single = subprocess.run([sys.executable, "-c", stub, *cmd[3:], "-d", "1"],
+                            capture_output=True, text=True, cwd=root, timeout=300)
+    message = (refused.stderr.strip().splitlines() or [""])[-1]
+    log(f"[4o] (c) train CLI -d 2 on {torch.cuda.device_count()} card: exit {refused.returncode}, "
+        f"{message!r}; -d 1 reaches the training run: {single.stdout.strip()!r} (exit "
+        f"{single.returncode})")
+    if (refused.returncode == 0 or "asks for 2 devices, but 1 CUDA" not in refused.stderr
+            or single.returncode != 0 or "RAN 1" not in single.stdout):
+        fail("4o (c): the train CLI's -d refusal or its -d 1")
+    shutil.rmtree(DP_RESULTS, ignore_errors=True)
+    return {"4o world1": w1["world1"]["launches"], "4o gloo2 rank0": ranks[0]["bf16"]["launches"]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3075,6 +3472,12 @@ def main():
         launches = {k: launches[k] + v for k, v in run_counts.items()}
     torch.cuda.empty_cache()
 
+    # ---- 4o. data parallelism ----------------------------------------------------------------
+    phase("4o. data parallelism")
+    dp_counts = data_parallel_path(train_counts, len(unet_gn) * TRAIN_STEPS, flagship_want(1),
+                                   TRAIN_BATCH * TRAIN_STEPS / metric_rows[-1]["traintime"])
+    launches = {k: launches[k] + v for k, v in dp_counts["4o world1"].items()}
+
     # ---- 5. timings --------------------------------------------------------------
     phase("5. timings")
     for name, bundle in bundles.items():
@@ -3497,7 +3900,8 @@ def main():
                               **{run: c[name] for run, c in few_counts.items()},
                               **{run: c[name] for run, c in cb_counts.items()},
                               **{f"4m {run}": c[name] for run, c in ckpt_counts.items()},
-                              **{f"4n {run}": c[name] for run, c in opt_counts.items()}},
+                              **{f"4n {run}": c[name] for run, c in opt_counts.items()},
+                              **{run: c[name] for run, c in dp_counts.items()}},
             classifier_forward=clf_sums[name] | {"per": f"one classifier forward, batch {BATCH}, "
                                                         f"bf16"},
             classifier_train_step=clf_step_sums[name],
@@ -3524,7 +3928,8 @@ def main():
                               **{run: c[name] for run, c in new_counts.items()},
                               **{run: c[name] for run, c in few_counts.items()},
                               **{run: c[name] for run, c in cb_counts.items()},
-                              **{f"4n {run}": c[name] for run, c in opt_counts.items()}},
+                              **{f"4n {run}": c[name] for run, c in opt_counts.items()},
+                              **{run: c[name] for run, c in dp_counts.items()}},
             classifier_train_step=clf_step_sums[name],
             edm_recipes=new_sums[name],
             few_eval_ddpm_recipes=few_sums[name],

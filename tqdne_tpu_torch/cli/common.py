@@ -36,6 +36,7 @@ from tqdne_tpu_torch.diffusion.distillation import sample_distilled
 from tqdne_tpu_torch.models.autoencoder import AutoencoderKL
 from tqdne_tpu_torch.models.unet import UNet
 from tqdne_tpu_torch.nn.layers import set_compute_dtype
+from tqdne_tpu_torch.parallel import barrier, rank, world_size
 from tqdne_tpu_torch.train.checkpoint import Checkpointer, hparams_diff
 from tqdne_tpu_torch.train.steps import sample_edm
 from tqdne_tpu_torch.utils import randomize_, resolve_device
@@ -217,16 +218,30 @@ def latent_shape(enc_cfg: dict, sig_shape: tuple[int, ...]) -> tuple[int, ...]:
 
 
 def ensure_dataset(config, synthetic_n: int | None):
-    """Create a synthetic dataset if asked and no real one exists."""
-    if not Path(config.datapath).exists():
-        if not synthetic_n:
-            raise FileNotFoundError(
-                f"dataset not found: {config.datapath}. Build it with `python -m "
-                "tqdne_tpu_torch.cli.build_dataset --workdir ...` (from the raw_waveforms.h5 "
-                "of cli.preprocess or cli.build_stead), or pass --synthetic N for a smoke run.")
+    """Create a synthetic dataset if asked and no real one exists: on rank 0
+    alone, every rank waiting until it is written."""
+    exists = Path(config.datapath).exists()
+    barrier()  # every rank has looked before rank 0 writes
+    if exists:
+        return
+    if not synthetic_n:
+        raise FileNotFoundError(
+            f"dataset not found: {config.datapath}. Build it with `python -m "
+            "tqdne_tpu_torch.cli.build_dataset --workdir ...` (from the raw_waveforms.h5 "
+            "of cli.preprocess or cli.build_stead), or pass --synthetic N for a smoke run.")
+    if rank() == 0:
         logger.warning("no dataset at %s: generating synthetic data (n=%d)", config.datapath,
                        synthetic_n)
         make_synthetic_dataset(config.datapath, n=synthetic_n, t=config.t)
+    barrier()
+
+
+def val_batch_size(batch_size: int, n_val: int) -> int:
+    """The validation batch (the JAX ``make_loaders``' rule): the training
+    batch, at most the split's rows rounded down to a multiple of the ranks,
+    and at least one row a rank."""
+    n = world_size()
+    return max(n, min(batch_size, (n_val // n) * n or n))
 
 
 def make_loaders(config, batch_size: int, *, cond: bool, device, val_batch: int | None = None,
@@ -241,7 +256,8 @@ def make_loaders(config, batch_size: int, *, cond: bool, device, val_batch: int 
     step computes the signal on the device); the representation returned
     is still the real one.  ``latents_path``: ``CachedLatentsDataset`` over
     the precomputed moments, whose training columns go to the device once
-    (``DeviceResidentLoader``) when they fit."""
+    (``DeviceResidentLoader``) when they fit, which is never above one rank.
+    ``batch_size`` is the global batch."""
     representation = config.make_representation()
     ds_rep = representation if host_representation else Identity()
 
@@ -252,7 +268,7 @@ def make_loaders(config, batch_size: int, *, cond: bool, device, val_batch: int 
         return Dataset(config.datapath, ds_rep, cut=config.t, cond=cond, split=split)
 
     ds_train, ds_val = make_ds("train"), make_ds("validation")
-    vb = val_batch or max(1, min(batch_size, len(ds_val)))
+    vb = val_batch or val_batch_size(batch_size, len(ds_val))
     if latents_path is not None and DeviceResidentLoader.fits(ds_train, keys):
         train_loader = DeviceResidentLoader(ds_train, batch_size, device=device, keys=keys)
     else:
@@ -264,10 +280,18 @@ def make_loaders(config, batch_size: int, *, cond: bool, device, val_batch: int 
 
 def add_common_args(parser):
     """The flags of ``tqdne_tpu.cli.common.add_common_args`` the train CLI
-    reads, plus ``--device`` and ``--ae-weights``."""
+    reads, plus ``--device``, ``--ae-weights`` and ``--dropout``."""
     parser.add_argument("--workdir", type=str, required=True,
                         help="working directory (data/ and outputs/ live here)")
-    parser.add_argument("-b", "--batchsize", type=int, default=None)
+    parser.add_argument("-b", "--batchsize", type=int, default=None,
+                        help="the global batch (split across the ranks)")
+    parser.add_argument("-d", "--num-devices", type=int, default=None,
+                        help="devices to use, one rank each (default: torchrun's WORLD_SIZE, "
+                             "else 1); without torchrun, N > 1 starts N local ranks")
+    parser.add_argument("--num-slices", type=int, default=None,
+                        help="multi-node runs: train over a (replica, data) mesh with this "
+                             "many slices of consecutive ranks, e.g. one per node (default: "
+                             "1 = flat mesh)")
     parser.add_argument("--max-epochs", type=int, default=None)
     parser.add_argument("--max-steps", type=int, default=None)
     parser.add_argument("--dtype", type=str, default="bf16", choices=["f32", "bf16"],
@@ -297,6 +321,10 @@ def add_common_args(parser):
     parser.add_argument("--device-representation", action="store_true",
                         help="compute the signal representation on the device inside the "
                              "train step (the loader ships raw waveforms)")
+    parser.add_argument("--dropout", type=float, default=None,
+                        help="the models' dropout rate (default: the preset's); dropout masks "
+                             "are drawn on each rank, so at 0 an N-device run computes what "
+                             "one device computes at the same global batch")
     parser.add_argument("--skip-nonfinite", type=int, default=0, metavar="N",
                         help="apply no update for a step with NaN/inf gradients, and accept "
                              "the update after N consecutive such steps, as optax "

@@ -9,12 +9,19 @@ recipe (``--config``): the EDM recipes ``latent_edm`` (default), ``edm``,
 Per split it writes the five conditioning features plus eight datasets
 (target/predicted waveform, target/predicted signal, target/predicted
 classifier embedding, target/predicted classifier logits) and a
-``provenance`` attribute, to ``<workdir>/evaluation/<run><suffix>-split_<split>-rank_0.h5``
-(one process is rank 0 of 1):
+``provenance`` attribute, to ``<workdir>/evaluation/<run><suffix>-split_<split>-rank_<r>.h5``:
 
     python -m tqdne_tpu_torch.cli.evaluate --workdir W --unet-weights unet.pt \\
         --ae-weights ae.pt --classifier-weights clf.pt \\
         --classifier-manifest weights/Classifier-LogSpectrogram-ema.manifest.json
+
+One process is rank 0 of 1.  Under ``torchrun --nproc-per-node N -m
+tqdne_tpu_torch.cli.evaluate ...`` rank r takes the examples r, r + N, r +
+2N, ... of the split (``--limit-batches`` counts its own batches) on
+``cuda:LOCAL_RANK`` and writes its own file; ``python -m
+tqdne_tpu_torch.eval.report <files>`` reads them together.  Each rank seeds
+batch ``start`` of its own rows from ``(--seed, start)``; its per-row draws
+are its rows of the draws at N batches' rows.
 
 Weights are ``.pt`` state dicts from ``python -m tqdne_tpu_torch.utils.convert``;
 a model without one comes from the port's run in the workdir.  Without
@@ -42,6 +49,7 @@ from tqdne_tpu_torch.cli.common import RECIPES
 from tqdne_tpu_torch.data.dataset import Dataset
 from tqdne_tpu_torch.models.classifier import Classifier
 from tqdne_tpu_torch.nn.layers import set_compute_dtype
+from tqdne_tpu_torch.parallel import local_device, process_group, rank, world_size
 from tqdne_tpu_torch.train.checkpoint import Checkpointer
 from tqdne_tpu_torch.utils import fold_seed, resolve_device
 from tqdne_tpu_torch.utils.convert import read_manifest
@@ -170,14 +178,20 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
     args.config, args.num_steps = common.route_solver(args.config, args.solver, args.num_steps)
+    with process_group(args.device):
+        evaluate(args)
+
+
+def evaluate(args):
+    """The evaluation of ``main``'s arguments on this rank."""
     import h5py
 
     dtype = common.parse_dtype(args.dtype)
     bundle = common.build_inference(
         args.config, workdir=args.workdir, unet_weights=args.unet_weights,
         ae_weights=args.ae_weights, run_name=args.name, ae_name=args.ae_name, dtype=dtype,
-        num_steps=args.num_steps, solver=args.solver, device=args.device, tiny=args.tiny,
-        consistency_noise=args.consistency_noise, refine_sigma=args.refine_sigma)
+        num_steps=args.num_steps, solver=args.solver, device=local_device(args.device),
+        tiny=args.tiny, consistency_noise=args.consistency_noise, refine_sigma=args.refine_sigma)
     config = bundle.config
     run_name = args.name or RECIPES[args.config].name
     dataset = Dataset(config.datapath, bundle.representation, cut=config.t, cond=True,
@@ -202,12 +216,13 @@ def main(argv=None):
             classifier = None
 
     bs = args.batchsize
-    all_idx = np.arange(len(dataset))  # rank 0 of 1
+    r = rank()
+    all_idx = np.arange(len(dataset))[r::world_size()]  # this rank's share of the examples
     if args.limit_batches:
         all_idx = all_idx[: args.limit_batches * bs]
     outdir = Path(args.workdir) / "evaluation"
     outdir.mkdir(parents=True, exist_ok=True)
-    outfile = outdir / f"{run_name}{args.suffix}-split_{args.split}-rank_0.h5"
+    outfile = outdir / f"{run_name}{args.suffix}-split_{args.split}-rank_{r}.h5"
 
     n, t = len(all_idx), bundle.t
     sig_cf = (bundle.sig_shape[-1], *bundle.sig_shape[:-1])

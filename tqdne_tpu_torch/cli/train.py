@@ -39,6 +39,14 @@ device (every recipe but ``ddpm``); ``--skip-nonfinite N`` arms the
 non-finite guard; ``--cached-latents`` (the latent EDM, consistency and
 distill recipes) trains from the precomputed moments.
 
+On N cards every recipe trains data-parallel, one rank a card, ``-b`` being
+the global batch: ``torchrun --nproc-per-node N -m tqdne_tpu_torch.cli.train
+<recipe> ...`` (``-d``, when given, must equal torchrun's world size), or
+``-d N`` without torchrun, which starts the N ranks itself.  ``-d`` above the
+visible cards exits.  ``--num-slices K`` lays the ranks out as a (replica,
+data) mesh of K slices.  Dropout masks are each rank's own; at ``--dropout
+0`` an N-rank run computes what one rank computes at the same global batch.
+
 Metrics go to ``W/outputs/<run>/metrics.jsonl`` and checkpoints under
 ``W/outputs/<run>/checkpoints``.  The dataset is HDF5 and needs ``h5py``.
 Every ``--eval-every`` epochs (10) the diffusion recipes' sampling-eval
@@ -56,6 +64,8 @@ import argparse
 import importlib.util
 import itertools
 import logging
+import os
+import socket
 
 import torch
 
@@ -75,6 +85,8 @@ from tqdne_tpu_torch.models.unet import UNet
 from tqdne_tpu_torch.models.classifier import Classifier
 from tqdne_tpu_torch.nn.layers import set_compute_dtype
 from tqdne_tpu_torch.ops.representation import device_representation_fn
+from tqdne_tpu_torch.parallel import (local_device, make_hybrid_mesh, make_mesh, process_group,
+                                      replicate_, world_size)
 from tqdne_tpu_torch.train.callbacks import SamplingEvalCallback
 from tqdne_tpu_torch.train.loop import Trainer
 from tqdne_tpu_torch.train.state import TrainState, cosine_annealing, make_optimizer
@@ -91,6 +103,11 @@ LEARNING_RATE = 1e-4  # every recipe's: the cosine schedule's peak, or RAdam's c
 EVAL_BATCHES = 2  # validation batches the sampling-eval callback samples
 WAVE_CHANNELS = 3
 logger = logging.getLogger("tqdne_tpu_torch")
+
+
+def _dropout(args) -> dict:
+    """The model config's ``dropout`` override of ``--dropout``, if given."""
+    return {} if args.dropout is None else {"dropout": args.dropout}
 
 
 def _device_representation(config):
@@ -113,6 +130,7 @@ def _fit(recipe, args, config, device, model, train_loader, val_loader, steps, h
     lr_schedule = None
     if recipe.optimizer != "radam":
         lr_schedule = cosine_annealing(LEARNING_RATE, _max_steps(args, epochs, train_loader))
+    replicate_(model)  # every rank starts from rank 0's weights
     optimizer = make_optimizer(recipe.optimizer, model, LEARNING_RATE, recipe.weight_decay)
     state = TrainState(model, optimizer, lr_schedule, skip_nonfinite=args.skip_nonfinite)
     trainer = Trainer(*steps, config.outputdir / recipe.name, device=device, max_epochs=epochs,
@@ -129,6 +147,14 @@ def _placed(module, device):
 
 
 def run(args) -> TrainState:
+    """Train ``args.recipe`` in this process: alone, or as one rank of the
+    process group that torchrun's environment (or ``main``'s ``-d``)
+    describes."""
+    with process_group(args.device):
+        return _run(args)
+
+
+def _run(args) -> TrainState:
     recipe = RECIPES[args.recipe]
     # the JAX CLI's refusals of a flag that would do nothing
     if args.device_representation and recipe.kind == "ddpm":
@@ -138,7 +164,12 @@ def run(args) -> TrainState:
                                     recipe.kind in ("edm", "consistency", "distill")):
         raise SystemExit("--cached-latents needs a latent EDM, consistency or distill recipe")
     logging.basicConfig(level=logging.INFO)
-    device = resolve_device(args.device)
+    device = resolve_device(local_device(args.device))
+    slices = args.num_slices or 1
+    if world_size() > 1 or slices > 1:
+        # the ranks' layout: data parallelism all-reduces over every axis of it
+        mesh = make_hybrid_mesh(slices) if slices > 1 else make_mesh()
+        logger.info("data parallel over %s", mesh)
     dtype = common.parse_dtype(args.dtype)
     config = recipe.config_cls(workdir=args.workdir)
     common.ensure_dataset(config, args.synthetic)
@@ -153,7 +184,7 @@ def run(args) -> TrainState:
             config, batch, cond=False, device=device, keys=keys,
             host_representation=device_rep is None)
         ae, enc_cfg, dec_cfg = common.build_autoencoder(config, dtype, dims=recipe.dims,
-                                                        tiny=args.tiny)
+                                                        tiny=args.tiny, **_dropout(args))
         init_like_flax_(ae, args.seed)
         steps = make_autoencoder_steps(kl_weight=config.kl_weight, ema_decay=recipe.ema_decay,
                                        device_representation=device_rep)
@@ -199,7 +230,7 @@ def _run_diffusion(recipe, args, config, device, dtype, batch, epochs, device_re
                "ae_name": recipe.ae_name, "dtype": args.dtype}
     kw = dict(autoencoder=ae, latent_moments=lat_path is not None,
               device_representation=device_rep)
-    overrides = {"model_channels": common.TINY_CHANNELS} if args.tiny else {}
+    overrides = ({"model_channels": common.TINY_CHANNELS} if args.tiny else {}) | _dropout(args)
     unet, ucfg = common.build_unet(config, model_shape[-1], model_shape[-1], dtype,
                                    dims=recipe.dims, **overrides)
     init_like_flax_(unet, args.seed)
@@ -208,7 +239,7 @@ def _run_diffusion(recipe, args, config, device, dtype, batch, epochs, device_re
         # widths; teacher and student are two modules, the student starting from its weights
         name = args.teacher or recipe.name.replace("Distill", "EDM")
         weights, stored = common.run_checkpoint(config, name)
-        ucfg = common.tuplify(stored["unet"])
+        ucfg = common.tuplify(stored["unet"]) | _dropout(args)
         teacher, unet = (set_compute_dtype(UNet(**ucfg), dtype) for _ in range(2))
         for module in (teacher, unet):
             module.load_state_dict(weights)
@@ -297,11 +328,12 @@ def _run_classifier(recipe, args, config, device, dtype, batch, epochs, device_r
 
     ds_train, ds_val = dataset("train_validation"), dataset("test")
     train_loader = BatchLoader(ds_train, batch, device=device, keys=keys)
-    val_loader = BatchLoader(ds_val, max(1, min(batch, len(ds_val))), shuffle=False,
+    val_loader = BatchLoader(ds_val, common.val_batch_size(batch, len(ds_val)), shuffle=False,
                              drop_last=True, device=device, keys=keys)
     enc_cfg = configs.get_classifier_encoder_config(config)
     if args.tiny:
         enc_cfg |= common.TINY_CLASSIFIER
+    enc_cfg |= _dropout(args)
     clf = set_compute_dtype(Classifier(enc_cfg, config.num_classes), dtype)
     init_like_flax_(clf, args.seed)
     train_step, eval_step, metric_post = make_classifier_steps(
@@ -325,7 +357,43 @@ def main(argv=None):
             p.add_argument("--ema-decay", type=float, default=recipe.ema_decay,
                            help="CD target-network decay mu; the EMA is also the deployed "
                                 "student")
-    return run(parser.parse_args(argv))
+    return launch(parser.parse_args(argv))
+
+
+def launch(args) -> TrainState | None:
+    """``run`` in this process (alone, or as the rank torchrun started), or,
+    for ``-d N`` with N > 1 outside torchrun, in N local ranks started here
+    over a free loopback port (then returns None).  ``-d`` must match
+    torchrun's world size, and on ``cuda`` may not exceed the visible cards:
+    a card is never shared."""
+    n = args.num_devices
+    if "WORLD_SIZE" in os.environ:
+        if n is not None and n != int(os.environ["WORLD_SIZE"]):
+            raise SystemExit(f"-d {n} under a launch of WORLD_SIZE={os.environ['WORLD_SIZE']} "
+                             "ranks: pass the launch's world size, or leave -d out")
+        return run(args)
+    n = 1 if n is None else n
+    if n < 1:
+        raise SystemExit(f"-d {n}: at least one device")
+    if n > 1 and torch.device(args.device).type == "cuda" and n > torch.cuda.device_count():
+        raise SystemExit(f"-d {n} asks for {n} devices, but {torch.cuda.device_count()} CUDA "
+                         "device(s) are visible; one rank drives one card")
+    if n == 1:
+        return run(args)
+    with socket.socket() as s:  # a free port for the ranks' rendezvous
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.multiprocessing.spawn(_spawned_rank, args=(args, n, port), nprocs=n, join=True)
+    return None
+
+
+def _spawned_rank(local_rank: int, args, n: int, port: int):
+    """One of ``launch``'s N local ranks: torchrun's environment, then ``run``."""
+    os.environ.update(RANK=str(local_rank), LOCAL_RANK=str(local_rank), WORLD_SIZE=str(n),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    if torch.device(args.device).type == "cpu":  # the ranks share the host's cores
+        torch.set_num_threads(max(1, min(torch.get_num_threads(), (os.cpu_count() or 1) // n)))
+    run(args)
 
 
 if __name__ == "__main__":

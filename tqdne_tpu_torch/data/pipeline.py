@@ -11,6 +11,12 @@ each batch is a gather there by an index tensor, so the host loader leaves
 the step's critical path (cached-latent training, whose columns are small).
 Both shuffle an epoch with ``default_rng(seed + epoch)``, so they give the
 same batches.
+
+Under a process group ``batch_size`` is the global batch: every rank draws
+the same permutation and ``BatchLoader`` reads only this rank's rows of each
+global batch (the index list is cut before the read); a global batch that
+does not divide across the ranks raises.  ``DeviceResidentLoader`` is for one
+rank: ``fits`` says no above one, so callers keep ``BatchLoader`` there.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from tqdne_tpu_torch.parallel import rank, world_size
 from tqdne_tpu_torch.utils import resolve_device
 
 
@@ -51,6 +58,7 @@ class BatchLoader:
     Shuffled with ``drop_last`` for training, in order for evaluation.  The
     shuffle of an epoch is seeded by ``seed + epoch``; ``epoch`` counts the
     iterations begun and may be set to resume in the middle of a run.
+    ``batch_size`` is the global batch; each rank's batches hold its rows.
     """
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = True, drop_last: bool = True,
@@ -76,6 +84,17 @@ class BatchLoader:
                               self.seed + self.epoch)
 
     def _prepare(self, batch_idx: np.ndarray) -> dict:
+        n = world_size()
+        if n > 1:  # this rank's rows of the global batch, cut before the read
+            if len(batch_idx) % n:
+                fix = ("Use drop_last=True so the ragged final batch is skipped."
+                       if self.batch_size % n == 0 else f"Use a batch size divisible by {n}.")
+                raise ValueError(
+                    f"global batch of {len(batch_idx)} rows is not divisible by the {n} "
+                    f"participating hosts; {len(batch_idx) % n} rows would be silently "
+                    f"dropped. {fix}")
+            per = len(batch_idx) // n
+            batch_idx = batch_idx[rank() * per:(rank() + 1) * per]
         batch = self.dataset.load_batch(batch_idx, keys=self.keys)
         if self.keys is not None:
             batch = {k: v for k, v in batch.items() if k in self.keys}
@@ -149,7 +168,10 @@ class DeviceResidentLoader:
     @staticmethod
     def fits(dataset, keys: tuple[str, ...], budget_bytes: int = 2 << 30) -> bool:
         """Whether the requested columns fit the device-resident budget,
-        estimated from one row."""
+        estimated from one row; never above one rank (each rank holds
+        different rows of the global batch)."""
+        if world_size() > 1:
+            return False
         row = dataset.load_batch(np.arange(1), keys=keys)
         return sum(v.nbytes for k, v in row.items() if k in keys) * len(dataset) <= budget_bytes
 

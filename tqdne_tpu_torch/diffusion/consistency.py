@@ -26,6 +26,7 @@ import math
 
 import torch
 
+from tqdne_tpu_torch.parallel import draw_rows
 from tqdne_tpu_torch.train.state import TrainState, apply_updates
 from tqdne_tpu_torch.train.steps import training_sample
 from tqdne_tpu_torch.utils import append_dims, resolve_device
@@ -90,7 +91,7 @@ def timestep_log_pmf(cfg: ConsistencyConfig, n, max_intervals: int, device=None)
 def draw_categorical(log_pmf: torch.Tensor, n: int, generator=None) -> torch.Tensor:
     """``n`` draws of the index of ``log_pmf`` by Gumbel-max, from ``generator``:
     argmax(log_pmf - log(-log u)), with no host sync."""
-    u = torch.rand((n, log_pmf.shape[0]), generator=generator, device=log_pmf.device)
+    u = draw_rows(torch.rand, (n, log_pmf.shape[0]), generator=generator, device=log_pmf.device)
     gumbel = -torch.log(-torch.log(u.clamp(min=torch.finfo(u.dtype).tiny)))
     return torch.argmax(log_pmf + gumbel, dim=1)
 
@@ -130,8 +131,8 @@ def consistency_loss(cfg: ConsistencyConfig, net_apply_teacher, net_apply_studen
     sigma_teacher = sigma_grid_value(cfg, t, n)
     sigma_student = sigma_grid_value(cfg, t + 1.0, n)
     if eps is None:
-        eps = torch.randn(sample.shape, generator=generator, device=sample.device,
-                          dtype=sample.dtype)
+        eps = draw_rows(torch.randn, sample.shape, generator=generator, device=sample.device,
+                        dtype=sample.dtype)
     x_teacher = sample + eps * append_dims(sigma_teacher, sample.ndim)
     x_student = sample + eps * append_dims(sigma_student, sample.ndim)
     # the device's RNG state is restored on exit, so the student redraws the teacher's masks
@@ -166,7 +167,7 @@ def consistency_sample(cfg: ConsistencyConfig, net_apply, shape: tuple[int, ...]
         raise ValueError(f"unknown noise mode {noise!r}; use 'auto', 'song' or 'reference'")
     device = resolve_device(device)
     if eps is None:
-        eps = torch.randn(shape, generator=generator, device=device)
+        eps = draw_rows(torch.randn, shape, generator=generator, device=device)
     x = eps.to(device, torch.float32)
     if noise == "song":
         x = x * cfg.sigma_max
@@ -176,11 +177,11 @@ def consistency_sample(cfg: ConsistencyConfig, net_apply, shape: tuple[int, ...]
         draw = None if refine_draws is None else refine_draws[k].to(device, torch.float32)
         if noise == "song":
             if draw is None:
-                draw = torch.randn(shape, generator=generator, device=device)
+                draw = draw_rows(torch.randn, shape, generator=generator, device=device)
             x = x + draw * max(sigma**2 - cfg.sigma_min**2, 0.0) ** 0.5
         else:
             if draw is None:
-                draw = torch.rand(shape, generator=generator, device=device)
+                draw = draw_rows(torch.rand, shape, generator=generator, device=device)
             x = x + draw * sigma
         x = consistency_forward(cfg, net_apply, x, ones * sigma, cond_signal, cond)
     return x

@@ -20,6 +20,7 @@ import math
 
 import torch
 
+from tqdne_tpu_torch.parallel import draw_rows
 from tqdne_tpu_torch.train.state import TrainState, apply_updates
 from tqdne_tpu_torch.utils import append_dims, resolve_device
 
@@ -66,12 +67,12 @@ def ddpm_loss(cfg: DDPMConfig, net_apply, sample, *, cond_signal=None, cond=None
     ``noise`` injected or drawn from ``generator`` in that order."""
     b = sample.shape[0]
     if t is None:
-        t = torch.randint(0, cfg.num_train_timesteps, (b,), generator=generator,
-                          device=sample.device)
+        t = draw_rows(torch.randint, 0, cfg.num_train_timesteps, (b,), generator=generator,
+                      device=sample.device)
     t = t.to(sample.device)
     if noise is None:
-        noise = torch.randn(sample.shape, generator=generator, device=sample.device,
-                            dtype=sample.dtype)
+        noise = draw_rows(torch.randn, sample.shape, generator=generator, device=sample.device,
+                          dtype=sample.dtype)
     noisy = add_noise(cfg, sample, noise, t)
     x_in = noisy if cond_signal is None else torch.cat([cond_signal, noisy], dim=-1)
     pred = net_apply(x_in, t.float(), cond)
@@ -106,7 +107,8 @@ def ddpm_step(cfg: DDPMConfig, model_out, t: int, x_t, noise=None,
     if t == 0:
         return mean
     if noise is None:
-        noise = torch.randn(x_t.shape, generator=generator, device=x_t.device, dtype=x_t.dtype)
+        noise = draw_rows(torch.randn, x_t.shape, generator=generator, device=x_t.device,
+                          dtype=x_t.dtype)
     var = max((1 - acp_tm1) / (1 - acp_t) * beta_t, 1e-20)
     return mean + math.sqrt(var) * noise
 
@@ -122,7 +124,7 @@ def ddpm_sample(cfg: DDPMConfig, net_apply, shape: tuple[int, ...], *, cond_sign
     float32."""
     device = resolve_device(device)
     if x is None:
-        x = torch.randn(shape, generator=generator, device=device)
+        x = draw_rows(torch.randn, shape, generator=generator, device=device)
     x = x.to(device, torch.float32)
     for k, t in enumerate(range(cfg.num_train_timesteps - 1, -1, -1)):
         x_in = x if cond_signal is None else torch.cat([cond_signal, x], dim=-1)

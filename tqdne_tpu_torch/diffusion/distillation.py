@@ -28,6 +28,7 @@ from tqdne_tpu_torch.diffusion.consistency import (
     sample_consistency,
     sigma_grid_value,
 )
+from tqdne_tpu_torch.parallel import draw_rows
 from tqdne_tpu_torch.train.state import TrainState, apply_updates
 from tqdne_tpu_torch.train.steps import training_sample
 from tqdne_tpu_torch.utils import append_dims
@@ -68,13 +69,14 @@ def distillation_loss(cm_cfg: ConsistencyConfig, edm_cfg: edm_lib.EDMConfig, tea
     the teacher's Heun step and the target's output without gradients."""
     batch = sample.shape[0]
     if i is None:
-        i = torch.randint(0, n_grid - 1, (batch,), generator=generator, device=sample.device)
+        i = draw_rows(torch.randint, 0, n_grid - 1, (batch,), generator=generator,
+                      device=sample.device)
     i = i.to(device=sample.device, dtype=torch.float32)
     sigma_lo = sigma_grid_value(cm_cfg, i, float(n_grid))
     sigma_hi = sigma_grid_value(cm_cfg, i + 1.0, float(n_grid))
     if eps is None:
-        eps = torch.randn(sample.shape, generator=generator, device=sample.device,
-                          dtype=sample.dtype)
+        eps = draw_rows(torch.randn, sample.shape, generator=generator, device=sample.device,
+                        dtype=sample.dtype)
     x_hi = sample + eps * append_dims(sigma_hi, sample.ndim)
     with torch.no_grad():
         x_lo = teacher_heun_step(edm_cfg, teacher_denoise, x_hi, sigma_hi, sigma_lo, cond)

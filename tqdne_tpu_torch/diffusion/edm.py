@@ -7,6 +7,7 @@ import dataclasses
 
 import torch
 
+from tqdne_tpu_torch.parallel import draw_rows
 from tqdne_tpu_torch.utils import append_dims
 
 
@@ -95,7 +96,8 @@ def edm_loss(cfg: EDMConfig, net_apply, sample, *, cond_signal=None, cond=None,
     (the device's default one when None), sigma's first.  Returns a scalar.
     """
     def normal(shape):
-        return torch.randn(shape, generator=generator, device=sample.device, dtype=sample.dtype)
+        return draw_rows(torch.randn, shape, generator=generator, device=sample.device,
+                         dtype=sample.dtype)
 
     sigma = sigma_from_normal(cfg, normal(sample.shape[:1]) if sigma_eps is None else sigma_eps)
     if noise is None:

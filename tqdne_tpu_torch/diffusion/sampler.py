@@ -15,6 +15,7 @@ from typing import Callable
 import torch
 
 from tqdne_tpu_torch.diffusion.edm import EDMConfig, sampling_sigmas, sigma_hat
+from tqdne_tpu_torch.parallel import draw_rows
 from tqdne_tpu_torch.utils import resolve_device
 
 # DenoiseFn(x, sigma[B]) -> denoised x; closes over the network and conditioning.
@@ -65,7 +66,8 @@ def heun_stochastic(denoise_fn: DenoiseFn, eps: torch.Tensor, sigmas, cfg: EDMCo
     x = eps
     for sigma, sigma_next in zip(sig[:-1], sig[1:]):
         s_hat = sigma_hat(cfg, sigma, num_steps)
-        noise = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+        noise = draw_rows(torch.randn, x.shape, generator=generator, dtype=x.dtype,
+                          device=x.device)
         x_hat = x + noise * cfg.S_noise * math.sqrt(max(s_hat**2 - sigma**2, 0.0))
         d_cur = (x_hat - denoise(x_hat, s_hat)) / s_hat
         x_euler = x_hat + d_cur * (sigma_next - s_hat)
@@ -121,7 +123,7 @@ def sample(denoise_fn: DenoiseFn, shape: tuple[int, ...], cfg: EDMConfig = EDMCo
         raise ValueError("dpmpp_2m is a deterministic solver")
     sigmas = sampling_sigmas(cfg, num_steps)
     if noise is None:
-        noise = torch.randn(shape, generator=generator, device=resolve_device(device))
+        noise = draw_rows(torch.randn, shape, generator=generator, device=resolve_device(device))
     eps = noise.to(torch.promote_types(noise.dtype, torch.float32)) * sigmas[0].item()
     if solver == "dpmpp_2m":
         return dpmpp_2m(denoise_fn, eps, sigmas)

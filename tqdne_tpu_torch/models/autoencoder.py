@@ -16,6 +16,7 @@ from torch import nn
 
 from tqdne_tpu_torch.nn.attention import AttentionBlock
 from tqdne_tpu_torch.nn.layers import Downsample, Norm32, Upsample, conv_nd
+from tqdne_tpu_torch.parallel import draw_rows
 
 
 class PlainResBlock(nn.Module):
@@ -131,8 +132,8 @@ class AutoencoderKL(nn.Module):
         drawn from ``generator`` (the device's default one when None)."""
         mean, log_std = self.moments(x)
         if eps is None:
-            eps = torch.randn(mean.shape, generator=generator, device=mean.device,
-                              dtype=mean.dtype)
+            eps = draw_rows(torch.randn, mean.shape, generator=generator, device=mean.device,
+                            dtype=mean.dtype)
         return mean + eps.to(mean.dtype) * torch.exp(log_std)
 
     def encode_mean(self, x):

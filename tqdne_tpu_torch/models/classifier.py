@@ -48,10 +48,11 @@ class Classifier(nn.Module):
         return emb, self.head(emb).float()
 
 
-def weighted_cross_entropy(logits, labels, class_weights):
+def weighted_cross_entropy(logits, labels, class_weights, weight_sum=None):
     """Inverse-frequency weighted cross-entropy (torch ``CrossEntropyLoss(weight=w)``):
-    the mean is normalised by the sum of the per-sample weights."""
+    the mean is normalised by the sum of the per-sample weights, or by
+    ``weight_sum`` when given (a data-parallel rank's share of the global sum)."""
     log_probs = torch.log_softmax(logits.float(), dim=-1)
     nll = -log_probs.gather(-1, labels[:, None])[:, 0]
     w = class_weights[labels]
-    return (w * nll).sum() / w.sum()
+    return (w * nll).sum() / (w.sum() if weight_sum is None else weight_sum)

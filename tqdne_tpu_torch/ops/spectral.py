@@ -13,6 +13,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from tqdne_tpu_torch.parallel import draw_rows
+
 
 def hann_window(n: int, dtype=torch.float32, device=None) -> torch.Tensor:
     return 0.5 - 0.5 * torch.cos(2.0 * math.pi * torch.arange(n, dtype=dtype, device=device) / n)
@@ -69,8 +71,8 @@ def griffin_lim(mag, n_fft: int, hop: int, length: int, *, n_iter: int = 128,
     ``generator``, the JAX package's convention.
     """
     if init_phase is None:
-        init_phase = 2.0 * math.pi * torch.rand(mag.shape, generator=generator,
-                                                dtype=torch.float32, device=mag.device)
+        init_phase = 2.0 * math.pi * draw_rows(torch.rand, mag.shape, generator=generator,
+                                               dtype=torch.float32, device=mag.device)
     mag_fm = mag.transpose(-1, -2)
     phase = init_phase.transpose(-1, -2)
     angles = torch.complex(torch.cos(phase), torch.sin(phase))

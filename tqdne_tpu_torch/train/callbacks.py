@@ -6,6 +6,12 @@ device, evaluates a metric list on the (predicted, target) waveforms, writes
 the scalars as ``eval/<metric>`` and the figures under
 ``workdir/plots/epoch_{e}/``.  Non-finite predictions are warned about and
 zeroed.  This module imports no matplotlib (the plots given to it do).
+
+Under a process group each rank holds its rows of the validation batches
+and samples them (the per-row draws are its rows of the global batch's, as
+in training); the predictions, targets and conditioning are gathered in rank
+order, so every rank evaluates the metrics on the whole of each batch, and
+rank 0 alone writes the scalars and the figures.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import numpy as np
 import torch
 
 from tqdne_tpu_torch.data.representation import invert
+from tqdne_tpu_torch.parallel import all_gather_rows, rank
 from tqdne_tpu_torch.utils import fold_seed
 
 logger = logging.getLogger("tqdne_tpu_torch")
@@ -95,10 +102,10 @@ class SamplingEvalCallback:
                 raise ValueError(
                     f"sampling eval batch {i}: {len(pred_wf)} predictions vs {len(target_wf)} "
                     "targets — sample_fn must preserve batch size")
-            preds.append(pred_wf.cpu().numpy())
-            targets.append(target_wf.cpu().numpy())
+            preds.append(all_gather_rows(pred_wf).cpu().numpy())
+            targets.append(all_gather_rows(target_wf).cpu().numpy())
             if "cond" in batch:
-                conds.append(torch.as_tensor(batch["cond"]).cpu().numpy())
+                conds.append(all_gather_rows(torch.as_tensor(batch["cond"])).cpu().numpy())
 
         pred = np.concatenate(preds)
         target = np.concatenate(targets)[:, :, : pred.shape[-1]]
@@ -122,7 +129,7 @@ class SamplingEvalCallback:
         if scalars:
             trainer.writer.write(gstep, scalars)
 
-        if self.plots:
+        if self.plots and rank() == 0:
             plotdir = Path(trainer.workdir) / "plots" / f"epoch_{epoch}"
             plotdir.mkdir(parents=True, exist_ok=True)
             for plot in self.plots:

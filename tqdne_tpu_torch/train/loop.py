@@ -1,7 +1,13 @@
 """Training loop: the port of ``Trainer`` and ``MetricWriter`` in
 ``tqdne_tpu/train/loop.py``.
 
-One process drives one device.  Validation runs the EMA module; checkpoints
+One process drives one device; under a process group each rank trains on
+its rows of every global batch (``data.pipeline``), ``apply_updates``
+averages the gradients, and rank 0 alone writes ``metrics.jsonl``, the
+heartbeat, ``hparams.json``, the checkpoints and ``progress.json``, every
+rank waiting at a barrier after each write; on a resume every rank restores
+from the shared directory.  The logged training metrics and the validation
+means are averaged over the ranks first.  Validation runs the EMA module; checkpoints
 keep the best 3 by validation loss plus the last, with the epoch in
 ``progress.json``, so a resume is exact; metrics stream to ``metrics.jsonl``
 with the JAX package's keys (``training/loss``, ``traintime``, ``lr``,
@@ -13,10 +19,13 @@ callback of ``train.callbacks``).
 
 Randomness is per step, as the JAX loop folds the step into its root key:
 step ``n`` seeds the step's ``torch.Generator`` (the encoder's eps, the
-sigma normal and the diffusion noise) and the device's default generator
-(dropout) from ``(seed, n)``, and validation batch ``i`` from
+sigma normal and the diffusion noise) from ``(seed, n)`` on every rank, and
+the device's default generator (dropout) from ``(seed, n)`` and the rank
+(rank 0 as a single process), and validation batch ``i`` from
 ``(seed, 2**31 + i)``.  A resumed run therefore draws what an uninterrupted
-one would.
+one would, and an N-rank run at dropout 0 what the 1-rank run at the same
+global batch does (the JAX package draws one dropout mask for the global
+batch; here each rank draws its own).
 """
 
 from __future__ import annotations
@@ -29,29 +38,52 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from tqdne_tpu_torch.parallel import all_reduce_sum, barrier, rank, world_size
 from tqdne_tpu_torch.train.checkpoint import Checkpointer
 
 
-def step_seed(seed: int, n: int, stream: int) -> int:
-    """A 63-bit seed for draw ``stream`` of step ``n``."""
-    return int(np.random.SeedSequence([seed, n, stream]).generate_state(1, np.uint64)[0] >> 1)
+def step_seed(seed: int, n: int, stream: int, rank: int = 0) -> int:
+    """A 63-bit seed for draw ``stream`` of step ``n`` on ``rank``."""
+    entropy = [seed, n, stream] + ([rank] if rank else [])
+    return int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0] >> 1)
+
+
+def mean_over_ranks(values: dict) -> dict:
+    """``{k: array}`` averaged over the world in one collective (float64 on
+    the host); the values as they are at world size 1."""
+    n = world_size()
+    if n == 1 or not values:
+        return values
+    arrays = {k: np.atleast_1d(np.asarray(v, np.float64)) for k, v in values.items()}
+    flat = all_reduce_sum(torch.from_numpy(np.concatenate(list(arrays.values())))) / n
+    out, offset = {}, 0
+    for k, a in arrays.items():
+        out[k] = flat[offset:offset + a.size].numpy().reshape(np.shape(values[k]))
+        offset += a.size
+    return out
 
 
 class MetricWriter:
-    """JSONL metric sink: one ``{"step": n, ...}`` row per write."""
+    """JSONL metric sink: one ``{"step": n, ...}`` row per write, on rank 0
+    only (one metrics stream per run)."""
 
     def __init__(self, workdir: str | Path):
         self.path = Path(workdir) / "metrics.jsonl"
-        self.path.parent.mkdir(parents=True, exist_ok=True)
-        self._file = open(self.path, "a")
+        self._file = None
+        if rank() == 0:
+            self.path.parent.mkdir(parents=True, exist_ok=True)
+            self._file = open(self.path, "a")
 
     def write(self, step: int, metrics: dict):
+        if self._file is None:
+            return
         record = {"step": int(step), **{k: float(v) for k, v in metrics.items()}}
         self._file.write(json.dumps(record) + "\n")
         self._file.flush()
 
     def close(self):
-        self._file.close()
+        if self._file is not None:
+            self._file.close()
 
 
 class Trainer:
@@ -93,7 +125,8 @@ class Trainer:
 
     def _seed_step(self, n: int):
         self.generator.manual_seed(step_seed(self.seed, n, 0))
-        torch.manual_seed(step_seed(self.seed, n, 1))  # dropout: the default generators
+        # dropout: the default generators, each rank's own
+        torch.manual_seed(step_seed(self.seed, n, 1, rank()))
 
     def _write_progress(self, epoch: int, step: int):
         (self.workdir / "checkpoints" / "progress.json").write_text(
@@ -104,15 +137,18 @@ class Trainer:
         return json.loads(p.read_text()) if p.exists() else None
 
     def _save(self, step: int, state, epochs_done: int, metrics=None):
-        self.checkpointer.save(step, state, metrics=metrics)
-        self._write_progress(epochs_done, step)
+        if rank() == 0:
+            self.checkpointer.save(step, state, metrics=metrics)
+            self._write_progress(epochs_done, step)
+        barrier()
 
     def fit(self, state, train_loader, val_loader=None, *, resume: bool = True):
         """Run the loop on ``state`` (updated in place; also returned)."""
         if self.hparams is not None:
             matched = resume and self.checkpointer.verify_hyperparameters(self.hparams)
-            if not matched:  # a fresh run: the new architecture wins
+            if not matched and rank() == 0:  # a fresh run: the new architecture wins
                 self.checkpointer.save_hyperparameters(self.hparams)
+            barrier()
 
         start_epoch = 0
         if resume:
@@ -158,7 +194,7 @@ class Trainer:
                 pending.clear()
 
             now = time.monotonic()
-            if now - self._last_heartbeat >= 60.0:
+            if rank() == 0 and now - self._last_heartbeat >= 60.0:
                 self._last_heartbeat = now
                 print(f"[train] epoch {epoch + 1}/{self.max_epochs} step {gstep}", flush=True)
 
@@ -181,7 +217,8 @@ class Trainer:
 
     def _log(self, pending, traintime: float):
         step, metrics = pending[-1]
-        host = {f"training/{k}": float(v) for k, v in metrics.items()}
+        means = mean_over_ranks({k: v.detach().double().cpu().numpy() for k, v in metrics.items()})
+        host = {f"training/{k}": float(v) for k, v in means.items()}
         host["traintime"] = traintime
         if self.lr_schedule is not None:
             host["lr"] = float(self.lr_schedule(step))
@@ -195,7 +232,7 @@ class Trainer:
             for k, v in self.eval_step(state, batch, generator=self.generator).items():
                 sums[k] = sums.get(k, 0.0) + v.detach().cpu().double().numpy()
             n += 1
-        means = {k: v / max(n, 1) for k, v in sums.items()}
+        means = mean_over_ranks({k: v / max(n, 1) for k, v in sums.items()})
         if self.metric_postprocess is not None:
             means = self.metric_postprocess(means)
         means = {k: float(v) for k, v in means.items()}

@@ -15,6 +15,14 @@ the same.  ``step`` and the EMA advance on every step, as the JAX
 ``apply_updates`` advances them.  The guard stays on the device: one
 multi-tensor finiteness check feeds the optimizer's ``found_inf`` (the fused
 Adam's and AdamW's, or the port's ``RAdam``), and nothing waits for the host.
+
+Under a process group ``apply_updates`` first averages the gradients over
+the world (``parallel.all_reduce_gradients_``), so every rank applies the
+same update, the guard decides alike everywhere, and the optimizer, the
+schedule and the EMA stay identical across ranks; every recipe's step ends
+there.  Over an FSDP-sharded model (``parallel.fsdp``) the gradients are
+DTensors that FSDP has averaged already, and the guard agrees over the
+world on the shards each rank holds.
 """
 
 from __future__ import annotations
@@ -25,17 +33,24 @@ from typing import Callable
 
 import torch
 
+from tqdne_tpu_torch.parallel import all_reduce_gradients_, all_reduce_max_
+
 
 class TrainState:
     """step + the live module + its EMA copy + the optimizer (and schedule),
-    with the non-finite guard's count of consecutive non-finite steps."""
+    with the non-finite guard's count of consecutive non-finite steps.
+
+    ``ema``: the EMA module, by default a frozen copy of ``model`` in eval
+    mode (an FSDP-sharded model cannot be copied: ``parallel.fsdp.shard_with_ema``
+    makes both)."""
 
     def __init__(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                 lr_schedule: Callable | None = None, skip_nonfinite: int = 0):
+                 lr_schedule: Callable | None = None, skip_nonfinite: int = 0,
+                 ema: torch.nn.Module | None = None):
         self.step = 0
         self.model = model
         # a distinct copy: evaluation reads it while the live module trains
-        self.ema = copy.deepcopy(model).eval().requires_grad_(False)
+        self.ema = copy.deepcopy(model).eval().requires_grad_(False) if ema is None else ema
         self.optimizer = optimizer
         self.lr_schedule = lr_schedule
         self.skip_nonfinite = skip_nonfinite
@@ -77,18 +92,25 @@ def _reject_nonfinite(state: TrainState) -> torch.Tensor:
     ``skip_nonfinite`` consecutive steps have (this one included)."""
     grads = [p.grad for g in state.optimizer.param_groups for p in g["params"]
              if p.grad is not None]
+    sharded = [g for g in grads if hasattr(g, "to_local")]  # FSDP's DTensors
+    if sharded:  # each rank checks the shards it holds
+        grads = [g.to_local() if hasattr(g, "to_local") else g for g in grads]
     found = torch.zeros((), device=state.notfinite_count.device)
     # AMP's multi-tensor check: sets ``found`` on a NaN or inf; the scale of 1 leaves grads as
     # they are
     torch._amp_foreach_non_finite_check_and_unscale_(grads, found, torch.ones_like(found))
+    if sharded:
+        all_reduce_max_(found)
     state.notfinite_count.add_(1).mul_(found)  # consecutive non-finite steps, 0 on a finite one
     return found * (state.notfinite_count <= state.skip_nonfinite)
 
 
 def apply_updates(state: TrainState, ema_decay: float = 0.999) -> None:
     """One optimizer update from the gradients in ``.grad`` (rejected by the
-    guard when it is armed and they are not finite), then the EMA."""
+    guard when it is armed and they are not finite), then the EMA; under a
+    process group the gradients are first averaged over the world."""
     optimizer = state.optimizer
+    all_reduce_gradients_([p for g in optimizer.param_groups for p in g["params"]])
     # the optimizer reads ``found_inf``; a guard disarmed later must not leave it set
     optimizer.found_inf = _reject_nonfinite(state) if state.skip_nonfinite else None
     if state.lr_schedule is not None:

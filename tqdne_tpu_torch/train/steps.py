@@ -13,8 +13,14 @@ autoencoder encodes the signal (and a ``cond_signal``, with a draw of its
 own) inside the EDM step, without gradients.  Every random draw of a step
 (the encoder's eps, the ``cond_signal`` encoder's eps, the sigma normal,
 the diffusion noise) is injectable, as the parity tests need; left out,
-each comes from the step's ``generator`` in that order.  Dropout draws from
-the device's default generator.
+each comes from the step's ``generator`` in that order, at the global
+batch's shape with this rank's rows kept (``parallel.draw_rows``).  Dropout
+draws from the device's default generator, which is each rank's own.
+
+Under a process group each rank's batch is its rows of the global batch.
+The mean losses then average over the ranks into the global mean; the
+classifier's weighted cross-entropy is normalised by the global sum of its
+class weights, and its confusion counts are summed over the ranks.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from tqdne_tpu_torch.diffusion import edm as edm_lib
 from tqdne_tpu_torch.diffusion import sampler as sampler_lib
 from tqdne_tpu_torch.models.autoencoder import kl_divergence
 from tqdne_tpu_torch.models.classifier import weighted_cross_entropy
+from tqdne_tpu_torch.parallel import all_reduce_sum, draw_rows, world_size
 from tqdne_tpu_torch.train.state import TrainState, apply_updates
 
 
@@ -49,8 +56,8 @@ def training_sample(batch: dict, *, autoencoder=None, latent_moments: bool = Fal
     if latent_moments:
         mean, log_std = batch["latent_mean"], batch["latent_log_std"]
         if ae_eps is None:
-            ae_eps = torch.randn(mean.shape, generator=generator, device=mean.device,
-                                 dtype=mean.dtype)
+            ae_eps = draw_rows(torch.randn, mean.shape, generator=generator, device=mean.device,
+                               dtype=mean.dtype)
         return mean + ae_eps * torch.exp(log_std)
     sample = _signal(batch, device_representation)
     if autoencoder is not None:
@@ -130,8 +137,8 @@ def autoencoder_losses(ae, batch: dict, *, kl_weight: float = 1e-6, device_repre
     def run(x, eps):
         mean, log_std = ae.moments(x)
         if eps is None:
-            eps = torch.randn(mean.shape, generator=generator, device=mean.device,
-                              dtype=mean.dtype)
+            eps = draw_rows(torch.randn, mean.shape, generator=generator, device=mean.device,
+                            dtype=mean.dtype)
         recon = ae.decode(mean + eps.to(mean.dtype) * torch.exp(log_std))
         return torch.mean((x - recon) ** 2), torch.mean(kl_divergence(mean, log_std))
 
@@ -171,10 +178,15 @@ def make_autoencoder_steps(*, kl_weight: float = 1e-6, ema_decay: float = 0.999,
 def classifier_outputs(clf, batch: dict, class_weights: torch.Tensor, *,
                        device_representation=None):
     """The JAX ``_loss`` of ``make_classifier_steps``: (logits, {"loss": the
-    weighted cross-entropy, "accuracy"})."""
+    weighted cross-entropy, "accuracy"}).  Under a process group the loss is
+    normalised by the global batch's weight sum over the world size (the sum
+    all-reduced without gradient), so the ranks' mean, of the losses and of
+    their gradients, is the global loss."""
     logits = clf(_signal(batch, device_representation))
     label = batch["label"].long()
-    loss = weighted_cross_entropy(logits, label, class_weights.to(logits.device))
+    class_weights = class_weights.to(logits.device)
+    weight_sum = all_reduce_sum(class_weights[label].sum()) / world_size()
+    loss = weighted_cross_entropy(logits, label, class_weights, weight_sum)
     accuracy = (logits.argmax(-1) == label).float().mean()
     return logits, {"loss": loss, "accuracy": accuracy}
 
@@ -224,8 +236,10 @@ def make_classifier_steps(class_weights, *, ema_decay: float = 0.999,
         logits, metrics = classifier_outputs(state.ema, batch, class_weights, **kw)
         pred_1h = F.one_hot(logits.argmax(-1), num_classes).float()
         true_1h = F.one_hot(batch["label"].long(), num_classes).float()
-        return metrics | {"tp_counts": (pred_1h * true_1h).sum(0),
-                          "pred_counts": pred_1h.sum(0), "true_counts": true_1h.sum(0)}
+        # the global batch's counts: summed over the ranks in one collective
+        counts = all_reduce_sum(torch.stack([(pred_1h * true_1h).sum(0), pred_1h.sum(0),
+                                             true_1h.sum(0)]))
+        return metrics | dict(zip(("tp_counts", "pred_counts", "true_counts"), counts))
 
     return train_step, eval_step, confusion_metrics
 
