@@ -129,7 +129,28 @@ Phases (any failure exits non-zero and prints no result line):
    parameters to the f32 bound, the ranks bit-identical), then 5 bf16 steps with their
    launches, walls and the gradient all-reduce's share (not a scaling
    figure); (c) the train CLI's ``-d 2`` refused on one card, its ``-d 1``
-   reaching the run;
+   reaching the run; then (4p) spatial partitioning, two ranks sharing the card
+   over gloo: the full-width flagship built with ``spatial=2`` (each sample's
+   rows split in two, halo convolutions, GroupNorm through the kernel's
+   statistics and normalisation entries with the shards' statistics merged,
+   attention over the gathered tokens) sampled by dpmpp_2m-10 with its decode,
+   in f32 at batch 2 and 32 against one rank's sample (to 1e-4 of the peak) and
+   in bf16 at 32 (relative L2 error within bf16's 1.6e-2), with exact launches
+   (the statistics and normalisation entries once for each GroupNorm of one
+   rank's run, no fused launch, the flash forward as one rank's); a bf16
+   ``generate`` timed with its collectives' share; one f32 flagship train step
+   at 32 (dropout 0, SGD) against one rank's (loss to 1e-4, every gradient to
+   1e-4 of its peak plus 1e-6 of the largest, the flash backward kernels run);
+   one ``serve --spatial 2`` round on loopback; then the two entries against
+   their plain versions at every GroupNorm shape of one UNet eval and one
+   decode on one shard (f32, and the path's bf16 pairs) and timed; then (4q) the
+   int8 mode: the flagship in bf16 at batch 32 with and without ``int8`` at
+   Heun-25 and dpmpp_2m-10 (Griffin-Lim 32), waveforms/s of each, launches, the
+   decoded signal's cosine against bf16 (at least 0.98), the int32 sums of
+   every convolution shape of one UNet eval and one decode bit-identical to the
+   float64 convolution of the codes on the card, and one quantized convolution's
+   device ms beside cuDNN's bf16 convolution at ds 1, ds 4 and the decoder's
+   128 x 128;
 5. timings on the card: each kernel at the main paths' shapes beside its
    bound, its plain version and a PyTorch yardstick call (and, for the
    record, the bf16 flash forward at (128, 16, 4, 128)), GroupNorm per UNet
@@ -2495,10 +2516,10 @@ def dp_gloo_worker(rank: int, port: int, want_step: dict, out_dir: str):
     reduce_ms = []
     reduce = state_mod.all_reduce_gradients_
 
-    def timed_reduce(params):
+    def timed_reduce(params, *args):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        reduce(params)
+        reduce(params, *args)
         torch.cuda.synchronize()
         reduce_ms.append((time.perf_counter() - t0) * 1e3)
 
@@ -2635,6 +2656,489 @@ def data_parallel_path(train_want: dict, want_gn_bwd: int, step_want: dict,
         fail("4o (c): the train CLI's -d refusal or its -d 1")
     shutil.rmtree(DP_RESULTS, ignore_errors=True)
     return {"4o world1": w1["world1"]["launches"], "4o gloo2 rank0": ranks[0]["bf16"]["launches"]}
+
+
+def bound(nbytes, ops, dtype):
+    """Least time for the work: bytes over HBM rate vs operations over peak."""
+    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / PEAK_OPS[dtype]
+    return dict(bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+SP_RESULTS = Path(__file__).resolve().parent / "build" / "chip_smoke_4p"
+SP_K = 2  # shards of each sample's rows: two ranks sharing the card over gloo
+SP_BATCHES = (2, BATCH)  # the f32 samples held against one rank
+SP_STEPS = 10  # dpmpp_2m steps of the spatial samples
+SP_TRAIN_BATCH = 32  # the f32 spatial train step's global batch
+GN_STATS_OPS, GN_APPLY_OPS = 4, {True: 8, False: 5}  # per element: sums, d, d^2 / affine, SiLU
+COLLECTIVES = ("all_gather", "all_reduce", "broadcast")
+
+
+def gn_entries():
+    """The wrappers of the GroupNorm kernel's statistics and normalisation entries."""
+    from tqdne_tpu_torch.ops.group_norm import group_norm_apply, group_norm_stats
+
+    return group_norm_stats, group_norm_apply
+
+
+def all_launches() -> dict:
+    """``read_launches`` with the GroupNorm entries' counts."""
+    counts = read_launches()
+    return counts | {fn.__name__: fn.launches for fn in gn_entries()}
+
+
+def zero_all_launches():
+    zero_launches()
+    for fn in gn_entries():
+        fn.launches = 0
+
+
+def timed_collectives():
+    """Wrap torch.distributed's collectives to sum their wall ms (synchronised
+    before and after); returns the running totals."""
+    import torch.distributed as dist
+
+    totals = collections.Counter()
+    for name in COLLECTIVES:
+        fn = getattr(dist, name)
+
+        def timed(*a, _fn=fn, _name=name, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*a, **k)
+            torch.cuda.synchronize()
+            totals[_name + "_ms"] += 1e3 * (time.perf_counter() - t0)
+            totals[_name] += 1
+            return out
+
+        setattr(dist, name, timed)
+    return totals
+
+
+def spatial_worker(rank: int, port: int, out_dir: str):
+    """Phase 4p: rank ``rank`` of two sharing card 0 over gloo.  Rank 0 first takes
+    the references on one rank, before the group exists: the flagship's f32
+    dpmpp_2m-10 samples (decoded) at batch 2 and 32, the bf16 one at 32, and one f32
+    train step's loss and gradients.  Then both ranks build the flagship with
+    ``spatial=2`` and take the same samples and step on their halves of the rows
+    (launches counted, the GroupNorm shapes recorded, the collectives timed), a
+    bf16 ``generate`` (with Griffin-Lim 32) timed, and one ``serve --spatial 2``
+    round on loopback."""
+    import json as json_mod
+    import threading
+    import urllib.request
+
+    import torch.distributed as dist
+
+    from tqdne_tpu_torch import configs
+    from tqdne_tpu_torch.cli import serve as serve_cli
+    from tqdne_tpu_torch.cli.common import build_inference
+    from tqdne_tpu_torch.parallel import spatial
+    from tqdne_tpu_torch.train.loop import step_seed
+    from tqdne_tpu_torch.train.steps import make_edm_steps
+
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    cond = torch.randn(BATCH, 5, generator=torch.Generator(device=dev).manual_seed(SEED),
+                       device=dev)
+    result = {"rank": rank}
+
+    def flagship(dtype, k):
+        return build_inference("latent_edm", dtype=dtype, num_steps=SP_STEPS, solver="dpmpp_2m",
+                               gl_iters=32, device=dev, spatial=k)
+
+    def sample(bundle, n):
+        return bundle.sample(cond[:n], generator=torch.Generator(device=dev).manual_seed(SEED + n))
+
+    # the train step's batch, read before the group exists (the loader cuts a group's rows)
+    step_batch = next(iter(flagship_loader(configs.LatentSpectrogramConfig(), dev)))
+    step_batch = {k: v[:SP_TRAIN_BATCH] for k, v in step_batch.items()}
+
+    def train_step_run(mesh):
+        """One f32 flagship step (dropout 0, SGD at 1e-4) at SP_TRAIN_BATCH: its loss,
+        the gradients the update read, its launches."""
+        _, state, _, ae, _, _ = training_setup(dev, torch.float32)
+        for m in state.model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+        names = {p: n for n, p in state.model.named_parameters()}
+        state.optimizer = torch.optim.SGD(list(names), lr=1e-4)
+        state.lr_schedule = None
+        grads = {}
+        state.optimizer.register_step_pre_hook(lambda opt, *_: grads.update(
+            {names[p]: p.grad.detach().cpu() for p in names if p.grad is not None}))
+        batch = step_batch if mesh is None else spatial.shard_batch(mesh, step_batch)
+        train_step, _ = make_edm_steps(autoencoder=ae, mesh=mesh)
+        gen = torch.Generator(device=dev).manual_seed(step_seed(SEED, 0, 0))
+        zero_all_launches()
+        t0 = time.perf_counter()
+        loss = train_step(state, batch, generator=gen)["loss"].item()
+        torch.cuda.synchronize()
+        return {"loss": loss, "launches": all_launches(),
+                "ms": 1e3 * (time.perf_counter() - t0)}, grads
+
+    if rank == 0:  # the references: one rank, before the group exists
+        refs = {}
+        for dtype, batches in ((torch.float32, SP_BATCHES), (torch.bfloat16, (BATCH,))):
+            bundle = flagship(dtype, 0)
+            for n in batches:
+                zero_all_launches()
+                refs[(str(dtype), n)] = sample(bundle, n).cpu()
+                result[f"ref_launches_{str(dtype)[6:]}_{n}"] = all_launches()
+            del bundle
+        result["ref_step"], ref_grads = train_step_run(None)
+        torch.cuda.empty_cache()
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=SP_K)
+    totals = timed_collectives()
+    checks = {}
+    for dtype, batches in ((torch.float32, SP_BATCHES), (torch.bfloat16, (BATCH,))):
+        bundle = flagship(dtype, SP_K)
+        for n in batches:
+            label = f"{str(dtype)[6:]}_{n}"
+            zero_all_launches()
+            totals.clear()
+            t0 = time.perf_counter()
+            held = {}
+            # the GroupNorm shapes the timing rows need, recorded on this run
+            gn_calls = record_calls([bundle.unet, bundle.autoencoder],
+                                    lambda: held.update(got=sample(bundle, n)))[0]
+            got = held["got"]
+            if dtype == torch.bfloat16:
+                result["gn_calls"] = [[str(c[0])[6:], str(c[1])[6:], *c[2:]] for c in gn_calls]
+            torch.cuda.synchronize()
+            checks[label] = {"launches": all_launches(), "ms": 1e3 * (time.perf_counter() - t0),
+                             "collectives": dict(totals)}
+            if rank == 0:
+                want = refs[(str(dtype), n)].to(dev)
+                checks[label] |= {"max_abs": (got - want).abs().max().item(),
+                                  "peak": want.abs().max().item(),
+                                  "rel_l2": ((got - want).norm() / want.norm()).item(),
+                                  "finite": bool(torch.isfinite(got).all())}
+        if dtype == torch.bfloat16:
+            for _ in range(2):  # generate (sample, decode, Griffin-Lim 32) timed; the second counts
+                totals.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                gen = torch.Generator(device=dev).manual_seed(SEED)
+                wave = bundle.generate(cond, generator=gen)
+                torch.cuda.synchronize()
+            result["generate"] = {"ms": 1e3 * (time.perf_counter() - t0), "shape": list(wave.shape),
+                                  "finite": bool(torch.isfinite(wave).all()),
+                                  "collectives": dict(totals)}
+            serve_bundle = bundle
+        else:
+            del bundle
+    result["checks"] = checks
+
+    # one f32 train step on the two halves of every sample's rows
+    mesh = spatial.spatial_mesh(SP_K)
+    totals.clear()
+    result["step"], grads = train_step_run(mesh)
+    result["step"]["collectives"] = dict(totals)
+    if rank == 0:
+        largest = max(g.abs().max().item() for g in ref_grads.values())
+        worst, where = 0.0, ""
+        for name, want in ref_grads.items():
+            err = (grads[name] - want).abs().max().item()
+            share = err / (1e-4 * want.abs().max().item() + 1e-6 * largest)
+            if share > worst:
+                worst, where = share, name
+        result["step"] |= {"grad_share": worst, "grad_worst_at": where, "grads": len(ref_grads),
+                           "loss_rel": abs(result["step"]["loss"] - result["ref_step"]["loss"])
+                           / abs(result["ref_step"]["loss"])}
+    del grads
+    torch.cuda.empty_cache()
+
+    # one serve --spatial 2 round: rank 0 serves on loopback, rank 1 follows
+    args = serve_cli.parse_args(["--device", DEVICE, "--num-steps", str(SP_STEPS), "--solver",
+                                 "dpmpp_2m", "--gl-iters", "32", "--batch-size", str(BATCH),
+                                 "--port", "0", "--spatial", str(SP_K)])
+    if rank == 0:
+        server, batcher = serve_cli.build_server(args, serve_bundle)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            body = json_mod.dumps({"conditions": [[50, 5.5, 400, 20, 100]] * 4, "seed": 7,
+                                   "format": "b64"}).encode()
+            t0 = time.perf_counter()
+            req = urllib.request.Request(f"http://127.0.0.1:{server.server_address[1]}/generate",
+                                         data=body, headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=300) as r:
+                reply = json_mod.loads(r.read())
+                result["serve"] = {"status": r.status, "shape": reply["shape"],
+                                   "ms": 1e3 * (time.perf_counter() - t0)}
+        finally:
+            server.shutdown()
+            server.server_close()
+            batcher.shutdown()
+            serve_cli.stop_followers(args.batch_size)
+            thread.join(timeout=60)
+        result["serve"]["batches"] = batcher.batches_run
+    else:
+        result["serve"] = {"batches": serve_cli.follow(serve_bundle, args.batch_size)}
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(result))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def spatial_path(per_eval: tuple[int, int], per_decode: int, dev, errs: dict) -> dict:
+    """Phase 4p: the two gloo ranks of ``spatial_worker``, then the GroupNorm
+    entries against their plain versions and timed at the shapes rank 0 recorded.
+    Returns the entries' timing rows and the launch counts by run."""
+    from tqdne_tpu_torch.ops.group_norm import (
+        group_norm_apply,
+        group_norm_apply_plain,
+        group_norm_stats,
+        group_norm_stats_plain,
+        merge_group_stats,
+    )
+
+    shutil.rmtree(SP_RESULTS, ignore_errors=True)
+    SP_RESULTS.mkdir(parents=True)
+    card = card_line()
+    t0 = time.perf_counter()
+    spawn_ranks(spatial_worker, (free_port(), str(SP_RESULTS)), SP_K, timeout=900)
+    ranks = [json.loads((SP_RESULTS / f"rank{r}.json").read_text()) for r in range(SP_K)]
+    lead = ranks[0]
+    per_sample = per_eval[0] * SP_STEPS + per_decode
+    want = {"group_norm_silu": 0, "flash_attention": per_eval[1] * SP_STEPS,
+            "flash_attention_bwd_dkdv": 0, "flash_attention_bwd_dq": 0,
+            "group_norm_stats": per_sample, "group_norm_apply": per_sample}
+    bad = []
+    for label, c in lead["checks"].items():
+        # f32: the largest error within 1e-4 of the peak; bf16, whose 1-ulp roundings the ODE
+        # carries on through 10 steps and the decoder: the relative L2 error within bf16's rtol
+        f32 = label.startswith("float32")
+        err = c["max_abs"] / c["peak"] if f32 else c["rel_l2"]
+        limit = 1e-4 if f32 else TOL[torch.bfloat16][0]
+        ref = lead[f"ref_launches_{label}"]
+        log(f"[4p] {label.replace('_', ' at batch ')}: dpmpp_2m-{SP_STEPS} + decode on {SP_K} "
+            f"ranks sharing one card over gloo against one rank: max abs {c['max_abs']:.3e} of "
+            f"peak {c['peak']:.3e} ({c['max_abs'] / c['peak']:.3e} of it), relative L2 "
+            f"{c['rel_l2']:.3e}; bound {limit:g} on the {'former' if f32 else 'latter'}; "
+            f"launches {c['launches']} (one rank: {ref}), wall {c['ms']:.1f} ms of which "
+            f"collectives {c['collectives']} ({card})")
+        for r in ranks:
+            if r["checks"][label]["launches"] != want:
+                bad.append(f"{label} rank {r['rank']} launches {r['checks'][label]['launches']}")
+        if err > limit or not c["finite"] or ref["group_norm_silu"] != per_sample:
+            bad.append(f"{label}: {err:.3e} against {limit:g}")
+    gen = lead["generate"]
+    coll_ms = sum(v for k, v in gen["collectives"].items() if k.endswith("_ms"))
+    log(f"[4p] bf16 generate at batch {BATCH} (dpmpp_2m-{SP_STEPS}, decode, Griffin-Lim 32) on "
+        f"{SP_K} ranks sharing one card: {gen['ms']:.1f} ms, of which collectives "
+        f"{coll_ms:.1f} ms ({coll_ms / gen['ms']:.3f} of the wall; {gen['collectives']}); "
+        f"waveforms {gen['shape']} finite {gen['finite']}; a correctness cell, not a scaling "
+        f"figure ({card})")
+    step, ref = lead["step"], lead["ref_step"]
+    log(f"[4p] one f32 flagship train step at {SP_TRAIN_BATCH} (dropout 0, SGD at 1e-4) on "
+        f"{SP_K} ranks: loss {step['loss']:.6e} against one rank's {ref['loss']:.6e} (rel "
+        f"{step['loss_rel']:.3e}, tol 1e-4); the {step['grads']} gradients the update read: "
+        f"worst {step['grad_share']:.3f} of 1e-4 of its peak + 1e-6 of the largest, at "
+        f"{step['grad_worst_at']}; launches {step['launches']} (one rank: {ref['launches']}); "
+        f"wall {step['ms']:.1f} ms (one rank {ref['ms']:.1f} ms), collectives "
+        f"{step['collectives']} ({card})")
+    step_want = dict(ref["launches"], group_norm_silu=0,
+                     group_norm_stats=ref["launches"]["group_norm_silu"],
+                     group_norm_apply=ref["launches"]["group_norm_silu"])
+    # the loss to 1e-4: the encoder's latents differ at about 5e-6 of their peak between the
+    # shards' summation order and one rank's (measured on the CPU), which the EDM weighting of
+    # a random-weight loss in the thousands carries to about 2e-5
+    if (step["loss_rel"] > 1e-4 or step["grad_share"] > 1.0 or step["launches"] != step_want
+            or not step["launches"]["flash_attention_bwd_dq"]):
+        bad.append(f"train step: {step}")
+    serve = lead["serve"]
+    log(f"[4p] serve --spatial {SP_K}: one request of 4 rows, status {serve['status']}, shape "
+        f"{serve['shape']}, {serve['ms']:.1f} ms; batches run by rank: "
+        f"{[r['serve']['batches'] for r in ranks]} (warm-up and request) ({card})")
+    if serve["status"] != 200 or serve["shape"] != [4, 3, 4064] or any(
+            r["serve"]["batches"] != 2 for r in ranks):
+        bad.append(f"serve: {serve}")
+    log(f"[4p] {time.perf_counter() - t0:.1f} s for the two ranks")
+    if bad:
+        fail(f"4p: the spatial path disagrees: {bad}")
+
+    # the two entries against their plain versions, at the shapes of one UNet eval and one
+    # decode of the bf16 run (one shard's rows), f32 and bf16; then timed
+    gen_ = torch.Generator(device=dev).manual_seed(SEED)
+    calls = [tuple(c) for c in lead["gn_calls"]]
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    rows = {"group_norm_stats": [], "group_norm_apply": []}
+    one_eval = calls[:per_eval[0]] + calls[-per_decode:]
+    errs.setdefault("group_norm_stats", 0.0)
+    errs.setdefault("group_norm_apply", 0.0)
+    for key in dict.fromkeys(one_eval):
+        xd, pd, s, c, g, silu = key
+        for xdtype, pdtype in ((torch.float32, torch.float32), (dtypes[xd], dtypes[pd])):
+            x = (torch.randn(BATCH, s, c, generator=gen_, device=dev) * 2 + 1).to(xdtype)
+            w = (torch.rand(c, generator=gen_, device=dev) + 0.5).to(pdtype)
+            b = torch.randn(c, generator=gen_, device=dev).to(pdtype)
+            st, st_plain = group_norm_stats(x, g), group_norm_stats_plain(x, g)
+            err_s, ok_s = close(st, st_plain, torch.float32)
+            other = group_norm_stats(torch.randn_like(x), g)  # the other shard's
+            mean, rstd = merge_group_stats(torch.stack([st, other]))
+            err_a, ok_a = close(group_norm_apply(x, mean, rstd, w, b, g, silu),
+                                group_norm_apply_plain(x, mean, rstd, w, b, g, silu), xdtype)
+            errs["group_norm_stats"] = max(errs["group_norm_stats"], err_s)
+            errs["group_norm_apply"] = max(errs["group_norm_apply"], err_a)
+            if not (ok_s and ok_a):
+                fail(f"4p: group_norm_stats/apply B={BATCH} S={s} C={c} G={g} {xdtype} {pdtype}: "
+                     f"{err_s:.3e} {err_a:.3e}")
+        x = torch.randn(BATCH, s, c, generator=gen_, device=dev).to(dtypes[xd])
+        w = torch.ones(c, device=dev, dtype=dtypes[pd])
+        b = torch.zeros(c, device=dev, dtype=dtypes[pd])
+        mean, rstd = merge_group_stats(torch.stack([group_norm_stats(x, g)] * SP_K))
+        # the library call: torch's group_norm on the whole (two shards') tensor, (B, C, 2S)
+        whole = torch.cat([x] * SP_K, 1).transpose(1, 2)
+        wx, bx = w.to(x.dtype), b.to(x.dtype)
+        lib = (lambda: F.silu(F.group_norm(whole, g, wx, bx, 1e-5))) if silu else \
+            (lambda: F.group_norm(whole, g, wx, bx, 1e-5))
+        lib_ms = device_ms(lib)
+        n = one_eval.count(key)
+        rows["group_norm_stats"].append(dict(
+            shape=[BATCH, s, c], groups=g, dtype=xd, calls=n,
+            ms=device_ms(lambda: group_norm_stats(x, g)),
+            plain_ms=device_ms(lambda: group_norm_stats_plain(x, g)), library_ms=lib_ms,
+            **bound(x.numel() * x.element_size() + 12 * BATCH * g, GN_STATS_OPS * x.numel(),
+                    torch.float32)))
+        rows["group_norm_apply"].append(dict(
+            shape=[BATCH, s, c], groups=g, silu=silu, dtype=xd, scale_dtype=pd, calls=n,
+            ms=device_ms(lambda: group_norm_apply(x, mean, rstd, w, b, g, silu)),
+            plain_ms=device_ms(lambda: group_norm_apply_plain(x, mean, rstd, w, b, g, silu)),
+            library_ms=lib_ms,
+            **bound(2 * x.numel() * x.element_size() + 2 * c * w.element_size() + 8 * BATCH * g,
+                    GN_APPLY_OPS[silu] * x.numel(), torch.float32)))
+    for name, rs in rows.items():
+        log(f"[time] {name} over one UNet eval and one decode on one of {SP_K} shards, batch "
+            f"{BATCH}, bf16: ms {sum(r['ms'] * r['calls'] for r in rs):.4f}, plain "
+            f"{sum(r['plain_ms'] * r['calls'] for r in rs):.4f}, bound "
+            f"{sum(r['bound_ms'] * r['calls'] for r in rs):.4f}, F.group_norm on the whole "
+            f"tensor {sum(r['library_ms'] * r['calls'] for r in rs):.4f} ({card})")
+    return {"rows": rows, "launches": {f"4p {k}": v["launches"]
+                                       for k, v in lead["checks"].items()}
+            | {"4p train step": step["launches"]}}
+
+
+INT8_SOLVERS = (("heun", 25), ("dpmpp_2m", 10))
+
+
+def int8_path(dev, per_eval: tuple[int, int], per_decode: int) -> dict:
+    """Phase 4q: the flagship (bf16, batch 32, Griffin-Lim 32) with ``--int8`` beside
+    bf16 at Heun-25 and dpmpp_2m-10: waveforms/s of each, launches, the int32 sums of
+    every convolution shape of one UNet eval and one decode against the plain version
+    on the card (bit for bit), the output's cosine against bf16, and one quantized
+    convolution's device ms beside cuDNN's bf16 convolution."""
+    from tqdne_tpu_torch.cli.common import build_inference
+    from tqdne_tpu_torch.nn import layers as layers_mod
+    from tqdne_tpu_torch.nn.quant import (
+        int8_scope,
+        int_conv_mm,
+        int_conv_plain,
+        quant_conv,
+        quantize_symmetric,
+    )
+
+    card = card_line()
+    cond = torch.randn(BATCH, 5, generator=torch.Generator(device=dev).manual_seed(SEED),
+                       device=dev)
+    out, launches = {}, {}
+    for solver, steps in INT8_SOLVERS:
+        for int8 in (False, True):
+            bundle = build_inference("latent_edm", dtype=torch.bfloat16, num_steps=steps,
+                                     solver=solver, gl_iters=32, device=dev, int8=int8)
+            walls = []
+            for run in range(3):
+                gen = torch.Generator(device=dev).manual_seed(SEED)
+                if run == 1:
+                    zero_all_launches()
+                    quant_conv.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                signal = bundle.sample(cond, generator=gen)
+                wave = bundle.invert(signal, generator=gen)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                if run == 1:
+                    counts = all_launches() | {"quant_conv": quant_conv.launches}
+            label = f"{solver}-{steps}{' int8' if int8 else ''}"
+            launches[f"4q {label}"] = counts
+            out[label] = {"signal": signal.float(), "wf_s": BATCH / statistics.median(walls[1:]),
+                          "walls": walls, "finite": bool(torch.isfinite(wave).all())}
+            evals = 2 * steps - 1 if solver == "heun" else steps
+            want = want_launches(per_eval[0] * evals + per_decode, per_eval[1] * evals)
+            want |= {"group_norm_stats": 0, "group_norm_apply": 0}
+            got = {k: v for k, v in counts.items() if k != "quant_conv"}
+            if got != want or (counts["quant_conv"] > 0) != int8 or not out[label]["finite"]:
+                fail(f"4q: {label}: launches {counts} (want {want}), finite "
+                     f"{out[label]['finite']}")
+        a, b = (out[f"{solver}-{steps}{s}"]["signal"].flatten().double() for s in ("", " int8"))
+        cos = (a @ b / (a.norm() * b.norm())).item()
+        log(f"[4q] {solver}-{steps} + decode + Griffin-Lim 32, batch {BATCH}: bf16 "
+            f"{out[f'{solver}-{steps}']['wf_s']:.2f} waveforms/s, int8 "
+            f"{out[f'{solver}-{steps} int8']['wf_s']:.2f} waveforms/s (median of the last two "
+            f"of 3 runs each); the decoded signal's cosine int8 vs bf16 {cos:.5f} (gate 0.98); "
+            f"launches {launches[f'4q {solver}-{steps} int8']} ({card})")
+        if cos < 0.98:
+            fail(f"4q: {solver}-{steps}: int8 cosine {cos:.5f} against bf16")
+
+    # every convolution of one UNet eval and one decode: the int32 sums against the plain
+    # version (a float64 convolution of the codes, exact) on the card
+    seen = {}
+    real = layers_mod.quant_conv
+
+    def capture(x, weight, bias, stride, padding):
+        key = (tuple(x.shape), str(x.dtype), tuple(weight.shape), stride, padding)
+        seen.setdefault(key, (x.detach(), weight.detach(), bias.detach(), stride, padding))
+        return real(x, weight, bias, stride, padding)
+
+    layers_mod.quant_conv = capture
+    try:
+        with torch.no_grad(), int8_scope():
+            z = torch.randn(BATCH, *bundle.model_shape, device=dev)
+            bundle.unet(z, torch.full((BATCH,), 0.5, device=dev), cond)
+            bundle.autoencoder.decode(z)
+    finally:
+        layers_mod.quant_conv = real
+    exact = 0
+    for x, w, _, stride, padding in seen.values():
+        dims = w.ndim - 2
+        wq, _ = quantize_symmetric(w, tuple(range(1, dims + 2)))
+        xf = x.float()
+        xq = torch.clamp(torch.round(xf / (xf.abs().amax().clamp(min=1e-8) / 127.0)), -127,
+                         127).to(torch.int8)
+        got, want = int_conv_mm(xq, wq, stride, padding), int_conv_plain(xq, wq, stride, padding)
+        if not torch.equal(got, want):
+            fail(f"4q: int8 sums of x {tuple(x.shape)} w {tuple(w.shape)} stride {stride} differ "
+                 f"from the plain version by {(got - want).abs().max().item()}")
+        exact += 1
+    log(f"[4q] the int32 sums of all {exact} convolution shapes of one UNet eval and one decode "
+        f"(batch {BATCH}) bit-identical to the float64 convolution of the codes on the card")
+
+    # one quantized convolution's device ms beside cuDNN's bf16 convolution
+    rows = []
+    for label, size in (("ds 1", 32), ("ds 4", 8), ("decoder 128 x 128", 128)):
+        x, w, b, stride, padding = next(v for (shape, *_), v in seen.items()
+                                        if shape[2] == size and v[1].shape[-1] == 3
+                                        and v[3] == (1, 1) and shape[1] == v[1].shape[0])
+        xb, wb, bb = x.to(torch.bfloat16), w.to(torch.bfloat16), b.to(torch.bfloat16)
+        xb = xb.contiguous(memory_format=torch.channels_last)
+        wb = wb.contiguous(memory_format=torch.channels_last)
+        q_ms = device_ms(lambda: quant_conv(x, w, b, stride, padding))
+        mm_ms = device_ms(lambda: int_conv_mm(x.to(torch.int8), w.to(torch.int8), stride,
+                                              padding))
+        conv_ms = device_ms(lambda: F.conv2d(xb, wb, bb, stride, padding))
+        flops = 2 * x.shape[0] * w.numel() * x.shape[2] * x.shape[3]
+        rows.append(dict(at=label, x=list(x.shape), x_dtype=str(x.dtype)[6:], w=list(w.shape),
+                         quant_conv_ms=q_ms, im2col_int_mm_ms=mm_ms, cudnn_bf16_ms=conv_ms,
+                         int8_bound_ms=1e3 * flops / 1979e12, bf16_bound_ms=1e3 * flops / 989e12))
+    log(f"[4q] one convolution, device ms (quant_conv = quantize, im2col, torch._int_mm, "
+        f"dequantize; the bounds are the operations over the dense int8 and bf16 peaks): "
+        f"{json.dumps(rows)} ({card})")
+    return launches
 
 
 def main():
@@ -3478,6 +3982,22 @@ def main():
                                    TRAIN_BATCH * TRAIN_STEPS / metric_rows[-1]["traintime"])
     launches = {k: launches[k] + v for k, v in dp_counts["4o world1"].items()}
 
+    # ---- 4p. spatial partitioning ------------------------------------------------------------
+    phase("4p. spatial partitioning")
+    sp = spatial_path((len(unet_gn), len(unet_fa)), len(dec_gn), dev, errs)
+    for run_counts in sp["launches"].values():
+        launches = {k: launches[k] + run_counts[k] for k in launches}
+    entry_launches = {name: sum(c[name] for c in sp["launches"].values())
+                      for name in ("group_norm_stats", "group_norm_apply")}
+    torch.cuda.empty_cache()
+
+    # ---- 4q. the int8 mode -------------------------------------------------------------------
+    phase("4q. the int8 mode")
+    int8_counts = int8_path(dev, (len(unet_gn), len(unet_fa)), len(dec_gn))
+    for run_counts in int8_counts.values():
+        launches = {k: launches[k] + run_counts[k] for k in launches}
+    torch.cuda.empty_cache()
+
     # ---- 5. timings --------------------------------------------------------------
     phase("5. timings")
     for name, bundle in bundles.items():
@@ -3495,12 +4015,6 @@ def main():
     log(f"[e2e] de-normalise + Griffin-Lim 32 on {BATCH} x 3 spectrograms: {gl_ms:.3f} ms")
     profile_breakdown(lambda: bundles["dpmpp_2m-10"].generate(cond, generator=gen),
                       f"dpmpp_2m-10 + GL 32, batch {BATCH} (10 UNet evals and one decode)")
-
-    def bound(nbytes, ops, dtype):
-        """Least time for the work: bytes over HBM rate vs operations over peak."""
-        bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / PEAK_OPS[dtype]
-        return dict(bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
-                    bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
     def timed(kernel, plain, library):
         """Device ms of each, plus the kernel's per-call time when issued back
@@ -3901,7 +4415,9 @@ def main():
                               **{run: c[name] for run, c in cb_counts.items()},
                               **{f"4m {run}": c[name] for run, c in ckpt_counts.items()},
                               **{f"4n {run}": c[name] for run, c in opt_counts.items()},
-                              **{run: c[name] for run, c in dp_counts.items()}},
+                              **{run: c[name] for run, c in dp_counts.items()},
+                              **{run: c[name] for run, c in sp["launches"].items()},
+                              **{run: c[name] for run, c in int8_counts.items()}},
             classifier_forward=clf_sums[name] | {"per": f"one classifier forward, batch {BATCH}, "
                                                         f"bf16"},
             classifier_train_step=clf_step_sums[name],
@@ -3929,10 +4445,25 @@ def main():
                               **{run: c[name] for run, c in few_counts.items()},
                               **{run: c[name] for run, c in cb_counts.items()},
                               **{f"4n {run}": c[name] for run, c in opt_counts.items()},
-                              **{run: c[name] for run, c in dp_counts.items()}},
+                              **{run: c[name] for run, c in dp_counts.items()},
+                              **{run: c[name] for run, c in sp["launches"].items()}},
             classifier_train_step=clf_step_sums[name],
             edm_recipes=new_sums[name],
             few_eval_ddpm_recipes=few_sums[name],
+        ))
+    for name, rows in sp["rows"].items():
+        kernels.append(dict(
+            name=name, route="cuda", source="tqdne_tpu_torch/csrc/group_norm.cu",
+            replaces="tqdne_tpu/ops/group_norm.py:24",
+            launches=entry_launches[name], max_abs_err=errs[name],
+            ms=summed(rows, "ms"), plain_ms=summed(rows, "plain_ms"),
+            bound_ms=summed(rows, "bound_ms"),
+            bound_by="bytes" if summed(rows, "bytes_ms") >= summed(rows, "ops_ms")
+            else "operations",
+            library_ms=summed(rows, "library_ms"),
+            per=f"all calls of one UNet eval and one decode on one of {SP_K} shards, batch "
+                f"{BATCH}, bf16; library_ms is torch's group_norm on the whole tensor",
+            launches_per_run={run: c[name] for run, c in sp["launches"].items()},
         ))
     redesigned = {
         "group_norm_silu": "one launch: a thread-block cluster over row chunks of whole-group "
@@ -3942,6 +4473,10 @@ def main():
         "flash_attention_bwd_dkdv": "bf16 tensor cores (mma.sync m16n8k16); FMA loops in f32",
         "flash_attention_bwd_dq": "bf16 tensor cores (mma.sync m16n8k16) with delta = "
                                   "rowsum(dO * O) folded in; FMA loops in f32",
+        "group_norm_stats": "the fused kernel's plan and code (its mode 1): the cluster's "
+                            "merged (n, mean, M2) written, no normalisation",
+        "group_norm_apply": "the fused kernel's plan and code (its mode 2): a given (mean, "
+                            "rstd), no statistics",
     }
     for entry in kernels:
         entry["redesigned"] = redesigned[entry["name"]]

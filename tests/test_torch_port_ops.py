@@ -286,3 +286,35 @@ def test_port_imports_no_jax():
             if top in ("jax", "jaxlib", "flax", "tqdne_tpu"):
                 banned.append(f"{path.relative_to(ROOT)}: {name}")
     assert not banned, banned
+
+
+def test_top_level_names_resolve_lazily():
+    """The package's top-level names are ``tqdne_tpu/__init__.py``'s lazy
+    re-exports: a fresh interpreter imports ``tqdne_tpu_torch`` without loading
+    any of its modules (no model module, no torch), and each name resolves to
+    its module's object."""
+    import subprocess
+    import sys
+
+    import tqdne_tpu
+    import tqdne_tpu_torch
+    from tqdne_tpu_torch import configs
+    from tqdne_tpu_torch.diffusion import consistency, ddpm, edm
+    from tqdne_tpu_torch.models import autoencoder, classifier, unet
+
+    code = ("import sys, tqdne_tpu_torch; "
+            "print(sorted(m for m in sys.modules if m.startswith('tqdne_tpu_torch.') "
+            "or m == 'torch'))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT,
+                         check=True, timeout=120)
+    assert out.stdout.strip() == "[]"
+    assert tqdne_tpu_torch.__all__ == tqdne_tpu.__all__
+    assert tqdne_tpu_torch.__version__ == tqdne_tpu.__version__
+    want = {"EDMConfig": edm.EDMConfig, "ConsistencyConfig": consistency.ConsistencyConfig,
+            "DDPMConfig": ddpm.DDPMConfig, "UNet": unet.UNet,
+            "AutoencoderKL": autoencoder.AutoencoderKL, "Classifier": classifier.Classifier,
+            "configs": configs}
+    for name, obj in want.items():
+        assert getattr(tqdne_tpu_torch, name) is obj, name
+    with pytest.raises(AttributeError):
+        tqdne_tpu_torch.Nothing  # noqa: B018

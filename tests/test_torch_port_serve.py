@@ -344,17 +344,24 @@ def test_dataset_feature_stats_match_jax(tmp_path):
 @pytest.mark.parametrize("argv", [["--solver", "consistency", "--config", "1d_edm"],
                                   ["--solver", "distill"], ["--spatial", "2"], ["--int8"]])
 def test_serve_cli_refuses_unported_options(argv):
-    """``--spatial`` and ``--int8`` are not ported yet; the few-eval solvers
-    are, with the JAX routing: ``--solver distill`` takes the flagship's
-    distilled student at 2 evals, and ``--solver consistency`` refuses an EDM
-    recipe other than the flagship."""
+    """Every JAX serve option is ported, with the JAX routing and refusals:
+    ``--solver distill`` takes the flagship's distilled student at 2 evals,
+    ``--solver consistency`` refuses an EDM recipe other than the flagship,
+    ``--spatial`` serves EDM recipes only (the JAX ``build_inference``'s
+    refusal) and ``--int8`` is taken by every recipe."""
     if argv == ["--solver", "distill"]:
         args = serve_cli.parse_args(["--device", "cpu", *argv])
         assert (args.config, args.num_steps) == ("latent_distill", 2)
         return
-    match = "consistency-model run" if argv[0] == "--solver" else "not ported yet"
-    with pytest.raises(SystemExit, match=match):
-        serve_cli.parse_args(["--device", "cpu", *argv])
+    if argv[0] == "--solver":
+        with pytest.raises(SystemExit, match="consistency-model run"):
+            serve_cli.parse_args(["--device", "cpu", *argv])
+        return
+    args = serve_cli.parse_args(["--device", "cpu", *argv])
+    assert (args.spatial, args.int8) == ((2, False) if argv[0] == "--spatial" else (0, True))
+    if argv[0] == "--spatial":
+        with pytest.raises(SystemExit, match="EDM recipes only"):
+            serve_cli.parse_args(["--device", "cpu", "--solver", "distill", *argv])
 
 
 def test_first_library_build_runs_once_across_threads(monkeypatch):

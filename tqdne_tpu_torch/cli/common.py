@@ -18,9 +18,12 @@ random weights (``utils.randomize_``), which is what smoke runs and tests use.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
+import os
+import socket
 from pathlib import Path
 
 import numpy as np
@@ -36,7 +39,9 @@ from tqdne_tpu_torch.diffusion.distillation import sample_distilled
 from tqdne_tpu_torch.models.autoencoder import AutoencoderKL
 from tqdne_tpu_torch.models.unet import UNet
 from tqdne_tpu_torch.nn.layers import set_compute_dtype
-from tqdne_tpu_torch.parallel import barrier, rank, world_size
+from tqdne_tpu_torch.nn.quant import int8_scope
+from tqdne_tpu_torch.parallel import barrier, rank, replicate_, whole_batch, world_size
+from tqdne_tpu_torch.parallel.spatial import spatial_mesh
 from tqdne_tpu_torch.train.checkpoint import Checkpointer, hparams_diff
 from tqdne_tpu_torch.train.steps import sample_edm
 from tqdne_tpu_torch.utils import randomize_, resolve_device
@@ -341,11 +346,15 @@ class InferenceBundle:
     ``num_steps - 1`` refinements at ``refine_sigma`` in the
     ``consistency_noise`` convention; the raw parameterisation for
     ``consistency``, the EDM-conditioned one for ``distill``) or DDPM's
-    ``ddpm_cfg.num_train_timesteps`` ancestral steps."""
+    ``ddpm_cfg.num_train_timesteps`` ancestral steps.  ``int8``: the sampler's
+    convolutions (the UNet's and the decoder's) run in the int8 mode
+    (``nn.quant``); ``mesh``: the EDM sampler runs spatially partitioned over
+    it (``parallel.spatial``), and every rank gets the whole batch back."""
 
     def __init__(self, config, representation, unet, autoencoder, sig_shape, model_shape, *,
                  num_steps: int, solver: str, device: torch.device, kind: str = "edm",
-                 consistency_noise: str = "auto", refine_sigma: float = 1.0):
+                 consistency_noise: str = "auto", refine_sigma: float = 1.0,
+                 int8: bool = False, mesh=None):
         self.config = config
         self.representation = representation
         self.unet = unet
@@ -359,6 +368,8 @@ class InferenceBundle:
         self.consistency_noise = consistency_noise
         self.refine_sigma = refine_sigma
         self.ddpm_cfg = ddpm_lib.DDPMConfig()
+        self.int8 = int8
+        self.mesh = mesh
         self.provenance = {}  # which weights: run, step, checkpoint or artifact (build_inference)
 
     @property
@@ -373,21 +384,26 @@ class InferenceBundle:
         cond = cond.to(self.device, torch.float32)
         shape = (cond.shape[0], *self.model_shape)
         kw = dict(generator=generator, device=self.device)
-        if self.kind == "ddpm":
-            return ddpm_lib.ddpm_sample(self.ddpm_cfg, self.unet, shape, cond=cond, x=noise, **kw)
-        kw["autoencoder"] = self.autoencoder
-        if self.kind == "edm":
-            return sample_edm(self.unet, shape, cond, num_steps=self.num_steps,
-                              solver=self.solver, noise=noise, **kw)
-        sample = sample_consistency if self.kind == "consistency" else sample_distilled
-        return sample(self.unet, shape, cond, sigmas=(self.refine_sigma,) * (self.num_steps - 1),
-                      noise=self.consistency_noise, eps=noise, **kw)
+        with int8_scope() if self.int8 else contextlib.nullcontext():
+            if self.kind == "ddpm":
+                return ddpm_lib.ddpm_sample(self.ddpm_cfg, self.unet, shape, cond=cond, x=noise,
+                                            **kw)
+            kw["autoencoder"] = self.autoencoder
+            if self.kind == "edm":
+                return sample_edm(self.unet, shape, cond, num_steps=self.num_steps,
+                                  solver=self.solver, noise=noise, mesh=self.mesh, **kw)
+            sample = sample_consistency if self.kind == "consistency" else sample_distilled
+            return sample(self.unet, shape, cond,
+                          sigmas=(self.refine_sigma,) * (self.num_steps - 1),
+                          noise=self.consistency_noise, eps=noise, **kw)
 
     def generate(self, cond: torch.Tensor, *, noise=None, init_phase=None,
                  generator=None) -> torch.Tensor:
         """Normalised conditioning (B, 5) -> waveforms (B, 3, t), f32."""
-        return self.invert(self.sample(cond, noise=noise, generator=generator),
-                           init_phase=init_phase, generator=generator)
+        signal = self.sample(cond, noise=noise, generator=generator)
+        # a spatial sampler gives every rank the whole batch, which it inverts as one process
+        with whole_batch() if self.mesh is not None else contextlib.nullcontext():
+            return self.invert(signal, init_phase=init_phase, generator=generator)
 
     def invert(self, signal: torch.Tensor, *, init_phase=None, generator=None) -> torch.Tensor:
         """Channels-last signal (B, *sig_shape) -> waveforms (B, 3, t) on the
@@ -434,7 +450,8 @@ def build_inference(recipe_key: str = "latent_edm", *, workdir=None, unet_weight
                     dtype=torch.bfloat16, num_steps: int = 25, solver: str = "heun",
                     gl_iters: int | None = None, device="cuda", tiny: bool = False,
                     init_seed: int = 0, consistency_noise: str = "auto",
-                    refine_sigma: float = 1.0) -> InferenceBundle:
+                    refine_sigma: float = 1.0, int8: bool = False,
+                    spatial: int = 0) -> InferenceBundle:
     """Build the sampler of a diffusion recipe on ``device`` (``cuda``
     unless asked): an EDM recipe (``latent_edm``, ``edm``, ``1d_edm``,
     ``1d_latent_edm``; ``solver`` heun or dpmpp_2m), a consistency recipe
@@ -463,6 +480,12 @@ def build_inference(recipe_key: str = "latent_edm", *, workdir=None, unet_weight
     (the JAX ``cast_params``) and runs the autoencoder's convolutions in bf16.
     ``tiny``: 32-channel presets (the JAX ``--tiny`` widths).  ``gl_iters``
     is refused by a recipe that has no Griffin-Lim.
+    ``int8``: the sampler's convolutions run in the int8 mode (``nn.quant``;
+    the caller's other models, a classifier, keep theirs).  ``spatial`` K > 1:
+    an EDM recipe samples each batch split K ways along its first spatial axis
+    over a ``("data", "model")`` mesh of the launched ranks
+    (``parallel.spatial``), the weights replicated from rank 0; at most 1
+    changes nothing.
     """
     if recipe_key not in RECIPES:
         raise SystemExit(f"unknown recipe {recipe_key!r} (have: {', '.join(RECIPES)})")
@@ -472,6 +495,12 @@ def build_inference(recipe_key: str = "latent_edm", *, workdir=None, unet_weight
     if recipe.kind == "edm" and solver not in ("heun", "dpmpp_2m"):
         raise SystemExit(f"unknown solver {solver!r} for an EDM recipe; use 'heun' or "
                          "'dpmpp_2m'")
+    if spatial > 1 and recipe.kind != "edm":
+        raise SystemExit(f"--spatial serves EDM recipes only (got {recipe.kind})")
+    if spatial > 1 and world_size() % spatial:
+        raise SystemExit(f"--spatial {spatial} needs a multiple of {spatial} ranks, not "
+                         f"{world_size()} (launch them with torchrun, or let the CLI start "
+                         f"them)")
     if consistency_noise not in CONSISTENCY_NOISE:
         raise SystemExit(f"unknown consistency noise {consistency_noise!r}; use one of "
                          f"{', '.join(CONSISTENCY_NOISE)}")
@@ -532,15 +561,18 @@ def build_inference(recipe_key: str = "latent_edm", *, workdir=None, unet_weight
             unet.load_state_dict(flax_to_state_dict(params))
     if dtype == torch.bfloat16:
         unet.to(dtype)  # the bundle's own UNet: its parameters are cast once
+    mesh = spatial_mesh(spatial) if spatial > 1 else None
     for module in (unet, autoencoder):
         if module is not None:
             module.to(device).eval()
             if device.type == "cuda":
                 module.to(memory_format=torch.channels_last)
+            if mesh is not None:
+                replicate_(module)
     bundle = InferenceBundle(config, representation, unet, autoencoder, sig_shape, model_shape,
                              num_steps=num_steps, solver=solver, device=device,
                              kind=recipe.kind, consistency_noise=consistency_noise,
-                             refine_sigma=refine_sigma)
+                             refine_sigma=refine_sigma, int8=int8, mesh=mesh)
     bundle.provenance = provenance
     return bundle
 
@@ -575,3 +607,53 @@ def dataset_feature_stats(config) -> np.ndarray:
     with h5py.File(config.datapath, "r", locking=False) as f:
         columns = [f[key][:] for key in config.features_keys]
     return np.array([[float(c.mean()), float(c.std())] for c in columns])
+
+
+def run_ranks(fn, args, n: int):
+    """``fn(args)``, returning its result, in this process when torchrun started it
+    (its group joined on the process's card) or ``n`` is at most 1; else on ``n``
+    local ranks started here over a free loopback port, returning None once they
+    end.  The ranks share the visible cards in turn: NCCL where each has a card
+    of its own, gloo where they share one (NCCL cannot put two ranks on one card)
+    or on the CPU."""
+    if n <= 1:
+        return fn(args)
+    if "WORLD_SIZE" in os.environ:
+        from tqdne_tpu_torch.parallel import process_group
+
+        with process_group(args.device):
+            return fn(args)
+    with socket.socket() as s:  # a free port for the ranks' rendezvous
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.multiprocessing.spawn(_spawned_rank, args=(fn, args, n, port), nprocs=n, join=True)
+    return None
+
+
+def _spawned_rank(local_rank: int, fn, args, n: int, port: int):
+    """One of ``run_ranks``' local ranks: torchrun's environment, its card, its group."""
+    import torch.distributed as dist
+
+    os.environ.update(RANK=str(local_rank), LOCAL_RANK=str(local_rank), WORLD_SIZE=str(n),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    backend = "gloo"
+    if torch.device(args.device).type == "cuda":
+        cards = torch.cuda.device_count()
+        torch.cuda.set_device(local_rank % cards)
+        backend = "nccl" if n <= cards else "gloo"
+    else:  # the ranks share the host's cores
+        torch.set_num_threads(max(1, min(torch.get_num_threads(), (os.cpu_count() or 1) // n)))
+    dist.init_process_group(backend, init_method="env://")
+    try:
+        fn(args)
+    finally:
+        dist.destroy_process_group()
+
+
+def rank_device(device) -> torch.device:
+    """The device this rank drives: its current card for ``cuda`` (``run_ranks``
+    and torchrun's launches set it), the CPU as given."""
+    device = resolve_device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device

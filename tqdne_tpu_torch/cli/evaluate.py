@@ -31,7 +31,9 @@ without either, or when the recipe's signal is not the classifier's 128 x
 128 x 3 spectrogram (the envelope recipes), the classifier datasets are
 skipped.  The dataset is HDF5
 and needs ``h5py``; ``evaluate_batch`` is the per-batch work without the
-file.
+file.  ``--int8`` samples with the int8 convolutions (``nn.quant``); the
+classifier keeps its dtype, so the report measures the sampler's
+quantization alone.
 """
 
 from __future__ import annotations
@@ -176,6 +178,10 @@ def main(argv=None):
     parser.add_argument("--suffix", type=str, default="",
                         help="appended to the output filename")
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--int8", action="store_true",
+                        help="quality-gated fast mode: the sampler's convolutions in int8 (the "
+                             "classifier keeps its dtype, so the report measures the sampler's "
+                             "quantization)")
     args = parser.parse_args(argv)
     args.config, args.num_steps = common.route_solver(args.config, args.solver, args.num_steps)
     with process_group(args.device):
@@ -191,7 +197,8 @@ def evaluate(args):
         args.config, workdir=args.workdir, unet_weights=args.unet_weights,
         ae_weights=args.ae_weights, run_name=args.name, ae_name=args.ae_name, dtype=dtype,
         num_steps=args.num_steps, solver=args.solver, device=local_device(args.device),
-        tiny=args.tiny, consistency_noise=args.consistency_noise, refine_sigma=args.refine_sigma)
+        tiny=args.tiny, consistency_noise=args.consistency_noise, refine_sigma=args.refine_sigma,
+        int8=args.int8)
     config = bundle.config
     run_name = args.name or RECIPES[args.config].name
     dataset = Dataset(config.datapath, bundle.representation, cut=config.t, cond=True,

@@ -24,11 +24,18 @@ in ``--workdir`` (``--name``, ``--ae-name``):
         --csv examples/demo_conditioning.csv --outfile out.h5
     python -m tqdne_tpu_torch.cli.generate_waveforms --edm-checkpoint edm.ckpt \\
         --autoencoder-checkpoint ae.ckpt --csv examples/demo_conditioning.csv --outfile out.h5
+
+``--int8`` runs the sampler's convolutions in the int8 mode (``nn.quant``).
+``--spatial K`` (EDM recipes) splits each sample's first spatial axis K ways
+over a ``("data", "model")`` mesh (``parallel.spatial``): under torchrun over
+its ranks, else over K ranks the CLI starts itself (sharing the card over
+gloo where there are fewer cards); rank 0 writes the file.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv as csv_mod
 from pathlib import Path
 
@@ -38,6 +45,7 @@ import torch
 from tqdne_tpu_torch.cli import common
 from tqdne_tpu_torch.cli.common import RECIPES
 from tqdne_tpu_torch.configs import FEATURES_KEYS
+from tqdne_tpu_torch.parallel import rank
 
 # dataset conditioning-feature summary statistics (mean, std), in FEATURES_KEYS order
 SUMMARY_STATISTICS = np.array(
@@ -127,6 +135,13 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--tiny", action="store_true",
                         help="match weights of the 32-channel --tiny widths")
+    parser.add_argument("--spatial", type=int, default=0,
+                        help="EDM recipes: split each sample's first spatial axis K ways over "
+                             "a (data, model) mesh of the launched ranks (torchrun's, else K "
+                             "started here); K must divide the ranks")
+    parser.add_argument("--int8", action="store_true",
+                        help="quality-gated fast mode: the sampler's convolutions in int8 "
+                             "(per-channel weights, per-tensor activations, int32 sums)")
     args = parser.parse_args(argv)
     args.config, args.num_steps = common.route_solver(args.config, args.solver, args.num_steps)
 
@@ -139,8 +154,13 @@ def main(argv=None):
         raise SystemExit("give the weights files (--unet-weights, --edm-checkpoint or --weights, "
                          "and --ae-weights or --autoencoder-checkpoint for a latent recipe) or "
                          "the --workdir of the runs")
-    import h5py
+    if args.spatial > 1 and getattr(RECIPES.get(args.config), "kind", None) != "edm":
+        raise SystemExit(f"--spatial serves EDM recipes only (got --config {args.config})")
+    common.run_ranks(generate, args, args.spatial)
 
+
+def generate(args):
+    """``main``'s sampling on this rank (rank 0 writes the file)."""
     cond_raw = read_conditioning(args)
     bundle = common.build_inference(
         args.config, workdir=args.workdir, unet_weights=args.unet_weights,
@@ -148,7 +168,8 @@ def main(argv=None):
         edm_checkpoint=args.edm_checkpoint, autoencoder_checkpoint=args.autoencoder_checkpoint,
         exported_weights=args.weights, dtype=common.DTYPES[args.dtype],
         num_steps=args.num_steps, solver=args.solver, gl_iters=args.gl_iters,
-        device=args.device, tiny=args.tiny, consistency_noise=args.consistency_noise)
+        device=common.rank_device(args.device), tiny=args.tiny,
+        consistency_noise=args.consistency_noise, int8=args.int8, spatial=args.spatial)
     if args.stats_from_dataset:
         stats = common.dataset_feature_stats(bundle.config)
         cond_norm = (cond_raw - stats[:, 0]) / stats[:, 1]
@@ -158,17 +179,30 @@ def main(argv=None):
     generator = torch.Generator(device=bundle.device).manual_seed(args.seed)
 
     n, bs = len(cond), args.batch_size
-    outfile = Path(args.outfile)
-    outfile.parent.mkdir(parents=True, exist_ok=True)
-    with h5py.File(outfile, "w") as f:
-        for i, k in enumerate(FEATURES_KEYS):
-            f.create_dataset(k, data=cond_raw[:, i])
-        waveforms = f.create_dataset("waveforms", (n, 3, bundle.t), dtype=np.float32)
+    # a spatial mesh's data ranks split each batch: a short last one gets zero rows
+    rows = bundle.mesh.size(0) if bundle.mesh is not None else 1
+    with contextlib.ExitStack() as stack:
+        waveforms = None
+        if rank() == 0:
+            import h5py
+
+            outfile = Path(args.outfile)
+            outfile.parent.mkdir(parents=True, exist_ok=True)
+            f = stack.enter_context(h5py.File(outfile, "w"))
+            for i, k in enumerate(FEATURES_KEYS):
+                f.create_dataset(k, data=cond_raw[:, i])
+            waveforms = f.create_dataset("waveforms", (n, 3, bundle.t), dtype=np.float32)
         for start in range(0, n, bs):
-            wave = bundle.generate(cond[start : start + bs], generator=generator)
-            waveforms[start : start + len(wave)] = wave.cpu().numpy()
-            print(f"generated {min(start + bs, n)}/{n}")
-    print("done!")
+            batch = cond[start : start + bs]
+            pad = -len(batch) % rows
+            if pad:
+                batch = torch.cat([batch, batch.new_zeros(pad, batch.shape[1])])
+            wave = bundle.generate(batch, generator=generator)[: len(batch) - pad]
+            if waveforms is not None:
+                waveforms[start : start + len(wave)] = wave.cpu().numpy()
+                print(f"generated {min(start + bs, n)}/{n}")
+    if rank() == 0:
+        print("done!")
 
 
 if __name__ == "__main__":

@@ -20,7 +20,14 @@ Each model without a weights file comes from the port's run in ``--workdir``;
 without either it takes seeded random weights (smoke runs).  Griffin-Lim
 runs 32 iterations unless ``--gl-iters`` says otherwise; the envelope
 recipes have no Griffin-Lim and refuse the flag.
-``--spatial`` and ``--int8`` are not ported yet, and refused.
+
+``--int8`` runs the sampler's convolutions in the int8 mode (``nn.quant``).
+``--spatial K`` (EDM recipes) splits each sample's first spatial axis K ways
+over a ``("data", "model")`` mesh of the launched ranks (torchrun's, or K the
+CLI starts, sharing the card over gloo where there are fewer cards).  Rank 0
+owns the HTTP server and the micro-batcher; its device owner broadcasts each
+batch (its seed and conditioning rows) to the other ranks, which run the
+same sampler and join its collectives (``follow``), and a stop on shutdown.
 """
 
 from __future__ import annotations
@@ -35,11 +42,10 @@ from tqdne_tpu_torch import serving
 from tqdne_tpu_torch.cli import common
 from tqdne_tpu_torch.cli.generate_waveforms import SUMMARY_STATISTICS
 from tqdne_tpu_torch.cli.common import RECIPES
+from tqdne_tpu_torch.parallel import broadcast_, rank
 
 logger = logging.getLogger("tqdne_tpu_torch.serve")
 
-# the JAX serve options that later slices of the port bring
-NOT_PORTED = {"--spatial": "the parallelism slice", "--int8": "the int8 slice"}
 SERVE_GL_ITERS = 32  # the JAX package's measured knee (128 for the reference's)
 
 
@@ -89,29 +95,78 @@ def parse_args(argv=None):
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--host", type=str, default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8000)
-    parser.add_argument("--spatial", type=int, default=0, help="not ported yet")
-    parser.add_argument("--int8", action="store_true", help="not ported yet")
+    parser.add_argument("--spatial", type=int, default=0,
+                        help="EDM recipes: split each sample's first spatial axis K ways over "
+                             "a (data, model) mesh of the launched ranks (torchrun's, else K "
+                             "started here); rank 0 serves")
+    parser.add_argument("--int8", action="store_true",
+                        help="quality-gated fast mode: the sampler's convolutions in int8")
     args = parser.parse_args(argv)
-    asked = {"--spatial": args.spatial > 1, "--int8": args.int8}
-    for option, later_slice in NOT_PORTED.items():
-        if asked[option]:
-            raise SystemExit(f"{option} is not ported yet: it comes with {later_slice}")
     args.config, args.num_steps = common.route_solver(args.config, args.solver, args.num_steps)
+    if args.spatial > 1 and getattr(RECIPES.get(args.config), "kind", None) != "edm":
+        raise SystemExit(f"--spatial serves EDM recipes only (got --config {args.config})")
     return args
 
 
-def build_server(args):
-    """(server, batcher) after the warm-up, ready for ``serve_forever``."""
+def build_bundle(args):
+    """The ``InferenceBundle`` the server samples, on this rank's device."""
     recipe = RECIPES.get(args.config)
     gl_iters = args.gl_iters
     if gl_iters is None and hasattr(getattr(recipe, "config_cls", None), "griffin_lim_iters"):
         gl_iters = SERVE_GL_ITERS
-    bundle = common.build_inference(
+    return common.build_inference(
         args.config, workdir=args.workdir, unet_weights=args.unet_weights,
         ae_weights=args.ae_weights, run_name=args.name, ae_name=args.ae_name,
         dtype=common.parse_dtype(args.dtype),
-        num_steps=args.num_steps, solver=args.solver, gl_iters=gl_iters, device=args.device,
-        tiny=args.tiny, consistency_noise=args.consistency_noise)
+        num_steps=args.num_steps, solver=args.solver, gl_iters=gl_iters,
+        device=common.rank_device(args.device), tiny=args.tiny,
+        consistency_noise=args.consistency_noise, int8=args.int8, spatial=args.spatial)
+
+
+def _batch_message(batch_size: int, seed: int = 0, cond=None, go: bool = True):
+    """The (header, rows) rank 0 broadcasts for a batch: [go, seed] and the
+    conditioning rows (zeros for a stop)."""
+    header = torch.tensor([int(go), seed], dtype=torch.int64)
+    rows = torch.zeros((batch_size, len(serving.FEATURES)), dtype=torch.float32)
+    if cond is not None:
+        rows[: len(cond)] = torch.as_tensor(np.asarray(cond, np.float32))
+    return header, rows
+
+
+def leading(run, batch_size: int):
+    """Rank 0's ``run(seed, cond)`` under a spatial mesh: the batch is broadcast
+    to the followers first, so that every rank samples it."""
+    def run_all(seed: int, cond):
+        for t in _batch_message(batch_size, seed, cond):
+            broadcast_(t)
+        return run(seed, cond)
+
+    return run_all
+
+
+def follow(bundle, batch_size: int) -> int:
+    """A follower rank of a spatial server: sample each batch rank 0 broadcasts,
+    until it broadcasts a stop; returns the batches run."""
+    run = bundle.sampler(batch_size)
+    batches = 0
+    while True:
+        header, rows = (broadcast_(t) for t in _batch_message(batch_size, go=False))
+        if not header[0]:
+            return batches
+        run(int(header[1]), rows.numpy())
+        batches += 1
+
+
+def stop_followers(batch_size: int) -> None:
+    """Rank 0's stop to the followers (after its batcher has shut down)."""
+    for t in _batch_message(batch_size, go=False):
+        broadcast_(t)
+
+
+def build_server(args, bundle=None):
+    """(server, batcher) after the warm-up, ready for ``serve_forever``; under a
+    spatial mesh rank 0's, whose batches reach the followers."""
+    bundle = build_bundle(args) if bundle is None else bundle
     if args.workdir is None and (args.unet_weights is None or
                                  bundle.autoencoder is not None and args.ae_weights is None):
         logger.warning("no weights file and no workdir for a model: serving seeded random "
@@ -122,8 +177,10 @@ def build_server(args):
     def normalize(cond_raw: np.ndarray) -> np.ndarray:
         return (cond_raw - stats[:, 0]) / stats[:, 1]
 
-    batcher = serving.Microbatcher.from_bundle(bundle, args.batch_size,
-                                               max_delay_ms=args.max_delay_ms)
+    run = bundle.sampler(args.batch_size)
+    if bundle.mesh is not None:
+        run = leading(run, args.batch_size)
+    batcher = serving.Microbatcher(run, args.batch_size, max_delay_ms=args.max_delay_ms)
     # warm up BEFORE binding the port so /healthz readiness is truthful
     print(f"warming up {args.config} sampler (batch {args.batch_size}, "
           f"{args.num_steps} steps, {args.solver})...", flush=True)
@@ -137,7 +194,7 @@ def build_server(args):
         "features": list(serving.FEATURES),
         "devices": [torch.cuda.get_device_name(device) if device.type == "cuda"
                     else str(device)],
-        "spatial": 0, "int8": False,
+        "spatial": args.spatial, "int8": bool(args.int8),
     }
     return serving.make_server(batcher, normalize, info, host=args.host, port=args.port), batcher
 
@@ -145,7 +202,16 @@ def build_server(args):
 def main(argv=None):
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    server, batcher = build_server(args)
+    common.run_ranks(serve, args, args.spatial)
+
+
+def serve(args):
+    """``main``'s server on this rank: rank 0 serves, the others follow it."""
+    bundle = build_bundle(args)
+    if rank() != 0:
+        follow(bundle, args.batch_size)
+        return
+    server, batcher = build_server(args, bundle)
     print(f"serving on http://{args.host}:{server.server_address[1]}", flush=True)
     try:
         server.serve_forever()
@@ -154,6 +220,8 @@ def main(argv=None):
     finally:
         server.server_close()
         batcher.shutdown()
+        if bundle.mesh is not None:
+            stop_followers(args.batch_size)
 
 
 if __name__ == "__main__":

@@ -65,7 +65,6 @@ import importlib.util
 import itertools
 import logging
 import os
-import socket
 
 import torch
 
@@ -378,22 +377,7 @@ def launch(args) -> TrainState | None:
     if n > 1 and torch.device(args.device).type == "cuda" and n > torch.cuda.device_count():
         raise SystemExit(f"-d {n} asks for {n} devices, but {torch.cuda.device_count()} CUDA "
                          "device(s) are visible; one rank drives one card")
-    if n == 1:
-        return run(args)
-    with socket.socket() as s:  # a free port for the ranks' rendezvous
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    torch.multiprocessing.spawn(_spawned_rank, args=(args, n, port), nprocs=n, join=True)
-    return None
-
-
-def _spawned_rank(local_rank: int, args, n: int, port: int):
-    """One of ``launch``'s N local ranks: torchrun's environment, then ``run``."""
-    os.environ.update(RANK=str(local_rank), LOCAL_RANK=str(local_rank), WORLD_SIZE=str(n),
-                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
-    if torch.device(args.device).type == "cpu":  # the ranks share the host's cores
-        torch.set_num_threads(max(1, min(torch.get_num_threads(), (os.cpu_count() or 1) // n)))
-    run(args)
+    return common.run_ranks(run, args, n)
 
 
 if __name__ == "__main__":

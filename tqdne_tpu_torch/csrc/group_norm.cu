@@ -30,6 +30,13 @@
 //   takes that variant: the largest, the autoencoder's S = 16384 x C = 64, is 1 MB a (sample,
 //   slice) in f32 or bf16, 16 chunks of 64 KB.  (A slice of 64 channels takes 4 MB a sample
 //   in f32, past 16 x 227 KB; that is the re-read variant.)
+// - Two more entry points share the kernel (its MODE), for an activation whose rows are split
+//   over ranks (spatial partitioning, parallel/spatial.py): `tq_group_norm_stats` stops after the
+//   cluster's merge and writes each (sample, group)'s (n, mean, M2) of the shard's rows, which
+//   the ranks combine; `tq_group_norm_apply` skips the statistics and normalises with a given
+//   (mean, rstd) a (sample, group), then the affine and the SiLU.  Both move the bytes the
+//   function needs (x once for the statistics; x once and y once for the apply), in the plan of
+//   the fused kernel, whose code (MODE 0) they leave as it was.
 
 #include <cooperative_groups.h>
 
@@ -172,11 +179,16 @@ __device__ __forceinline__ void group_sums(float (&acc)[VEC], float* red, float*
   __syncthreads();
 }
 
-template <typename T, typename P, int VEC, bool RESIDENT>
+// MODE 0: the fused GroupNorm; 1: only the statistics, (n, mean, M2) of each (sample, group)
+// into `stats` (B, G, 3); 2: only the normalisation, with (mean, rstd) of each (sample, group)
+// read from `mean_rstd` (B, G, 2).
+template <typename T, typename P, int VEC, bool RESIDENT, int MODE>
 __global__ void __launch_bounds__(1024)
     group_norm_silu_kernel(const T* __restrict__ x, const P* __restrict__ scale,
-                           const P* __restrict__ bias, T* __restrict__ out, int S, int C,
-                           int gsize, int cs, int chunk_rows, int rpp, float eps, int silu) {
+                           const P* __restrict__ bias, T* __restrict__ out,
+                           float* __restrict__ stats, const float* __restrict__ mean_rstd, int S,
+                           int C, int gsize, int cs, int chunk_rows, int rpp, float eps,
+                           int silu) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int nc = gridDim.x;  // the cluster spans the grid's x dimension
@@ -221,80 +233,100 @@ __global__ void __launch_bounds__(1024)
     ld = cs;
   }
 
-  // pass 1: the chunk's group means m1
-  float acc[VEC];
+  float acc[VEC], mu[VEC];
+  // the (sample, group)s of this slice: (B, G, k) arrays hold them at (z * G + y * ng + j) * k
+  const size_t group0 = (size_t)blockIdx.z * (C / gsize) + (size_t)blockIdx.y * ng;
+  if constexpr (MODE == 2) {
+    for (int j = tid; j < ng; j += blockDim.x) {
+      fin[j] = mean_rstd[(group0 + j) * 2];
+      fin[ng + j] = mean_rstd[(group0 + j) * 2 + 1];
+    }
+    __syncthreads();
+  } else {
+    // pass 1: the chunk's group means m1
 #pragma unroll
-  for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+    for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
 #pragma unroll 4
-  for (int r = first; r < rows; r += rpp) {
-    float v[VEC];
-    load_vec<T, VEC>(src + (r - rslot) * ld, v);
+    for (int r = first; r < rows; r += rpp) {
+      float v[VEC];
+      load_vec<T, VEC>(src + (r - rslot) * ld, v);
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[e] += v[e];
-  }
-  const float n = (float)rows * gsize;
-  group_sums<VEC>(acc, red, chan, pub + ng, cs, gsize, rpp, rows ? 1.f / n : 0.f);
+      for (int e = 0; e < VEC; ++e) acc[e] += v[e];
+    }
+    const float n = (float)rows * gsize;
+    group_sums<VEC>(acc, red, chan, pub + ng, cs, gsize, rpp, rows ? 1.f / n : 0.f);
 
-  // pass 2: the sums of d = x - m1 and of d^2 (the corrected two-pass: the chunk's mean is
-  // m1 + sum(d) / n, its M2 sum(d^2) - sum(d)^2 / n)
-  float acc2[VEC], mu[VEC];
-#pragma unroll
-  for (int e = 0; e < VEC; ++e) {
-    mu[e] = pub[ng + (col + e) / gsize];
-    acc[e] = acc2[e] = 0.f;
-  }
-#pragma unroll 4
-  for (int r = first; r < rows; r += rpp) {
-    float v[VEC];
-    load_vec<T, VEC>(src + (r - rslot) * ld, v);
+    // pass 2: the sums of d = x - m1 and of d^2 (the corrected two-pass: the chunk's mean is
+    // m1 + sum(d) / n, its M2 sum(d^2) - sum(d)^2 / n)
+    float acc2[VEC];
 #pragma unroll
     for (int e = 0; e < VEC; ++e) {
-      const float d = v[e] - mu[e];
-      acc[e] += d;
-      acc2[e] = fmaf(d, d, acc2[e]);
+      mu[e] = pub[ng + (col + e) / gsize];
+      acc[e] = acc2[e] = 0.f;
     }
-  }
-  group_sums<VEC>(acc, red, chan, fin, cs, gsize, rpp, 1.f);  // fin: scratch until the merge
-  group_sums<VEC>(acc2, red, chan, pub + 2 * ng, cs, gsize, rpp, 1.f);
-  for (int j = tid; j < ng; j += blockDim.x) {
-    const float s1 = fin[j];
-    pub[j] = n;
-    if (rows) {
-      pub[ng + j] += s1 / n;
-      pub[2 * ng + j] -= s1 * s1 / n;
+#pragma unroll 4
+    for (int r = first; r < rows; r += rpp) {
+      float v[VEC];
+      load_vec<T, VEC>(src + (r - rslot) * ld, v);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float d = v[e] - mu[e];
+        acc[e] += d;
+        acc2[e] = fmaf(d, d, acc2[e]);
+      }
     }
-  }
+    group_sums<VEC>(acc, red, chan, fin, cs, gsize, rpp, 1.f);  // fin: scratch until the merge
+    group_sums<VEC>(acc2, red, chan, pub + 2 * ng, cs, gsize, rpp, 1.f);
+    for (int j = tid; j < ng; j += blockDim.x) {
+      const float s1 = fin[j];
+      pub[j] = n;
+      if (rows) {
+        pub[ng + j] += s1 / n;
+        pub[2 * ng + j] -= s1 * s1 / n;
+      }
+    }
 
-  // every rank's (n, mean, M2), one remote load a thread, then a merge in rank order (Chan
-  // et al.) from the local copies; a cluster of one block reads its own
-  const float* ranks = pub;
-  if (nc > 1) {
-    cluster.sync();
-    for (int i = tid; i < 3 * nc * ng; i += blockDim.x) {
-      const int k = i / (3 * ng);
-      const int f = i - k * 3 * ng;
-      all[i] = cluster.map_shared_rank(pub, k)[f];
+    // every rank's (n, mean, M2), one remote load a thread, then a merge in rank order (Chan
+    // et al.) from the local copies; a cluster of one block reads its own
+    const float* ranks = pub;
+    if (nc > 1) {
+      cluster.sync();
+      for (int i = tid; i < 3 * nc * ng; i += blockDim.x) {
+        const int k = i / (3 * ng);
+        const int f = i - k * 3 * ng;
+        all[i] = cluster.map_shared_rank(pub, k)[f];
+      }
+      ranks = all;
     }
-    ranks = all;
-  }
-  cluster.sync();  // the copies are complete, and no block's pub is read any more
-  for (int j = tid; j < ng; j += blockDim.x) {
-    float cnt = 0.f, mean = 0.f, m2 = 0.f;
-    for (int k = 0; k < nc; ++k) {
-      const float* other = ranks + k * 3 * ng;
-      const float nb = other[j];
-      if (nb == 0.f) continue;
-      const float total = cnt + nb;
-      const float delta = other[ng + j] - mean;
-      const float frac = nb / total;
-      mean = fmaf(delta, frac, mean);
-      m2 += other[2 * ng + j] + delta * delta * cnt * frac;
-      cnt = total;
+    cluster.sync();  // the copies are complete, and no block's pub is read any more
+    for (int j = tid; j < ng; j += blockDim.x) {
+      float cnt = 0.f, mean = 0.f, m2 = 0.f;
+      for (int k = 0; k < nc; ++k) {
+        const float* other = ranks + k * 3 * ng;
+        const float nb = other[j];
+        if (nb == 0.f) continue;
+        const float total = cnt + nb;
+        const float delta = other[ng + j] - mean;
+        const float frac = nb / total;
+        mean = fmaf(delta, frac, mean);
+        m2 += other[2 * ng + j] + delta * delta * cnt * frac;
+        cnt = total;
+      }
+      if constexpr (MODE == 1) {
+        if (rank == 0) {
+          float* o = stats + (group0 + j) * 3;
+          o[0] = cnt;
+          o[1] = mean;
+          o[2] = m2;
+        }
+      } else {
+        fin[j] = mean;
+        fin[ng + j] = rsqrtf(m2 / cnt + eps);
+      }
     }
-    fin[j] = mean;
-    fin[ng + j] = rsqrtf(m2 / cnt + eps);
+    if constexpr (MODE == 1) return;
+    __syncthreads();
   }
-  __syncthreads();
 
   // normalise, affine, SiLU, store
   float a[VEC], b[VEC];
@@ -383,47 +415,71 @@ cudaError_t co_scheduled(Kernel kernel, const Config& c, int device, bool& ok) {
   return cudaSuccess;
 }
 
-template <typename T, typename P, int VEC, bool RESIDENT>
-cudaError_t launch(const void* x, const void* scale, const void* bias, void* out, int B, int S,
-                   int C, int gsize, int cs, int cluster, int chunk_rows, int rpp, int threads,
-                   float eps, int silu, int device, cudaStream_t st) {
-  auto kernel = group_norm_silu_kernel<T, P, VEC, RESIDENT>;
+// The arguments of one launch: tensors, shape and plan (see tq_group_norm_silu).
+struct Args {
+  const void* x;
+  const void* scale;
+  const void* bias;
+  void* out;
+  float* stats;
+  const float* mean_rstd;
+  int B, S, C, gsize, cs, cluster, chunk_rows, rpp, threads;
+  float eps;
+  int silu, device;
+  cudaStream_t st;
+};
+
+template <typename T, typename P, int VEC, bool RESIDENT, int MODE>
+cudaError_t launch(const Args& a) {
+  auto kernel = group_norm_silu_kernel<T, P, VEC, RESIDENT, MODE>;
   static bool prepared[64] = {};
-  cudaError_t err = prepare(kernel, device, prepared);
+  cudaError_t err = prepare(kernel, a.device, prepared);
   if (err != cudaSuccess) return err;
-  const size_t smem =
-      smem_bytes(sizeof(T), VEC, cs, gsize, chunk_rows, rpp, threads, cluster, RESIDENT);
+  const size_t smem = smem_bytes(sizeof(T), VEC, a.cs, a.gsize, a.chunk_rows, a.rpp, a.threads,
+                                 a.cluster, RESIDENT);
   if (smem > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
   Config c;
-  make_config(c, cluster, C / cs, B, threads, smem, st);
+  make_config(c, a.cluster, a.C / a.cs, a.B, a.threads, smem, a.st);
   bool ok = false;
-  err = co_scheduled(kernel, c, device, ok);
+  err = co_scheduled(kernel, c, a.device, ok);
   if (err != cudaSuccess) return err;
   if (!ok) return cudaErrorLaunchOutOfResources;
-  return cudaLaunchKernelEx(&c.cfg, kernel, static_cast<const T*>(x),
-                            static_cast<const P*>(scale), static_cast<const P*>(bias),
-                            static_cast<T*>(out), S, C, gsize, cs, chunk_rows, rpp, eps, silu);
+  return cudaLaunchKernelEx(&c.cfg, kernel, static_cast<const T*>(a.x),
+                            static_cast<const P*>(a.scale), static_cast<const P*>(a.bias),
+                            static_cast<T*>(a.out), a.stats, a.mean_rstd, a.S, a.C, a.gsize, a.cs,
+                            a.chunk_rows, a.rpp, a.eps, a.silu);
 }
 
-template <typename T, typename P>
-cudaError_t launch_variant(int vec, int resident, const void* x, const void* scale,
-                           const void* bias, void* out, int B, int S, int C, int gsize, int cs,
-                           int cluster, int chunk_rows, int rpp, int threads, float eps, int silu,
-                           int device, cudaStream_t st) {
+template <typename T, typename P, int MODE>
+cudaError_t launch_variant(int vec, int resident, const Args& a) {
   constexpr int WIDE = 16 / sizeof(T);
-  if (vec == WIDE && resident)
-    return launch<T, P, WIDE, true>(x, scale, bias, out, B, S, C, gsize, cs, cluster,
-                                    chunk_rows, rpp, threads, eps, silu, device, st);
-  if (vec == WIDE)
-    return launch<T, P, WIDE, false>(x, scale, bias, out, B, S, C, gsize, cs, cluster,
-                                     chunk_rows, rpp, threads, eps, silu, device, st);
-  if (vec == 1 && resident)
-    return launch<T, P, 1, true>(x, scale, bias, out, B, S, C, gsize, cs, cluster, chunk_rows,
-                                 rpp, threads, eps, silu, device, st);
-  if (vec == 1)
-    return launch<T, P, 1, false>(x, scale, bias, out, B, S, C, gsize, cs, cluster, chunk_rows,
-                                  rpp, threads, eps, silu, device, st);
+  if (vec == WIDE && resident) return launch<T, P, WIDE, true, MODE>(a);
+  if (vec == WIDE) return launch<T, P, WIDE, false, MODE>(a);
+  if (vec == 1 && resident) return launch<T, P, 1, true, MODE>(a);
+  if (vec == 1) return launch<T, P, 1, false, MODE>(a);
   return cudaErrorInvalidValue;
+}
+
+// The plan's invariants (see tq_group_norm_silu).
+bool valid_plan(int B, int S, int C, int G, int cs, int cluster, int chunk_rows, int rpp,
+                int threads, int vec) {
+  return !(B < 1 || B > 65535 || S < 1 || C < 1 || G < 1 || C % G != 0 || cs < 1 ||
+           C % cs != 0 || cs % (C / G) != 0 || vec < 1 || cs % vec != 0 || cluster < 1 ||
+           cluster > MAX_CLUSTER || rpp < 1 || (long long)chunk_rows * cluster < S ||
+           (long long)chunk_rows * (cluster - 1) >= S || threads % 32 != 0 || threads > 1024 ||
+           rpp * (cs / vec) > threads);
+}
+
+// The launch of `a` for the (x, params) dtype pair: (f32, f32), (bf16, bf16) or (bf16, f32).
+template <int MODE>
+int launch_dtypes(int x_dtype, int p_dtype, int vec, int resident, const Args& a) {
+  cudaError_t err = tq::use_device(a.device);
+  if (err != cudaSuccess) return (int)err;
+  if (x_dtype == 0 && p_dtype == 0) err = launch_variant<float, float, MODE>(vec, resident, a);
+  else if (x_dtype == 1 && p_dtype == 1) err = launch_variant<bf16, bf16, MODE>(vec, resident, a);
+  else if (x_dtype == 1 && p_dtype == 0) err = launch_variant<bf16, float, MODE>(vec, resident, a);
+  else err = cudaErrorInvalidValue;
+  return (int)err;
 }
 
 }  // namespace
@@ -442,30 +498,43 @@ extern "C" int tq_group_norm_silu(const void* x, const void* scale, const void* 
                                   int silu, int slice_channels, int cluster, int chunk_rows,
                                   int rows_per_pass, int threads, int vec, int resident,
                                   int device, void* stream) {
-  const int cs = slice_channels;
-  if (B < 1 || B > 65535 || S < 1 || C < 1 || G < 1 || C % G != 0 || cs < 1 || C % cs != 0 ||
-      cs % (C / G) != 0 || vec < 1 || cs % vec != 0 || cluster < 1 || cluster > MAX_CLUSTER ||
-      rows_per_pass < 1 || (long long)chunk_rows * cluster < S ||
-      (long long)chunk_rows * (cluster - 1) >= S || threads % 32 != 0 || threads > 1024 ||
-      rows_per_pass * (cs / vec) > threads)
+  if (!valid_plan(B, S, C, G, slice_channels, cluster, chunk_rows, rows_per_pass, threads, vec))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = tq::use_device(device);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int gsize = C / G;
-  if (x_dtype == 0 && p_dtype == 0)
-    return (int)launch_variant<float, float>(vec, resident, x, scale, bias, out, B, S, C, gsize,
-                                             cs, cluster, chunk_rows, rows_per_pass, threads,
-                                             eps, silu, device, st);
-  if (x_dtype == 1 && p_dtype == 1)
-    return (int)launch_variant<bf16, bf16>(vec, resident, x, scale, bias, out, B, S, C, gsize,
-                                           cs, cluster, chunk_rows, rows_per_pass, threads, eps,
-                                           silu, device, st);
-  if (x_dtype == 1 && p_dtype == 0)
-    return (int)launch_variant<bf16, float>(vec, resident, x, scale, bias, out, B, S, C, gsize,
-                                            cs, cluster, chunk_rows, rows_per_pass, threads, eps,
-                                            silu, device, st);
-  return (int)cudaErrorInvalidValue;
+  const Args a{x, scale, bias, out, nullptr, nullptr, B, S, C, C / G, slice_channels, cluster,
+               chunk_rows, rows_per_pass, threads, eps, silu, device,
+               static_cast<cudaStream_t>(stream)};
+  return launch_dtypes<0>(x_dtype, p_dtype, vec, resident, a);
+}
+
+// The statistics alone: stats (B, G, 3) float32 receives each (sample, group)'s element count,
+// mean and M2 (the sum of squared deviations from that mean) over x's S rows, in the plan of
+// tq_group_norm_silu for the dtype pair (x_dtype, x_dtype).
+extern "C" int tq_group_norm_stats(const void* x, float* stats, int x_dtype, int B, int S, int C,
+                                   int G, int slice_channels, int cluster, int chunk_rows,
+                                   int rows_per_pass, int threads, int vec, int resident,
+                                   int device, void* stream) {
+  if (!valid_plan(B, S, C, G, slice_channels, cluster, chunk_rows, rows_per_pass, threads, vec))
+    return (int)cudaErrorInvalidValue;
+  const Args a{x, nullptr, nullptr, nullptr, stats, nullptr, B, S, C, C / G, slice_channels,
+               cluster, chunk_rows, rows_per_pass, threads, 0.f, 0, device,
+               static_cast<cudaStream_t>(stream)};
+  return launch_dtypes<1>(x_dtype, x_dtype, vec, resident, a);
+}
+
+// The normalisation alone: out = (x - mean) * rstd * scale + bias, then the SiLU when `silu`,
+// with mean_rstd (B, G, 2) float32 holding each (sample, group)'s mean and rstd; the arguments
+// otherwise as tq_group_norm_silu's.
+extern "C" int tq_group_norm_apply(const void* x, const float* mean_rstd, const void* scale,
+                                   const void* bias, void* out, int x_dtype, int p_dtype, int B,
+                                   int S, int C, int G, int silu, int slice_channels, int cluster,
+                                   int chunk_rows, int rows_per_pass, int threads, int vec,
+                                   int resident, int device, void* stream) {
+  if (!valid_plan(B, S, C, G, slice_channels, cluster, chunk_rows, rows_per_pass, threads, vec))
+    return (int)cudaErrorInvalidValue;
+  const Args a{x, scale, bias, out, nullptr, mean_rstd, B, S, C, C / G, slice_channels, cluster,
+               chunk_rows, rows_per_pass, threads, 0.f, silu, device,
+               static_cast<cudaStream_t>(stream)};
+  return launch_dtypes<2>(x_dtype, p_dtype, vec, resident, a);
 }
 
 // The largest cluster (1-16 blocks) of the bf16 resident kernel with 512 threads and 227 KB of
@@ -474,7 +543,7 @@ extern "C" int tq_group_norm_silu(const void* x, const void* scale, const void* 
 extern "C" int tq_group_norm_cluster_limit(int device, int* limit) {
   cudaError_t err = tq::use_device(device);
   if (err != cudaSuccess) return (int)err;
-  auto kernel = group_norm_silu_kernel<bf16, bf16, 8, true>;
+  auto kernel = group_norm_silu_kernel<bf16, bf16, 8, true, 0>;
   static bool prepared[64] = {};
   err = prepare(kernel, device, prepared);
   if (err != cudaSuccess) return (int)err;

@@ -7,7 +7,7 @@ import dataclasses
 
 import torch
 
-from tqdne_tpu_torch.parallel import draw_rows
+from tqdne_tpu_torch.parallel import draw_rows, spatial
 from tqdne_tpu_torch.utils import append_dims
 
 
@@ -93,7 +93,9 @@ def edm_loss(cfg: EDMConfig, net_apply, sample, *, cond_signal=None, cond=None,
 
     ``sigma_eps`` (B,) and ``noise`` (``sample``'s shape) are the standard-
     normal draws, injected or drawn in ``sample``'s dtype from ``generator``
-    (the device's default one when None), sigma's first.  Returns a scalar.
+    (the device's default one when None), sigma's first.  Returns a scalar;
+    under a spatial scope the mean over every shard of the sample
+    (``spatial.mean_over_model``).
     """
     def normal(shape):
         return draw_rows(torch.randn, shape, generator=generator, device=sample.device,
@@ -105,4 +107,4 @@ def edm_loss(cfg: EDMConfig, net_apply, sample, *, cond_signal=None, cond=None,
     noisy = sample + noise * append_dims(sigma, sample.ndim)
     pred = precondition(cfg, net_apply, noisy, sigma, cond_signal=cond_signal, cond=cond)
     sq = (pred - sample) ** 2
-    return torch.mean(sq * append_dims(loss_weight(cfg, sigma), sq.ndim))
+    return spatial.mean_over_model(torch.mean(sq * append_dims(loss_weight(cfg, sigma), sq.ndim)))

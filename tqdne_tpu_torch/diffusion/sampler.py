@@ -5,6 +5,11 @@ second-order correction of the final step with a ``lax.cond``.  Here the
 schedule lives on the host as Python floats, so that branch, and every
 per-step coefficient, costs no device sync; the loop runs eagerly.  The
 accumulator dtype is the dtype of ``eps`` (float64 for parity runs).
+
+With a spatial ``mesh`` (``parallel.spatial``) each rank integrates its block
+of the sample, the network under the spatial scope, from its block of the
+noise drawn at the global shape (the JAX ``eps_sharding``), and the result is
+gathered.
 """
 
 from __future__ import annotations
@@ -15,7 +20,7 @@ from typing import Callable
 import torch
 
 from tqdne_tpu_torch.diffusion.edm import EDMConfig, sampling_sigmas, sigma_hat
-from tqdne_tpu_torch.parallel import draw_rows
+from tqdne_tpu_torch.parallel import draw_rows, spatial
 from tqdne_tpu_torch.utils import resolve_device
 
 # DenoiseFn(x, sigma[B]) -> denoised x; closes over the network and conditioning.
@@ -109,14 +114,24 @@ def dpmpp_2m(denoise_fn: DenoiseFn, eps: torch.Tensor, sigmas) -> torch.Tensor:
 def sample(denoise_fn: DenoiseFn, shape: tuple[int, ...], cfg: EDMConfig = EDMConfig(), *,
            num_steps: int = 25, deterministic: bool = True, solver: str = "heun",
            noise: torch.Tensor | None = None, generator: torch.Generator | None = None,
-           device="cuda") -> torch.Tensor:
+           device="cuda", mesh=None) -> torch.Tensor:
     """Integrate the EDM probability-flow ODE from ``noise`` (a standard-normal
     draw of ``shape``; drawn from ``generator`` on ``device`` when None) with
     f32 accumulators (float64 ones for a float64 ``noise``, as parity tests
     take them).
 
     solver: "heun" (2N-1 evaluations) or "dpmpp_2m" (N, deterministic only).
+    mesh: a spatial mesh; ``shape`` and ``noise`` are then global, each rank
+    integrates its block under ``spatial_scope(mesh)`` and every rank returns
+    the whole gathered result.
     """
+    if mesh is not None:
+        with spatial.spatial_scope(mesh) as scope:
+            x = sample(denoise_fn, spatial.local_shape(scope, shape), cfg, num_steps=num_steps,
+                       deterministic=deterministic, solver=solver, generator=generator,
+                       noise=None if noise is None else spatial.shard(mesh, noise, "noise"),
+                       device=device)
+        return spatial.gather_signal(mesh, x)
     if solver not in ("heun", "dpmpp_2m"):
         raise ValueError(f"unknown solver {solver!r}; use 'heun' or 'dpmpp_2m'")
     if solver == "dpmpp_2m" and not deterministic:

@@ -5,6 +5,8 @@ methods take and return the JAX layout (B, *spatial, C): ``moments``
 (encoder output split into mean and log std), ``encode`` (the
 reparameterised latent), ``encode_mean`` and ``decode``, plus
 ``kl_divergence``.  Training the autoencoder itself comes with its recipe.
+Under ``parallel.spatial.spatial_scope`` they take and return this rank's
+rows, as the UNet does.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from torch import nn
 
 from tqdne_tpu_torch.nn.attention import AttentionBlock
 from tqdne_tpu_torch.nn.layers import Downsample, Norm32, Upsample, conv_nd
-from tqdne_tpu_torch.parallel import draw_rows
+from tqdne_tpu_torch.parallel import draw_rows, spatial
 
 
 class PlainResBlock(nn.Module):
@@ -48,10 +50,24 @@ class _ConvStack(nn.Module):
         self.order.append(name)
 
     def forward(self, x):  # (B, C, *spatial) -> (B, C_out, *spatial')
+        scope = spatial.current()
+        if scope is not None:
+            return self._forward_spatial(scope, x)
         h = self.in_conv(x)
         for name in self.order:
             h = getattr(self, name)(h)
         return self.out_conv(h)
+
+    def _forward_spatial(self, scope, x):
+        """``forward`` on this rank's rows under ``scope``: each block on its rows
+        where its extent splits over the shards, on all of them where not."""
+        halo = self.in_conv.kernel_size[0] // 2
+        h, sh = x, True
+        for name in ("in_conv", *self.order, "out_conv"):
+            h, sh = scope.enter(h, sh, halo, name.endswith("downsample"))
+            with scope.at(sh):
+                h = getattr(self, name)(h)
+        return scope.place(h, sh, True)
 
 
 class Encoder(_ConvStack):

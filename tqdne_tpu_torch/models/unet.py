@@ -17,6 +17,11 @@ scales and shifts the normalised activations), ``conv_resample=False``
 compute over float32 parameters).  GroupNorm and attention always take the
 fused kernels, which is the JAX ``use_pallas_norm=True,
 use_pallas_attention=True`` route; both are differentiable.
+
+Under ``parallel.spatial.spatial_scope`` the input and the output are this
+rank's rows of the sample (dim 1 of the JAX layout), and each step runs on
+its rows where its level's extent splits over the shards, on all of them
+where it does not (``SpatialScope.enter``).
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from tqdne_tpu_torch.nn.layers import (
     Upsample,
     conv_nd,
 )
+from tqdne_tpu_torch.parallel import spatial
 
 
 class ResBlock(nn.Module):
@@ -193,6 +199,9 @@ class UNet(nn.Module):
                 c = self.cond_embed(c).flatten(1)
             emb = emb + self.cond_mlp(c)
 
+        scope = spatial.current()
+        if scope is not None:
+            return self._forward_spatial(scope, x, emb)
         h = self.in_conv(x.movedim(-1, 1))
         hs = [h]
         for step in self.down_steps:
@@ -204,3 +213,27 @@ class UNet(nn.Module):
             h = self._run(step, torch.cat([h, hs.pop()], dim=1), emb)
         h = self.out_conv(self.out_norm(h))
         return h.movedim(1, -1).float()
+
+    def _forward_spatial(self, scope, x, emb):
+        """``forward``'s body on this rank's rows of ``x`` under ``scope``."""
+        halo = self.in_conv.kernel_size[0] // 2
+
+        def run(fn, h, sharded, downsample=False, skip=None):
+            h, sharded = scope.enter(h, sharded, halo, downsample)
+            if skip is not None:
+                h = torch.cat([h, scope.place(*skip, sharded)], dim=1)
+            with scope.at(sharded):
+                return fn(h), sharded
+
+        h, sh = run(self.in_conv, x.movedim(-1, 1), True)
+        hs = [(h, sh)]
+        for step in self.down_steps:
+            down = step[-1].endswith("downsample")
+            h, sh = run(lambda t, step=step: self._run(step, t, emb), h, sh, down)
+            hs.append((h, sh))
+        h, sh = run(lambda t: self._res(self.mid_res2, self.mid_attn(
+            self._res(self.mid_res1, t, emb)), emb), h, sh)
+        for step in self.up_steps:
+            h, sh = run(lambda t, step=step: self._run(step, t, emb), h, sh, skip=hs.pop())
+        h, sh = run(lambda t: self.out_conv(self.out_norm(t)), h, sh)
+        return scope.place(h, sh, True).movedim(1, -1).float()

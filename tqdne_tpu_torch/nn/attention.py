@@ -8,6 +8,12 @@ JAX package's ``use_pallas=True`` route, with no length switch.  The kernels
 need the head dimension at unit stride: where the projection comes out
 channels-first (in 1D, which has no channels-last memory format, and on the
 CPU) its channels-last layout is a copy.
+
+Under a sharded ``parallel.spatial`` scope the projection's rows of every
+shard are gathered, the kernel attends over all the tokens (it takes q, k
+and v of one shape, so each rank repeats the whole attention) and the
+block keeps this shard's rows; the gather's backward sums the gradient over
+the shards, so dK, dV and dQ of each rank's rows reach their owners.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from torch import nn
 
 from tqdne_tpu_torch.nn.layers import Norm32, conv_nd
 from tqdne_tpu_torch.ops.flash_attention import flash_attention
+from tqdne_tpu_torch.parallel import spatial
 
 
 class AttentionBlock(nn.Module):
@@ -33,11 +40,19 @@ class AttentionBlock(nn.Module):
         self.proj_out = conv_nd(dims, channels, channels, 1)
 
     def forward(self, x):  # (B, C, *spatial)
-        b, c, *spatial = x.shape
-        qkv = self.qkv(self.norm(x)).movedim(1, -1)  # (B, *spatial, 3C), channels-last view
+        qkv = self.qkv(self.norm(x))
+        scope = spatial.current()
+        sharded = scope is not None and scope.sharded
+        if sharded:
+            qkv = spatial.gather_rows(qkv, scope)  # every shard's rows
+        b, c3, *size = qkv.shape
+        c = c3 // 3
+        qkv = qkv.movedim(1, -1)  # (B, *spatial, 3C), channels-last view
         if qkv.stride(-1) != 1:
             qkv = qkv.contiguous()
         qkv = qkv.reshape(b, -1, 3, self.num_heads, c // self.num_heads)
         a = flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], self.use_causal_mask)
-        a = a.reshape(b, *spatial, c).movedim(-1, 1)
+        a = a.reshape(b, *size, c).movedim(-1, 1)
+        if sharded:
+            a = a.narrow(2, scope.model_rank * x.shape[2], x.shape[2])
         return x + self.proj_out(a)

@@ -13,6 +13,13 @@ to its ``compute_dtype`` on every call (flax's ``dtype=`` with
 weight's dtype, which is how a model whose weights were cast once for
 inference runs.  ``Norm32`` returns its input's dtype with f32 statistics and
 keeps its scale and bias in their own dtype.
+
+Two scopes change the layers' arithmetic, not their parameters:
+``nn.quant.int8_scope`` runs every convolution as ``quant_conv`` (on its input
+and weight as they come, as the JAX ``QuantConv`` does), and
+``parallel.spatial.spatial_scope`` runs them on this rank's rows of each
+activation: a convolution takes its halo rows from the neighbouring shards
+and ``Norm32`` merges the statistics of every shard.
 """
 
 from __future__ import annotations
@@ -23,7 +30,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tqdne_tpu_torch.ops.group_norm import group_norm_silu
+from tqdne_tpu_torch.nn.quant import int8_enabled, quant_conv
+from tqdne_tpu_torch.ops.group_norm import group_norm_silu, group_norm_silu_sharded
+from tqdne_tpu_torch.parallel import spatial
 
 
 class Norm32(nn.Module):
@@ -40,7 +49,17 @@ class Norm32(nn.Module):
 
     def forward(self, x):  # (B, C, *spatial)
         h = x.movedim(1, -1).contiguous()  # a view when x is channels-last
-        h = group_norm_silu(h, self.weight, self.bias, self.groups, 1e-5, self.silu)
+        scale, bias = self.weight, self.bias
+        if h.dtype == torch.float32 and scale.dtype != torch.float32:
+            # f32 activations over cast norms: the int8 mode's convolutions return their
+            # input's dtype, as the JAX ones do
+            scale, bias = scale.float(), bias.float()
+        scope = spatial.current()
+        if scope is not None and scope.sharded:
+            h = group_norm_silu_sharded(h, scale, bias, self.groups, 1e-5, self.silu,
+                                        scope.gather_stats)
+        else:
+            h = group_norm_silu(h, scale, bias, self.groups, 1e-5, self.silu)
         return h.movedim(-1, 1)
 
 
@@ -58,14 +77,34 @@ class _Cast:
         return x.to(dtype), weight, bias
 
 
-class _Conv1d(_Cast, nn.Conv1d):
+class _Conv(_Cast):
+    """The forward of ``conv_nd``'s convolutions: under a sharded spatial scope
+    with the halo rows of the neighbouring shards and no padding along the rows,
+    and under the int8 scope as ``quant_conv``."""
+
     def forward(self, x):
-        return self._conv_forward(*self._cast(x))
+        padding = self.padding
+        scope = spatial.current()
+        if scope is not None and scope.sharded and self.kernel_size[0] > 1:
+            p, s = self.padding[0], self.stride[0]
+            # rows 2i - p .. 2i + p of a stride-2 output need none below the shard
+            x = spatial.halo_rows(x, p, max(0, p - s + 1), scope)
+            padding = (0, *self.padding[1:])
+        if int8_enabled():
+            return quant_conv(x, self.weight, self.bias, self.stride, padding)
+        if padding == self.padding:
+            return self._conv_forward(*self._cast(x))
+        x, weight, bias = self._cast(x)
+        conv = F.conv1d if isinstance(self, nn.Conv1d) else F.conv2d
+        return conv(x, weight, bias, self.stride, padding, self.dilation, self.groups)
 
 
-class _Conv2d(_Cast, nn.Conv2d):
-    def forward(self, x):
-        return self._conv_forward(*self._cast(x))
+class _Conv1d(_Conv, nn.Conv1d):
+    pass
+
+
+class _Conv2d(_Conv, nn.Conv2d):
+    pass
 
 
 class Dense(_Cast, nn.Linear):

@@ -17,6 +17,17 @@ The backward recomputes through the plain version, as the JAX ``_bwd`` does
 ``group_norm_silu.launches`` counts kernel launches and
 ``group_norm_silu.backward_calls`` the plain backward recomputations, which
 run inside a ``tq::group_norm_silu_backward`` profiler range.
+
+For an activation whose rows are split over ranks (``parallel/spatial.py``),
+the statistics span every shard: ``group_norm_silu_sharded`` takes each
+shard's per-(sample, group) count, mean and M2 (``group_norm_stats``), gathers
+them from the other shards, merges them (``merge_group_stats``, Chan's
+formula) and normalises (``group_norm_apply``).  The two entries launch the
+same kernel in two more modes on CUDA, with plain versions beside them for
+the CPU; the backward recomputes through the plain versions and a
+differentiable gather, so the gradient carries the cross-shard terms.
+``group_norm_stats.launches`` and ``group_norm_apply.launches`` count their
+launches.
 """
 
 from __future__ import annotations
@@ -163,6 +174,15 @@ def _lib():
 
 
 @functools.cache
+def _entry(symbol: str, n_ptrs: int, n_ints: int):
+    """A C entry of the library taking ``n_ptrs`` pointers, ``n_ints`` ints and the stream."""
+    fn = getattr(cuda_build.load("group_norm"), symbol)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
 def cluster_limit(device: int) -> int:
     """The largest cluster (up to 16 blocks of 512 threads and 227 KB of shared memory)
     that the card co-schedules, read once per device."""
@@ -174,28 +194,42 @@ def cluster_limit(device: int) -> int:
     return limit.value
 
 
-def _launch(x, scale, bias, groups: int, eps: float, apply_silu: bool):
+def _checked_plan(name: str, x, groups: int, params=()):
+    """(B, S, C, device, plan) of a kernel call on ``x`` (B, *spatial, C) with ``params``
+    (scale and bias, each (C,)), after the checks the kernel needs; raises on what it
+    does not take."""
     shape = x.shape
     b, c = shape[0], shape[-1]
     s = x.numel() // (b * c) if b * c else 0
-    if scale.dtype != bias.dtype or scale.shape != (c,) or bias.shape != (c,):
-        raise ValueError("group_norm_silu: scale and bias must be (C,) of one dtype")
-    if scale.device != x.device or bias.device != x.device:
-        raise ValueError("group_norm_silu: x, scale and bias must be on one device")
-    if not (x.is_contiguous() and scale.is_contiguous() and bias.is_contiguous()):
-        raise ValueError("group_norm_silu: inputs must be contiguous")
+    if params:
+        scale, bias = params
+        if scale.dtype != bias.dtype or scale.shape != (c,) or bias.shape != (c,):
+            raise ValueError(f"{name}: scale and bias must be (C,) of one dtype")
+    if any(t.device != x.device for t in params):
+        raise ValueError(f"{name}: x, scale and bias must be on one device")
+    if not all(t.is_contiguous() for t in (x, *params)):
+        raise ValueError(f"{name}: inputs must be contiguous")
     if c % groups or c > 1024 or s < 1:
-        raise ValueError(f"group_norm_silu: unsupported shape {tuple(shape)} with {groups} groups")
+        raise ValueError(f"{name}: unsupported shape {tuple(shape)} with {groups} groups")
     device = x.device.index or 0
-    plan = group_norm_plan(b, s, c, groups, x.dtype, scale.dtype, x.data_ptr() % 16 == 0,
+    p_dtype = params[0].dtype if params else x.dtype
+    plan = group_norm_plan(b, s, c, groups, x.dtype, p_dtype, x.data_ptr() % 16 == 0,
                            cluster_limit(device))
+    return b, s, c, device, plan
+
+
+def _plan_args(plan: GroupNormPlan) -> tuple:
+    return (plan.slice_channels, plan.cluster, plan.chunk_rows, plan.rows_per_pass,
+            plan.threads, plan.vec, int(plan.resident))
+
+
+def _launch(x, scale, bias, groups: int, eps: float, apply_silu: bool):
+    b, s, c, device, plan = _checked_plan("group_norm_silu", x, groups, (scale, bias))
     out = torch.empty_like(x)
     err = _lib()(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
         _DTYPE_CODES[x.dtype], _DTYPE_CODES[scale.dtype], b, s, c, groups, eps,
-        int(apply_silu), plan.slice_channels, plan.cluster, plan.chunk_rows,
-        plan.rows_per_pass, plan.threads, plan.vec, int(plan.resident), device,
-        torch._C._cuda_getCurrentRawStream(device),
+        int(apply_silu), *_plan_args(plan), device, torch._C._cuda_getCurrentRawStream(device),
     )
     if err:
         raise RuntimeError(f"group_norm_silu: kernel launch failed with CUDA error {err}")
@@ -239,3 +273,120 @@ def group_norm_silu(x, scale, bias, groups: int = 32, eps: float = 1e-5,
 
 group_norm_silu.launches = 0
 group_norm_silu.backward_calls = 0
+
+
+# ---- statistics and normalisation apart, for rows split over ranks ----------------------------
+
+
+def group_norm_stats_plain(x, groups: int = 32) -> torch.Tensor:
+    """Each (sample, group)'s element count, mean and M2 (the sum of squared deviations
+    from that mean) over (B, *spatial, C): a (B, G, 3) float32 tensor, two-pass."""
+    b, c = x.shape[0], x.shape[-1]
+    xf = x.float().reshape(b, -1, groups, c // groups)
+    mean = xf.mean(dim=(1, 3))
+    m2 = ((xf - mean[:, None, :, None]) ** 2).sum(dim=(1, 3))
+    count = torch.full_like(mean, xf.shape[1] * xf.shape[3])
+    return torch.stack([count, mean, m2], dim=-1)
+
+
+def merge_group_stats(parts, eps: float = 1e-5):
+    """(mean, rstd), each (B, G) float32, of the union of the shards whose statistics
+    ``parts`` (K, B, G, 3) holds (``group_norm_stats`` of each): Chan's formula for the
+    parallel variance, mean = sum n_k m_k / n and M2 = sum M2_k + sum n_k (m_k - mean)^2."""
+    count, means, m2 = parts.unbind(-1)
+    n = count.sum(0)
+    mean = (count * means).sum(0) / n
+    var = (m2.sum(0) + (count * (means - mean) ** 2).sum(0)) / n
+    return mean, torch.rsqrt(var + eps)
+
+
+def group_norm_apply_plain(x, mean, rstd, scale, bias, groups: int = 32,
+                           apply_silu: bool = True):
+    """(x - mean) rstd (each (B, G) float32, broadcast over a group's channels), then the
+    affine and the optional SiLU, in f32; the input's shape and dtype out."""
+    shape, c = x.shape, x.shape[-1]
+    xf = x.float().reshape(shape[0], -1, groups, c // groups)
+    xn = ((xf - mean[:, None, :, None]) * rstd[:, None, :, None]).reshape(shape[0], -1, c)
+    out = xn * scale.float() + bias.float()
+    if apply_silu:
+        out = F.silu(out)
+    return out.reshape(shape).to(x.dtype)
+
+
+def group_norm_stats(x, groups: int = 32) -> torch.Tensor:
+    """``group_norm_stats_plain``: the kernel's statistics mode on a CUDA tensor (one
+    launch, the plan of ``group_norm_silu``), the plain version on a CPU one."""
+    if x.device.type == "cpu":
+        return group_norm_stats_plain(x, groups)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"group_norm_stats: no kernel for device {x.device}")
+    b, s, c, device, plan = _checked_plan("group_norm_stats", x, groups)
+    out = torch.empty((b, groups, 3), dtype=torch.float32, device=x.device)
+    err = _entry("tq_group_norm_stats", 2, 13)(
+        x.data_ptr(), out.data_ptr(), _DTYPE_CODES[x.dtype], b, s, c, groups,
+        *_plan_args(plan), device, torch._C._cuda_getCurrentRawStream(device))
+    if err:
+        raise RuntimeError(f"group_norm_stats: kernel launch failed with CUDA error {err}")
+    group_norm_stats.launches += 1
+    return out
+
+
+def group_norm_apply(x, mean, rstd, scale, bias, groups: int = 32, apply_silu: bool = True):
+    """``group_norm_apply_plain``: the kernel's normalisation mode on a CUDA tensor (one
+    launch, the plan of ``group_norm_silu``), the plain version on a CPU one."""
+    if x.device.type == "cpu":
+        return group_norm_apply_plain(x, mean, rstd, scale, bias, groups, apply_silu)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"group_norm_apply: no kernel for device {x.device}")
+    b, s, c, device, plan = _checked_plan("group_norm_apply", x, groups, (scale, bias))
+    mean_rstd = torch.stack([mean, rstd], dim=-1).float().contiguous()
+    if mean_rstd.shape != (b, groups, 2) or mean_rstd.device != x.device:
+        raise ValueError(f"group_norm_apply: mean and rstd must be ({b}, {groups}) on "
+                         f"{x.device}")
+    out = torch.empty_like(x)
+    err = _entry("tq_group_norm_apply", 5, 15)(
+        x.data_ptr(), mean_rstd.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        _DTYPE_CODES[x.dtype], _DTYPE_CODES[scale.dtype], b, s, c, groups, int(apply_silu),
+        *_plan_args(plan), device, torch._C._cuda_getCurrentRawStream(device))
+    if err:
+        raise RuntimeError(f"group_norm_apply: kernel launch failed with CUDA error {err}")
+    group_norm_apply.launches += 1
+    return out
+
+
+group_norm_stats.launches = 0
+group_norm_apply.launches = 0
+
+
+class _ShardedGroupNormSiLU(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, groups, eps, apply_silu, gather):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.config = (groups, eps, apply_silu, gather)
+        mean, rstd = merge_group_stats(gather(group_norm_stats(x, groups)), eps)
+        return group_norm_apply(x, mean, rstd, scale, bias, groups, apply_silu)
+
+    @staticmethod
+    def backward(ctx, grad):
+        groups, eps, apply_silu, gather = ctx.config
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+        x = inputs[0]
+        if not x.requires_grad:  # the gathered statistics carry other shards' gradients
+            x.requires_grad_(True)
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad(), torch.profiler.record_function("tq::group_norm_silu_backward"):
+            mean, rstd = merge_group_stats(gather(group_norm_stats_plain(x, groups)), eps)
+            out = group_norm_apply_plain(x, mean, rstd, *inputs[1:], groups, apply_silu)
+            grads = dict(zip(map(id, wanted), torch.autograd.grad(out, wanted, grad)))
+        group_norm_silu.backward_calls += 1
+        return (*(grads[id(t)] if need else None
+                  for t, need in zip(inputs, ctx.needs_input_grad[:3])),
+                None, None, None, None)
+
+
+def group_norm_silu_sharded(x, scale, bias, groups: int, eps: float, apply_silu: bool, gather):
+    """``group_norm_silu`` of a tensor whose rows (dim 1 of (B, *spatial, C)) are one shard of
+    the whole: ``gather`` maps this shard's (B, G, 3) statistics to every shard's (K, B, G, 3),
+    through a differentiable collective.  Its shape and dtype out."""
+    return _ShardedGroupNormSiLU.apply(x, scale, bias, groups, eps, apply_silu, gather)

@@ -1,6 +1,6 @@
-"""Data parallelism over ``torch.distributed``: the port of
-``tqdne_tpu/parallel/`` (``mesh`` and ``fsdp``).  Spatial partitioning
-(``parallel/spatial.py``) is not ported yet."""
+"""Parallelism over ``torch.distributed``: the port of ``tqdne_tpu/parallel/``
+(``mesh``: data parallelism and the meshes; ``fsdp``; ``spatial``: spatial
+partitioning of one sample's rows over a ``("data", "model")`` mesh)."""
 
 from tqdne_tpu_torch.parallel.mesh import (  # noqa: F401
     all_gather_rows,
@@ -8,6 +8,7 @@ from tqdne_tpu_torch.parallel.mesh import (  # noqa: F401
     all_reduce_max_,
     all_reduce_sum,
     barrier,
+    broadcast_,
     draw_rows,
     local_batch_slice,
     local_device,
@@ -17,5 +18,6 @@ from tqdne_tpu_torch.parallel.mesh import (  # noqa: F401
     process_group,
     rank,
     replicate_,
+    whole_batch,
     world_size,
 )

@@ -25,6 +25,7 @@ collective.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import os
 from datetime import timedelta
 
@@ -32,6 +33,7 @@ import torch
 import torch.distributed as dist
 
 _LAUNCH_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+_WHOLE = contextvars.ContextVar("tqdne_whole_batch", default=False)
 
 
 def maybe_initialize_distributed(device: str | torch.device = "cuda",
@@ -80,6 +82,17 @@ def process_group(device: str | torch.device = "cuda"):
     finally:
         if not existed and dist.is_available() and dist.is_initialized():
             dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def whole_batch():
+    """Every rank holds the whole batch inside (as after a spatial sampler's
+    gather): ``draw_rows`` draws it as one process would."""
+    token = _WHOLE.set(True)
+    try:
+        yield
+    finally:
+        _WHOLE.reset(token)
 
 
 def world_size() -> int:
@@ -163,9 +176,15 @@ def draw_rows(draw, *args, **kwargs) -> torch.Tensor:
     axis this rank's rows) drawn at the global batch's shape and cut to this
     rank's rows: with one generator state on every rank, the ranks' rows
     together are the 1-rank draw at the global batch.  The plain draw at
-    world size 1."""
+    world size 1.  Under ``spatial.spatial_scope`` the draw is cut to this
+    rank's block of the mesh (``spatial.draw_block``); under ``whole_batch``
+    it is the plain draw."""
+    from tqdne_tpu_torch.parallel import spatial  # which imports this module
+
+    if spatial.current() is not None:
+        return spatial.draw_block(draw, *args, **kwargs)
     n = world_size()
-    if n == 1:
+    if n == 1 or _WHOLE.get():
         return draw(*args, **kwargs)
     *lead, shape = args
     rows = shape[0]
@@ -191,11 +210,15 @@ def _is_dtensor(t) -> bool:
 
 
 @torch.no_grad()
-def all_reduce_gradients_(params) -> None:
-    """Average the gradients of ``params`` over the world, one flat bucket
-    per dtype and device (one collective each, not one per tensor).
-    Gradients FSDP manages (DTensors) are skipped: its reduce-scatter has
-    averaged them already.  Nothing happens at world size 1."""
+def all_reduce_gradients_(params, replicas: int | None = None) -> None:
+    """Sum the gradients of ``params`` over the world and divide them by
+    ``replicas`` (default: the world size, which averages them), one flat
+    bucket per dtype and device (one collective each, not one per tensor).
+    Under spatial partitioning ``replicas`` is the mesh's data size: the sum
+    over the model group is the gradient of a sample, then the data ranks
+    average.  Gradients FSDP manages (DTensors) are skipped: its
+    reduce-scatter has averaged them already.  Nothing happens at world size
+    1."""
     n = world_size()
     if n == 1:
         return
@@ -206,7 +229,7 @@ def all_reduce_gradients_(params) -> None:
     for grads in buckets.values():
         flat = torch.cat([g.reshape(-1) for g in grads])
         dist.all_reduce(flat)
-        flat.div_(n)
+        flat.div_(replicas or n)
         offset = 0
         for g in grads:
             g.copy_(flat[offset:offset + g.numel()].view_as(g))
@@ -228,6 +251,16 @@ def _on_collective_device(t: torch.Tensor) -> torch.Tensor:
     ``nccl``, which reduces only there."""
     if t.device.type == "cpu" and dist.get_backend() == "nccl":
         return t.cuda()
+    return t
+
+
+def broadcast_(t: torch.Tensor, src: int = 0) -> torch.Tensor:
+    """``t`` set in place to rank ``src``'s (through the card for ``nccl``)."""
+    if world_size() > 1:
+        moved = _on_collective_device(t)
+        dist.broadcast(moved, src)
+        if moved is not t:
+            t.copy_(moved)
     return t
 
 

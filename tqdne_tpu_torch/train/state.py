@@ -33,7 +33,7 @@ from typing import Callable
 
 import torch
 
-from tqdne_tpu_torch.parallel import all_reduce_gradients_, all_reduce_max_
+from tqdne_tpu_torch.parallel import all_reduce_gradients_, all_reduce_max_, spatial
 
 
 class TrainState:
@@ -108,9 +108,13 @@ def _reject_nonfinite(state: TrainState) -> torch.Tensor:
 def apply_updates(state: TrainState, ema_decay: float = 0.999) -> None:
     """One optimizer update from the gradients in ``.grad`` (rejected by the
     guard when it is armed and they are not finite), then the EMA; under a
-    process group the gradients are first averaged over the world."""
+    process group the gradients are first averaged over the world (under
+    ``spatial.spatial_scope`` summed over the model group and averaged over
+    the data group)."""
     optimizer = state.optimizer
-    all_reduce_gradients_([p for g in optimizer.param_groups for p in g["params"]])
+    scope = spatial.current()  # spatial: sum over the model group, average over data
+    all_reduce_gradients_([p for g in optimizer.param_groups for p in g["params"]],
+                          scope.data_size if scope is not None else None)
     # the optimizer reads ``found_inf``; a guard disarmed later must not leave it set
     optimizer.found_inf = _reject_nonfinite(state) if state.skip_nonfinite else None
     if state.lr_schedule is not None:

@@ -20,11 +20,17 @@ draws from the device's default generator, which is each rank's own.
 Under a process group each rank's batch is its rows of the global batch.
 The mean losses then average over the ranks into the global mean; the
 classifier's weighted cross-entropy is normalised by the global sum of its
-class weights, and its confusion counts are summed over the ranks.
+class weights, and its confusion counts are summed over the ranks.  With a
+spatial ``mesh`` (``parallel.spatial``, the EDM steps and ``sample_edm``) each
+rank's batch is its block (``spatial.shard_batch``): its data rank's rows and
+its model rank's rows of each signal, the loss the mean over the sample's
+shards, and the gradients summed over the model group and averaged over the
+data group.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 
 import numpy as np
@@ -35,7 +41,7 @@ from tqdne_tpu_torch.diffusion import edm as edm_lib
 from tqdne_tpu_torch.diffusion import sampler as sampler_lib
 from tqdne_tpu_torch.models.autoencoder import kl_divergence
 from tqdne_tpu_torch.models.classifier import weighted_cross_entropy
-from tqdne_tpu_torch.parallel import all_reduce_sum, draw_rows, world_size
+from tqdne_tpu_torch.parallel import all_reduce_sum, draw_rows, spatial, world_size
 from tqdne_tpu_torch.train.state import TrainState, apply_updates
 
 
@@ -91,14 +97,16 @@ def edm_step_loss(unet, batch: dict, edm_cfg: edm_lib.EDMConfig = edm_lib.EDMCon
 
 def make_edm_steps(edm_cfg: edm_lib.EDMConfig = edm_lib.EDMConfig(), *, autoencoder=None,
                    ema_decay: float = 0.999, latent_moments: bool = False,
-                   device_representation=None):
+                   device_representation=None, mesh=None):
     """Returns (train_step, eval_step) over a ``TrainState``.
 
     ``train_step(state, batch, *, draws=None, generator=None)`` runs the loss
     on the live module in train mode (dropout on), backpropagates, applies
     the optimizer and the EMA and returns ``{"loss": ...}``;
     ``eval_step(state, batch, ...)`` returns the loss of the EMA module,
-    which the reference swaps in for every validation.
+    which the reference swaps in for every validation.  With a spatial
+    ``mesh`` both run under ``spatial_scope(mesh)`` on the rank's block of the
+    batch (and of injected draws).
     """
     if latent_moments and autoencoder is None:
         raise ValueError("latent_moments requires an autoencoder (for decode)")
@@ -107,17 +115,23 @@ def make_edm_steps(edm_cfg: edm_lib.EDMConfig = edm_lib.EDMConfig(), *, autoenco
     kw = dict(autoencoder=autoencoder, latent_moments=latent_moments,
               device_representation=device_representation)
 
+    def scope():
+        return spatial.spatial_scope(mesh) if mesh is not None else contextlib.nullcontext()
+
     def train_step(state: TrainState, batch: dict, *, draws=None, generator=None):
         state.model.train()
-        loss = edm_step_loss(state.model, batch, edm_cfg, draws=draws, generator=generator, **kw)
-        loss.backward()
-        apply_updates(state, ema_decay)
+        with scope():
+            loss = edm_step_loss(state.model, batch, edm_cfg, draws=draws, generator=generator,
+                                 **kw)
+            loss.backward()
+            apply_updates(state, ema_decay)
         return {"loss": loss.detach()}
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict, *, draws=None, generator=None):
-        return {"loss": edm_step_loss(state.ema, batch, edm_cfg, draws=draws,
-                                      generator=generator, **kw)}
+        with scope():
+            return {"loss": edm_step_loss(state.ema, batch, edm_cfg, draws=draws,
+                                          generator=generator, **kw)}
 
     return train_step, eval_step
 
@@ -248,7 +262,7 @@ def make_classifier_steps(class_weights, *, ema_decay: float = 0.999,
 def sample_edm(unet, shape: tuple[int, ...], cond=None, *, autoencoder=None,
                edm_cfg: edm_lib.EDMConfig = edm_lib.EDMConfig(), num_steps: int = 25,
                solver: str = "heun", cast_params=None, cond_signal=None, cond_eps=None,
-               noise=None, generator=None, device="cuda"):
+               noise=None, generator=None, device="cuda", mesh=None):
     """Sample channels-last arrays of ``shape`` with the EDM ODE solver: the
     JAX ``sample_fn``.  With an ``autoencoder``, ``shape`` is the latent's and
     the sample is decoded to the signal (B, *spatial, C); without one the
@@ -262,18 +276,29 @@ def sample_edm(unet, shape: tuple[int, ...], cond=None, *, autoencoder=None,
     to this dtype once, before the loop (the JAX ``cast_params``); the
     caller's module keeps its dtype.  The autoencoder computes in its own
     compute dtype.  ``noise``/``generator``: see ``diffusion.sampler.sample``.
+    ``mesh``: a spatial mesh (the JAX ``eps_sharding``): ``shape``, ``cond``,
+    ``cond_signal``, ``cond_eps`` and ``noise`` are global, each rank samples and
+    decodes its block under ``spatial_scope(mesh)``, and every rank returns the
+    whole gathered signal.
     """
     if cast_params is not None:
         unet = copy.deepcopy(unet).to(cast_params)
-    if cond_signal is not None and autoencoder is not None:
-        cond_signal = autoencoder.encode(cond_signal, eps=cond_eps, generator=generator)
+    with spatial.spatial_scope(mesh) as scope:
+        if scope is not None:
+            cond, cond_signal, cond_eps, noise = (
+                None if t is None else spatial.shard(mesh, t)
+                for t in (cond, cond_signal, cond_eps, noise))
+            shape = spatial.local_shape(scope, shape)
+        if cond_signal is not None and autoencoder is not None:
+            cond_signal = autoencoder.encode(cond_signal, eps=cond_eps, generator=generator)
 
-    def denoise_fn(x, sigma):
-        return edm_lib.precondition(edm_cfg, unet, x, sigma, cond_signal=cond_signal,
-                                    cond=cond)
+        def denoise_fn(x, sigma):
+            return edm_lib.precondition(edm_cfg, unet, x, sigma, cond_signal=cond_signal,
+                                        cond=cond)
 
-    out = sampler_lib.sample(denoise_fn, shape, edm_cfg, num_steps=num_steps, solver=solver,
-                             noise=noise, generator=generator, device=device)
-    if autoencoder is not None:
-        out = autoencoder.decode(out.float())
-    return out.float()
+        out = sampler_lib.sample(denoise_fn, shape, edm_cfg, num_steps=num_steps,
+                                 solver=solver, noise=noise, generator=generator, device=device)
+        if autoencoder is not None:
+            out = autoencoder.decode(out.float())
+    out = out.float()
+    return out if mesh is None else spatial.gather_signal(mesh, out)
