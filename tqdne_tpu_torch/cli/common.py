@@ -46,6 +46,7 @@ from tqdne_tpu_torch.train.checkpoint import Checkpointer, hparams_diff
 from tqdne_tpu_torch.train.steps import sample_edm
 from tqdne_tpu_torch.utils import randomize_, resolve_device
 from tqdne_tpu_torch.utils.convert import flax_to_state_dict
+from tqdne_tpu_torch.utils.tracing import span
 from tqdne_tpu_torch.utils.torch_convert import (
     convert_autoencoder,
     convert_unet,
@@ -384,7 +385,7 @@ class InferenceBundle:
         cond = cond.to(self.device, torch.float32)
         shape = (cond.shape[0], *self.model_shape)
         kw = dict(generator=generator, device=self.device)
-        with int8_scope() if self.int8 else contextlib.nullcontext():
+        with span("sample"), int8_scope() if self.int8 else contextlib.nullcontext():
             if self.kind == "ddpm":
                 return ddpm_lib.ddpm_sample(self.ddpm_cfg, self.unet, shape, cond=cond, x=noise,
                                             **kw)
@@ -400,18 +401,20 @@ class InferenceBundle:
     def generate(self, cond: torch.Tensor, *, noise=None, init_phase=None,
                  generator=None) -> torch.Tensor:
         """Normalised conditioning (B, 5) -> waveforms (B, 3, t), f32."""
-        signal = self.sample(cond, noise=noise, generator=generator)
-        # a spatial sampler gives every rank the whole batch, which it inverts as one process
-        with whole_batch() if self.mesh is not None else contextlib.nullcontext():
-            return self.invert(signal, init_phase=init_phase, generator=generator)
+        with span("generate"):
+            signal = self.sample(cond, noise=noise, generator=generator)
+            # a spatial sampler gives every rank the whole batch, which it inverts as one process
+            with whole_batch() if self.mesh is not None else contextlib.nullcontext():
+                return self.invert(signal, init_phase=init_phase, generator=generator)
 
     def invert(self, signal: torch.Tensor, *, init_phase=None, generator=None) -> torch.Tensor:
         """Channels-last signal (B, *sig_shape) -> waveforms (B, 3, t) on the
         signal's device: Griffin-Lim for a spectrogram (``init_phase`` or
         ``generator`` seeds it), the elementwise inverse for the envelope."""
-        wave = invert(self.representation, signal.movedim(-1, 1), init_phase=init_phase,
-                      generator=generator)
-        return wave[..., : self.t]
+        with span("invert"):
+            wave = invert(self.representation, signal.movedim(-1, 1), init_phase=init_phase,
+                          generator=generator)
+            return wave[..., : self.t]
 
     def padded_cond(self, cond, batch_size: int) -> torch.Tensor:
         """Normalised conditioning rows (n <= batch_size, 5) on the bundle's

@@ -30,6 +30,7 @@ from tqdne_tpu_torch.parallel import draw_rows
 from tqdne_tpu_torch.train.state import TrainState, apply_updates
 from tqdne_tpu_torch.train.steps import training_sample
 from tqdne_tpu_torch.utils import append_dims, resolve_device
+from tqdne_tpu_torch.utils.tracing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,7 +173,8 @@ def consistency_sample(cfg: ConsistencyConfig, net_apply, shape: tuple[int, ...]
     if noise == "song":
         x = x * cfg.sigma_max
     ones = torch.ones(shape[0], device=device)
-    x = consistency_forward(cfg, net_apply, x, ones * cfg.sigma_max, cond_signal, cond)
+    with span("denoise"):
+        x = consistency_forward(cfg, net_apply, x, ones * cfg.sigma_max, cond_signal, cond)
     for k, sigma in enumerate(float(s) for s in sigmas):
         draw = None if refine_draws is None else refine_draws[k].to(device, torch.float32)
         if noise == "song":
@@ -183,7 +185,8 @@ def consistency_sample(cfg: ConsistencyConfig, net_apply, shape: tuple[int, ...]
             if draw is None:
                 draw = draw_rows(torch.rand, shape, generator=generator, device=device)
             x = x + draw * sigma
-        x = consistency_forward(cfg, net_apply, x, ones * sigma, cond_signal, cond)
+        with span("denoise"):
+            x = consistency_forward(cfg, net_apply, x, ones * sigma, cond_signal, cond)
     return x
 
 
@@ -238,8 +241,10 @@ def make_consistency_steps(cfg: ConsistencyConfig, max_steps: int, *, ema_decay:
 
     def train_step(state: TrainState, batch: dict, *, draws=None, generator=None):
         state.model.train()
-        loss = loss_of(state.model, state.model, state, batch, draws, generator)
-        loss.backward()
+        with span("loss"):
+            loss = loss_of(state.model, state.model, state, batch, draws, generator)
+        with span("backward"):
+            loss.backward()
         apply_updates(state, ema_decay)
         return {"loss": loss.detach()}
 

@@ -23,6 +23,7 @@ import torch
 from tqdne_tpu_torch.parallel import draw_rows
 from tqdne_tpu_torch.train.state import TrainState, apply_updates
 from tqdne_tpu_torch.utils import append_dims, resolve_device
+from tqdne_tpu_torch.utils.tracing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,7 +129,8 @@ def ddpm_sample(cfg: DDPMConfig, net_apply, shape: tuple[int, ...], *, cond_sign
     x = x.to(device, torch.float32)
     for k, t in enumerate(range(cfg.num_train_timesteps - 1, -1, -1)):
         x_in = x if cond_signal is None else torch.cat([cond_signal, x], dim=-1)
-        pred = net_apply(x_in, torch.full((shape[0],), float(t), device=device), cond)
+        with span("denoise"):
+            pred = net_apply(x_in, torch.full((shape[0],), float(t), device=device), cond)
         noise = None if step_noise is None else step_noise[k].to(device, torch.float32)
         x = ddpm_step(cfg, pred, t, x, noise, generator)
     return x
@@ -148,8 +150,10 @@ def make_ddpm_steps(cfg: DDPMConfig = DDPMConfig(), *, ema_decay: float = 0.999)
 
     def train_step(state: TrainState, batch: dict, *, draws=None, generator=None):
         state.model.train()
-        loss = loss_of(state.model, batch, draws, generator)
-        loss.backward()
+        with span("loss"):
+            loss = loss_of(state.model, batch, draws, generator)
+        with span("backward"):
+            loss.backward()
         apply_updates(state, ema_decay)
         return {"loss": loss.detach()}
 

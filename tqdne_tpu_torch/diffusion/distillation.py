@@ -32,6 +32,7 @@ from tqdne_tpu_torch.parallel import draw_rows
 from tqdne_tpu_torch.train.state import TrainState, apply_updates
 from tqdne_tpu_torch.train.steps import training_sample
 from tqdne_tpu_torch.utils import append_dims
+from tqdne_tpu_torch.utils.tracing import span
 
 
 def edm_conditioned_net(unet, edm_cfg: edm_lib.EDMConfig, *, train: bool = False):
@@ -130,8 +131,10 @@ def make_distillation_steps(teacher, *, cm_cfg: ConsistencyConfig = ConsistencyC
             i=draws.get("i"), eps=draws.get("eps"), generator=generator)
 
     def train_step(state: TrainState, batch: dict, *, draws=None, generator=None):
-        loss = loss_of(state.model, state, batch, draws, generator)
-        loss.backward()
+        with span("loss"):
+            loss = loss_of(state.model, state, batch, draws, generator)
+        with span("backward"):
+            loss.backward()
         apply_updates(state, ema_decay)
         return {"loss": loss.detach()}
 

@@ -22,6 +22,7 @@ import torch
 from tqdne_tpu_torch.diffusion.edm import EDMConfig, sampling_sigmas, sigma_hat
 from tqdne_tpu_torch.parallel import draw_rows, spatial
 from tqdne_tpu_torch.utils import resolve_device
+from tqdne_tpu_torch.utils.tracing import span
 
 # DenoiseFn(x, sigma[B]) -> denoised x; closes over the network and conditioning.
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -36,8 +37,9 @@ def _denoiser(denoise_fn: DenoiseFn, eps: torch.Tensor):
     acc_dtype, batch = eps.dtype, eps.shape[0]
 
     def denoise(x, sigma: float):
-        s = torch.full((batch,), sigma, dtype=torch.float32, device=x.device)
-        return denoise_fn(x.float(), s).to(acc_dtype)
+        with span("denoise"):
+            s = torch.full((batch,), sigma, dtype=torch.float32, device=x.device)
+            return denoise_fn(x.float(), s).to(acc_dtype)
 
     return denoise
 

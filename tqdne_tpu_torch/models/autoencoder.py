@@ -19,6 +19,7 @@ from torch import nn
 from tqdne_tpu_torch.nn.attention import AttentionBlock
 from tqdne_tpu_torch.nn.layers import Downsample, Norm32, Upsample, conv_nd
 from tqdne_tpu_torch.parallel import draw_rows, spatial
+from tqdne_tpu_torch.utils.tracing import span
 
 
 class PlainResBlock(nn.Module):
@@ -158,7 +159,8 @@ class AutoencoderKL(nn.Module):
 
     def decode(self, z):
         """(B, *latent, C_latent) -> (B, *spatial, C), in the compute dtype."""
-        return self.decoder(z.movedim(-1, 1)).movedim(1, -1)
+        with span("decode"):
+            return self.decoder(z.movedim(-1, 1)).movedim(1, -1)
 
 
 def kl_divergence(mean, log_std):

@@ -23,6 +23,7 @@ from torch import nn
 from tqdne_tpu_torch.nn.layers import Norm32, conv_nd
 from tqdne_tpu_torch.ops.flash_attention import flash_attention
 from tqdne_tpu_torch.parallel import spatial
+from tqdne_tpu_torch.utils.tracing import span
 
 
 class AttentionBlock(nn.Module):
@@ -51,7 +52,8 @@ class AttentionBlock(nn.Module):
         if qkv.stride(-1) != 1:
             qkv = qkv.contiguous()
         qkv = qkv.reshape(b, -1, 3, self.num_heads, c // self.num_heads)
-        a = flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], self.use_causal_mask)
+        with span("attention"):
+            a = flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], self.use_causal_mask)
         a = a.reshape(b, *size, c).movedim(-1, 1)
         if sharded:
             a = a.narrow(2, scope.model_rank * x.shape[2], x.shape[2])

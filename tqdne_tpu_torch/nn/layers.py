@@ -33,6 +33,7 @@ from torch import nn
 from tqdne_tpu_torch.nn.quant import int8_enabled, quant_conv
 from tqdne_tpu_torch.ops.group_norm import group_norm_silu, group_norm_silu_sharded
 from tqdne_tpu_torch.parallel import spatial
+from tqdne_tpu_torch.utils.tracing import span
 
 
 class Norm32(nn.Module):
@@ -48,19 +49,20 @@ class Norm32(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):  # (B, C, *spatial)
-        h = x.movedim(1, -1).contiguous()  # a view when x is channels-last
-        scale, bias = self.weight, self.bias
-        if h.dtype == torch.float32 and scale.dtype != torch.float32:
-            # f32 activations over cast norms: the int8 mode's convolutions return their
-            # input's dtype, as the JAX ones do
-            scale, bias = scale.float(), bias.float()
-        scope = spatial.current()
-        if scope is not None and scope.sharded:
-            h = group_norm_silu_sharded(h, scale, bias, self.groups, 1e-5, self.silu,
-                                        scope.gather_stats)
-        else:
-            h = group_norm_silu(h, scale, bias, self.groups, 1e-5, self.silu)
-        return h.movedim(-1, 1)
+        with span("norm"):
+            h = x.movedim(1, -1).contiguous()  # a view when x is channels-last
+            scale, bias = self.weight, self.bias
+            if h.dtype == torch.float32 and scale.dtype != torch.float32:
+                # f32 activations over cast norms: the int8 mode's convolutions return their
+                # input's dtype, as the JAX ones do
+                scale, bias = scale.float(), bias.float()
+            scope = spatial.current()
+            if scope is not None and scope.sharded:
+                h = group_norm_silu_sharded(h, scale, bias, self.groups, 1e-5, self.silu,
+                                            scope.gather_stats)
+            else:
+                h = group_norm_silu(h, scale, bias, self.groups, 1e-5, self.silu)
+            return h.movedim(-1, 1)
 
 
 class _Cast:
@@ -83,20 +85,21 @@ class _Conv(_Cast):
     and under the int8 scope as ``quant_conv``."""
 
     def forward(self, x):
-        padding = self.padding
-        scope = spatial.current()
-        if scope is not None and scope.sharded and self.kernel_size[0] > 1:
-            p, s = self.padding[0], self.stride[0]
-            # rows 2i - p .. 2i + p of a stride-2 output need none below the shard
-            x = spatial.halo_rows(x, p, max(0, p - s + 1), scope)
-            padding = (0, *self.padding[1:])
-        if int8_enabled():
-            return quant_conv(x, self.weight, self.bias, self.stride, padding)
-        if padding == self.padding:
-            return self._conv_forward(*self._cast(x))
-        x, weight, bias = self._cast(x)
-        conv = F.conv1d if isinstance(self, nn.Conv1d) else F.conv2d
-        return conv(x, weight, bias, self.stride, padding, self.dilation, self.groups)
+        with span("conv"):
+            padding = self.padding
+            scope = spatial.current()
+            if scope is not None and scope.sharded and self.kernel_size[0] > 1:
+                p, s = self.padding[0], self.stride[0]
+                # rows 2i - p .. 2i + p of a stride-2 output need none below the shard
+                x = spatial.halo_rows(x, p, max(0, p - s + 1), scope)
+                padding = (0, *self.padding[1:])
+            if int8_enabled():
+                return quant_conv(x, self.weight, self.bias, self.stride, padding)
+            if padding == self.padding:
+                return self._conv_forward(*self._cast(x))
+            x, weight, bias = self._cast(x)
+            conv = F.conv1d if isinstance(self, nn.Conv1d) else F.conv2d
+            return conv(x, weight, bias, self.stride, padding, self.dilation, self.groups)
 
 
 class _Conv1d(_Conv, nn.Conv1d):

@@ -16,7 +16,8 @@ The backward recomputes through the plain version, as the JAX ``_bwd`` does
 (XLA autograd over ``_reference``: the TPU package has no backward kernel).
 ``group_norm_silu.launches`` counts kernel launches and
 ``group_norm_silu.backward_calls`` the plain backward recomputations, which
-run inside a ``tq::group_norm_silu_backward`` profiler range.
+run inside a ``tq::group_norm_silu_backward`` span (``utils.tracing``); a forward
+call runs inside ``tq::group_norm_silu``.
 
 For an activation whose rows are split over ranks (``parallel/spatial.py``),
 the statistics span every shard: ``group_norm_silu_sharded`` takes each
@@ -41,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from tqdne_tpu_torch.ops import cuda_build
+from tqdne_tpu_torch.utils.tracing import span
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # (x, scale/bias) dtype pairs the kernel is built for: the f32 models, the
@@ -257,7 +259,7 @@ class _GroupNormSiLU(torch.autograd.Function):
         inputs = [t.detach().requires_grad_(need)
                   for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
         wanted = [t for t in inputs if t.requires_grad]
-        with torch.enable_grad(), torch.profiler.record_function("tq::group_norm_silu_backward"):
+        with torch.enable_grad(), span("group_norm_silu_backward"):
             out = group_norm_silu_plain(*inputs, *ctx.config)
             grads = iter(torch.autograd.grad(out, wanted, grad))
         group_norm_silu.backward_calls += 1
@@ -268,7 +270,8 @@ def group_norm_silu(x, scale, bias, groups: int = 32, eps: float = 1e-5,
                     apply_silu: bool = True):
     """Fused f32 GroupNorm + affine + optional SiLU over channels-last
     ``(B, *spatial, C)``; returns the input's shape and dtype."""
-    return _GroupNormSiLU.apply(x, scale, bias, groups, eps, apply_silu)
+    with span("group_norm_silu"):
+        return _GroupNormSiLU.apply(x, scale, bias, groups, eps, apply_silu)
 
 
 group_norm_silu.launches = 0
@@ -375,7 +378,7 @@ class _ShardedGroupNormSiLU(torch.autograd.Function):
         if not x.requires_grad:  # the gathered statistics carry other shards' gradients
             x.requires_grad_(True)
         wanted = [t for t in inputs if t.requires_grad]
-        with torch.enable_grad(), torch.profiler.record_function("tq::group_norm_silu_backward"):
+        with torch.enable_grad(), span("group_norm_silu_backward"):
             mean, rstd = merge_group_stats(gather(group_norm_stats_plain(x, groups)), eps)
             out = group_norm_apply_plain(x, mean, rstd, *inputs[1:], groups, apply_silu)
             grads = dict(zip(map(id, wanted), torch.autograd.grad(out, wanted, grad)))

@@ -40,6 +40,7 @@ import torch
 
 from tqdne_tpu_torch.parallel import all_reduce_sum, barrier, rank, world_size
 from tqdne_tpu_torch.train.checkpoint import Checkpointer
+from tqdne_tpu_torch.utils.tracing import span
 
 
 def step_seed(seed: int, n: int, stream: int, rank: int = 0) -> int:
@@ -94,7 +95,16 @@ class Trainer:
     they are written, e.g. per-class confusion counts into macro precision,
     recall and F1, which are only right after aggregation.  ``callbacks``:
     called ``cb(trainer, state, epoch, gstep)`` after each epoch's
-    validation, before its checkpoint."""
+    validation, before its checkpoint.
+
+    ``profile_steps=(start, stop)``: steps ``start`` to ``stop - 1`` run under
+    ``torch.profiler`` (the CPU and, on a card, CUDA activity), and rank 0
+    writes the chrome trace to ``workdir/profile/steps_<start>_<stop>.json``,
+    as the JAX ``Trainer`` writes its trace.  Besides the kernels it holds the
+    port's spans (``utils.tracing``): ``tq::fit.load`` (the loader's
+    ``next``), ``tq::fit.step`` (the step call), ``tq::fit.log`` (the logging
+    sync), and inside the step ``tq::loss``, ``tq::backward`` and
+    ``tq::update``, down to ``tq::conv``, ``tq::norm`` and the kernels' own."""
 
     def __init__(self, train_step: Callable, eval_step: Callable, workdir: str | Path, *,
                  device: str | torch.device = "cuda", max_epochs: int = 100,
@@ -102,7 +112,8 @@ class Trainer:
                  checkpoint_every_epochs: int = 1, seed: int = 0,
                  lr_schedule: Callable | None = None, hparams: dict | None = None,
                  metric_postprocess: Callable[[dict], dict] | None = None,
-                 callbacks: Sequence[Callable] = ()):
+                 callbacks: Sequence[Callable] = (),
+                 profile_steps: tuple[int, int] | None = None):
         self.train_step = train_step
         self.eval_step = eval_step
         self.workdir = Path(workdir)
@@ -118,10 +129,36 @@ class Trainer:
         self.hparams = hparams
         self.metric_postprocess = metric_postprocess
         self.callbacks = list(callbacks)
+        self.profile_steps = profile_steps
+        self._profiler = None
         self.writer = MetricWriter(self.workdir)
         self.checkpointer = Checkpointer(self.workdir / "checkpoints")
         self.generator = torch.Generator(device=self.device)
         self._last_heartbeat = 0.0
+
+    def _profile(self, gstep: int):
+        """Called before each step's load and after each step (``gstep`` the
+        next step): start the profiler before step ``start``, stop it once step
+        ``stop - 1`` is done (rank 0 only).  A window the fit cuts short ends
+        with the fit."""
+        if self.profile_steps is None or rank() != 0:
+            return
+        start, stop = self.profile_steps
+        if gstep == start and self._profiler is None:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._profiler = torch.profiler.profile(activities=activities)
+            self._profiler.start()
+        elif gstep >= stop and self._profiler is not None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._profiler.stop()
+            out = self.workdir / "profile" / f"steps_{start}_{stop}.json"
+            out.parent.mkdir(parents=True, exist_ok=True)
+            self._profiler.export_chrome_trace(str(out))
+            self._profiler = None
+            print(f"[train] profiler trace written to {out}", flush=True)
 
     def _seed_step(self, n: int):
         self.generator.manual_seed(step_seed(self.seed, n, 0))
@@ -169,20 +206,29 @@ class Trainer:
             train_loader.epoch = epoch  # the epoch's shuffle, on a resume too
             pending: list[tuple[int, dict]] = []
             done_in_epoch = 0
-            for batch in train_loader:
+            batches = iter(train_loader)
+            while True:
+                self._profile(gstep)
+                with span("fit.load"):
+                    batch = next(batches, None)
+                if batch is None:
+                    break
                 t0 = time.perf_counter()
                 self._seed_step(gstep)
-                metrics = self.train_step(state, batch, generator=self.generator)
+                with span("fit.step"):
+                    metrics = self.train_step(state, batch, generator=self.generator)
                 pending.append((gstep, metrics))
                 gstep += 1
                 done_in_epoch += 1
                 if gstep % self.log_every == 0:
-                    float(metrics["loss"])  # one device sync per log window
-                    t_train += time.perf_counter() - t0
-                    self._log(pending, t_train)
+                    with span("fit.log"):
+                        float(metrics["loss"])  # one device sync per log window
+                        t_train += time.perf_counter() - t0
+                        self._log(pending, t_train)
                     pending.clear()
                 else:
                     t_train += time.perf_counter() - t0
+                self._profile(gstep)
                 if self.max_steps is not None and gstep >= self.max_steps:
                     hit_max = True
                     break
@@ -211,6 +257,8 @@ class Trainer:
             if hit_max:
                 break
 
+        if self._profiler is not None:  # a window the fit cut short
+            self._profile(self.profile_steps[1])
         if saved_at != gstep:
             self._save(gstep, state, epochs_done)
         return state

@@ -34,6 +34,7 @@ from typing import Callable
 import torch
 
 from tqdne_tpu_torch.parallel import all_reduce_gradients_, all_reduce_max_, spatial
+from tqdne_tpu_torch.utils.tracing import span
 
 
 class TrainState:
@@ -111,20 +112,21 @@ def apply_updates(state: TrainState, ema_decay: float = 0.999) -> None:
     process group the gradients are first averaged over the world (under
     ``spatial.spatial_scope`` summed over the model group and averaged over
     the data group)."""
-    optimizer = state.optimizer
-    scope = spatial.current()  # spatial: sum over the model group, average over data
-    all_reduce_gradients_([p for g in optimizer.param_groups for p in g["params"]],
-                          scope.data_size if scope is not None else None)
-    # the optimizer reads ``found_inf``; a guard disarmed later must not leave it set
-    optimizer.found_inf = _reject_nonfinite(state) if state.skip_nonfinite else None
-    if state.lr_schedule is not None:
-        lr = state.lr_schedule(applied_updates(optimizer))
-        for group in optimizer.param_groups:
-            group["lr"] = lr
-    optimizer.step()
-    optimizer.zero_grad(set_to_none=True)
-    ema_update(state.ema, state.model, ema_decay)
-    state.step += 1
+    with span("update"):
+        optimizer = state.optimizer
+        scope = spatial.current()  # spatial: sum over the model group, average over data
+        all_reduce_gradients_([p for g in optimizer.param_groups for p in g["params"]],
+                              scope.data_size if scope is not None else None)
+        # the optimizer reads ``found_inf``; a guard disarmed later must not leave it set
+        optimizer.found_inf = _reject_nonfinite(state) if state.skip_nonfinite else None
+        if state.lr_schedule is not None:
+            lr = state.lr_schedule(applied_updates(optimizer))
+            for group in optimizer.param_groups:
+                group["lr"] = lr
+        optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
+        ema_update(state.ema, state.model, ema_decay)
+        state.step += 1
 
 
 def cosine_annealing(lr: float, max_steps: int, eta_min: float = 0.0) -> Callable:

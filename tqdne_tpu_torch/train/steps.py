@@ -43,6 +43,7 @@ from tqdne_tpu_torch.models.autoencoder import kl_divergence
 from tqdne_tpu_torch.models.classifier import weighted_cross_entropy
 from tqdne_tpu_torch.parallel import all_reduce_sum, draw_rows, spatial, world_size
 from tqdne_tpu_torch.train.state import TrainState, apply_updates
+from tqdne_tpu_torch.utils.tracing import span
 
 
 def _signal(batch: dict, device_representation=None):
@@ -121,9 +122,11 @@ def make_edm_steps(edm_cfg: edm_lib.EDMConfig = edm_lib.EDMConfig(), *, autoenco
     def train_step(state: TrainState, batch: dict, *, draws=None, generator=None):
         state.model.train()
         with scope():
-            loss = edm_step_loss(state.model, batch, edm_cfg, draws=draws, generator=generator,
-                                 **kw)
-            loss.backward()
+            with span("loss"):
+                loss = edm_step_loss(state.model, batch, edm_cfg, draws=draws,
+                                     generator=generator, **kw)
+            with span("backward"):
+                loss.backward()
             apply_updates(state, ema_decay)
         return {"loss": loss.detach()}
 
@@ -177,8 +180,11 @@ def make_autoencoder_steps(*, kl_weight: float = 1e-6, ema_decay: float = 0.999,
 
     def train_step(state: TrainState, batch: dict, *, draws=None, generator=None):
         state.model.train()
-        metrics = autoencoder_losses(state.model, batch, draws=draws, generator=generator, **kw)
-        metrics["loss"].backward()
+        with span("loss"):
+            metrics = autoencoder_losses(state.model, batch, draws=draws, generator=generator,
+                                         **kw)
+        with span("backward"):
+            metrics["loss"].backward()
         apply_updates(state, ema_decay)
         return {k: v.detach() for k, v in metrics.items()}
 
@@ -240,8 +246,10 @@ def make_classifier_steps(class_weights, *, ema_decay: float = 0.999,
 
     def train_step(state: TrainState, batch: dict, *, draws=None, generator=None):
         state.model.train()
-        _, metrics = classifier_outputs(state.model, batch, class_weights, **kw)
-        metrics["loss"].backward()
+        with span("loss"):
+            _, metrics = classifier_outputs(state.model, batch, class_weights, **kw)
+        with span("backward"):
+            metrics["loss"].backward()
         apply_updates(state, ema_decay)
         return {k: v.detach() for k, v in metrics.items()}
 
