@@ -508,7 +508,131 @@ def check_group_norm_kernels(gen, dev, errs: dict, path_calls: list,
     return bad
 
 
-OWN_KERNELS = ("group_norm_silu_kernel", "flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
+def check_group_norm_backward(gen, dev, errs: dict, shapes, forced: bool = True) -> int:
+    """The GroupNorm backward kernel against autograd over the plain version: dx, dscale and
+    dbias at each (B, S, C, G) of ``shapes`` (the training paths') in every (x, scale) dtype
+    pair, SiLU on with the gradient as a transposed view (the 1D ``Norm32``'s) and off with a
+    contiguous one; then (unless not ``forced``) element loads, groups of 5, a narrow C, the
+    largest cluster and the re-read variant.  Each case launches the kernel twice on the same
+    inputs: all three gradients must be bit-identical (no atomics in the sums), and each
+    backward one launch.  Records the largest error in ``errs``; returns failed checks."""
+    from tqdne_tpu_torch.ops.group_norm import (
+        cluster_limit,
+        group_norm_plan,
+        group_norm_silu,
+        group_norm_silu_plain,
+    )
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    limit = cluster_limit(torch.cuda.current_device())
+    cases = [(b, s, c, g, dtype, pdtype, "path") for b, s, c, g in sorted(set(shapes))
+             for dtype, pdtype in ((f32, f32), (bf16, bf16), (bf16, f32))]
+    largest = next((s for s in range(4096, 1 << 18, 512) if group_norm_plan(
+        2, s, 64, 32, bf16, bf16, True, limit, True).cluster == limit), None)
+    if forced and largest is None:
+        fail(f"no GroupNorm backward shape plans a cluster of {limit}")
+    if forced:
+        cases += [(2, largest, 64, 32, bf16, bf16, "largest cluster"),
+                  (2, 32768, 64, 32, f32, f32, "re-read"),
+                  (4, 4096, 64, 32, f32, f32, "offset"),
+                  (TRAIN_BATCH, 2032, 128, 32, bf16, f32, "offset"),
+                  (4, 100, 12, 4, bf16, bf16, "narrow C"),
+                  (4, 17, 40, 8, f32, f32, "groups of 5"),
+                  (4, 17, 40, 8, bf16, f32, "groups of 5")]
+    errs.setdefault("group_norm_silu_backward", 0.0)
+    bad = 0
+    for b, s, c, g, dtype, pdtype, case in cases:
+        n = b * s * c
+        buf = (torch.randn(n + 1, generator=gen, device=dev) * 2 + 0.5).to(dtype)
+        x = buf[1:].view(b, s, c) if case == "offset" else buf[:n].view(b, s, c)
+        plan = group_norm_plan(b, s, c, g, dtype, pdtype, x.data_ptr() % 16 == 0, limit, True)
+        want_variant = {"largest cluster": plan.cluster == limit and plan.resident,
+                        "re-read": not plan.resident, "offset": plan.vec == 1,
+                        "narrow C": plan.vec == 1}.get(case, True)
+        for silu in (True, False):
+            w = (1 + 0.1 * torch.randn(c, generator=gen, device=dev)).to(pdtype)
+            bias = (0.1 * torch.randn(c, generator=gen, device=dev)).to(pdtype)
+            if silu:
+                dy = torch.randn(b, c, s, generator=gen, device=dev).to(dtype).transpose(1, 2)
+            else:
+                dy = torch.randn(b, s, c, generator=gen, device=dev).to(dtype)
+
+            def grads(fn):
+                leaves = [t.detach().requires_grad_() for t in (x, w, bias)]
+                fn(*leaves, g, 1e-5, silu).backward(dy)
+                return [t.grad for t in leaves]
+
+            before = (group_norm_silu.backward_launches, group_norm_silu.backward_calls)
+            got, again = grads(group_norm_silu), grads(group_norm_silu)
+            launched = (group_norm_silu.backward_launches - before[0],
+                        group_norm_silu.backward_calls - before[1])
+            want = grads(group_norm_silu_plain)
+            same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+            checks = [close(gt, wt, t.dtype, BWD_TOL) for gt, wt, t in zip(got, want, (x, w, w))]
+            ok = all(o for _, o in checks) and same and launched == (2, 2) and want_variant
+            errs["group_norm_silu_backward"] = max(errs["group_norm_silu_backward"],
+                                                   *(e for e, _ in checks))
+            bad += not ok
+            log(f"[check] group_norm_silu_backward B={b} S={s} C={c} G={g} "
+                f"x={str(dtype)[6:]} scale={str(pdtype)[6:]} silu={silu} {case}: plan=("
+                f"{plan.slice_channels} ch x {plan.slices}, cluster {plan.cluster} x "
+                f"{plan.chunk_rows} rows, {plan.threads} threads, vec {plan.vec}, resident "
+                f"{plan.resident}, {plan.smem} B) max_abs_err dx/dscale/dbias="
+                f"{'/'.join(f'{e:.3e}' for e, _ in checks)} tol(rtol,atol)="
+                f"{BWD_TOL[dtype]}/{BWD_TOL[pdtype]}; bit-identical twice {same}; "
+                f"launches/calls {launched} {'ok' if ok else 'FAIL'}")
+    log(f"[check] {2 * len(cases)} GroupNorm backward cases")
+    return bad
+
+
+def gn_backward_timing(gen, dev, dtype, pdtype, s, c, g, silu, batch,
+                       channels_first: bool = False) -> dict:
+    """Device ms of one GroupNorm backward at (batch, S, C) with G groups: the kernel's entry
+    with a contiguous gradient (``ms``) and with a transposed one, the 1D ``Norm32``'s, whose
+    copy the wrapper makes (``transposed_ms``); the plain recompute under autograd
+    (``plain_ms``, what the backward was before its kernel); the library's backward
+    (``library_ms``: autograd through ``F.silu(F.group_norm(...))`` over its recorded forward,
+    scale and bias in x's dtype, on x and dy as (B, C, S) views, channels first where
+    ``channels_first``, the 1D UNet's layout, else channels last, the flagship's); the least
+    time of x and dy read once and dx written once (``bound_ms``); and the launches of one
+    call."""
+    import torch.nn.functional as F
+
+    from tqdne_tpu_torch.ops.group_norm import _launch_backward, group_norm_silu_plain
+
+    x = torch.randn(batch, s, c, generator=gen, device=dev).to(dtype)
+    w = (1 + 0.1 * torch.randn(c, generator=gen, device=dev)).to(pdtype)
+    b = (0.1 * torch.randn(c, generator=gen, device=dev)).to(pdtype)
+    dy_t = torch.randn(batch, c, s, generator=gen, device=dev).to(dtype).transpose(1, 2)
+    dy = dy_t.contiguous()
+    leaves = [t.detach().requires_grad_() for t in (x, w, b)]
+
+    def plain():
+        with torch.enable_grad():
+            torch.autograd.grad(group_norm_silu_plain(*leaves, g, 1e-5, silu), leaves, dy)
+
+    x_l = x.transpose(1, 2).contiguous() if channels_first else x.transpose(1, 2)
+    lib_leaves = [t.detach().requires_grad_() for t in (x_l, w.to(dtype), b.to(dtype))]
+    dy_l = dy_t.transpose(1, 2) if channels_first else dy.transpose(1, 2)
+    with torch.enable_grad():
+        lib_out = F.group_norm(lib_leaves[0], g, *lib_leaves[1:], 1e-5)
+        lib_out = F.silu(lib_out) if silu else lib_out
+
+    def library():
+        torch.autograd.grad(lib_out, lib_leaves, dy_l, retain_graph=True)
+
+    nbytes = 3 * x.numel() * x.element_size() + 4 * c * w.element_size()
+    return dict(shape=[batch, s, c], groups=g, silu=silu, dtype=str(dtype)[6:],
+                scale_dtype=str(pdtype)[6:],
+                ms=device_ms(lambda: _launch_backward(x, dy, w, b, g, 1e-5, silu)),
+                transposed_ms=device_ms(lambda: _launch_backward(x, dy_t, w, b, g, 1e-5, silu)),
+                plain_ms=device_ms(plain), library_ms=device_ms(library),
+                library_layout="channels first" if channels_first else "channels last",
+                bound_ms=1e3 * nbytes / HBM_BYTES_PER_S)
+
+
+OWN_KERNELS = ("group_norm_silu_kernel", "group_norm_silu_bwd_kernel", "flash_fwd",
+               "flash_bwd_dkdv", "flash_bwd_dq")
 KERNEL_CLASSES = (("group_norm_silu", ("group_norm_silu_kernel",)),
                   ("flash_attention", ("flash_fwd",)),
                   ("convolution", ("conv", "xmma", "cudnn", "implicit", "gemm", "cutlass")),
@@ -521,13 +645,18 @@ def profiled(fn):
     kept a device record of: it drops records now and then."""
     from torch.profiler import ProfilerActivity, profile
 
-    before = sum(k.launches for k in launch_counters())
+    from tqdne_tpu_torch.ops.group_norm import group_norm_silu
+
+    def count():
+        return sum(k.launches for k in launch_counters()) + group_norm_silu.backward_launches
+
+    before = count()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    launched = sum(k.launches for k in launch_counters()) - before
+    launched = count() - before
     recorded = sum(e.count for e in device_kernels(prof)
                    if any(name in e.key for name in OWN_KERNELS))
     return prof, wall_ms, f"the profiler kept {recorded} of {launched} kernel launches of the port"
@@ -557,7 +686,9 @@ def profile_breakdown(fn, label: str, tag: str = "profile") -> dict | None:
     return dict(wall_ms=wall_ms, device_ms=total_ms, busy_share=total_ms / wall_ms, **classes)
 
 
+GN_BWD_CLASS = "group_norm_silu_backward"  # the kernel, dy's copy and the partials' sum
 TRAIN_CLASSES = (("group_norm_silu", ("group_norm_silu_kernel",)),
+                 (GN_BWD_CLASS, ("group_norm_silu_bwd_kernel",)),
                  ("flash_fwd", ("flash_fwd",)),
                  ("flash_bwd_dkdv", ("flash_bwd_dkdv",)),
                  ("flash_bwd_dq", ("flash_bwd_dq",)),
@@ -565,7 +696,6 @@ TRAIN_CLASSES = (("group_norm_silu", ("group_norm_silu_kernel",)),
                                        "wgrad", "dgrad")),
                  ("copies_and_casts", ("direct_copy", "copy_kernel")),
                  ("optimizer_ema", ("multi_tensor", "foreach")))
-GN_BWD_CLASS = "group_norm_silu_backward_plain"
 
 
 def kernel_class(name: str) -> str:
@@ -574,9 +704,11 @@ def kernel_class(name: str) -> str:
 
 
 def train_profile(step, label: str):
-    """Device time of one train step by kernel class.  The plain GroupNorm
-    backward's kernels are found under its profiler range
-    (``tq::group_norm_silu_backward``) and moved into their own class."""
+    """Device time of one train step by kernel class.  The GroupNorm
+    backward's class holds its kernel (by name: its ctypes launch is no
+    child of the range) and the kernels found under its profiler range
+    (``tq::group_norm_silu_backward``: the copy of a transposed gradient
+    and the sum of the partials)."""
     from torch.autograd import DeviceType
 
     prof, wall_ms, kept = profiled(step)
@@ -606,7 +738,7 @@ def train_profile(step, label: str):
         classes[kernel_class(k.name)] -= k.duration / 1e3
         classes[GN_BWD_CLASS] += k.duration / 1e3
     # the copies and casts of the backward: those under an autograd node's range (outside
-    # the plain GroupNorm backward, counted above), by the node that launched them
+    # the GroupNorm backward, counted above), by the node that launched them
     in_gn_bwd = {id(k) for k in found}
     bwd_copies = collections.Counter()
     for ev in cpu_events:
@@ -1051,9 +1183,10 @@ def counted_fit(label: str, steps, state, loader, *, max_steps: int, want: dict,
                 want_gn_bwd: int, val_loader=None, eval_every: int = 10**6,
                 metric_postprocess=None, lr_schedule=None, callbacks=()):
     """``Trainer.fit`` of ``state`` up to step ``max_steps`` (with
-    ``callbacks``), with every launch counter and the GroupNorm plain-backward
-    count set to 0 just before and read just after: they must equal ``want``
-    and ``want_gn_bwd``, every logged training loss must be finite and the
+    ``callbacks``), with every launch counter and the GroupNorm backward
+    counts set to 0 just before and read just after: they must equal ``want``
+    and ``want_gn_bwd`` (backward calls, each one launch of the backward
+    kernel on the card), every logged training loss must be finite and the
     checkpoint written.  Returns (counts, metric rows)."""
     from tqdne_tpu_torch.ops.group_norm import group_norm_silu
     from tqdne_tpu_torch.train.loop import Trainer
@@ -1068,24 +1201,26 @@ def counted_fit(label: str, steps, state, loader, *, max_steps: int, want: dict,
     torch.cuda.synchronize()
     for fn in kernels:
         fn.launches = 0
-    group_norm_silu.backward_calls = 0
+    group_norm_silu.backward_calls = group_norm_silu.backward_launches = 0
     t0 = time.perf_counter()
     trainer.fit(state, loader, val_loader, resume=False)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     counts = {fn.__name__: fn.launches for fn in kernels}
     gn_bwd = group_norm_silu.backward_calls
+    gn_bwd_launches = group_norm_silu.backward_launches
     rows = [json.loads(line) for line in (workdir / "metrics.jsonl").open()]
     losses = [r["training/loss"] for r in rows if "training/loss" in r]
     traintime = [r["traintime"] for r in rows if "traintime" in r][-1:] or [0.0]
     log(f"[{label}] Trainer.fit to step {state.step} in {fit_s:.2f} s (checkpoint included), "
         f"logged losses {losses}, traintime {traintime[0]:.3f} s; launches "
-        f"{counts}, GroupNorm plain backward calls {gn_bwd}")
+        f"{counts}, GroupNorm backward calls {gn_bwd}, kernel launches {gn_bwd_launches}")
     if state.step != max_steps or not losses or not all(map(math.isfinite, losses)):
         fail(f"{label}: step {state.step} (want {max_steps}), losses {losses}")
-    if counts != want or gn_bwd != want_gn_bwd:
-        fail(f"{label}: launches {counts} (GroupNorm backward {gn_bwd}) != expected {want} "
-             f"({want_gn_bwd})")
+    if (counts != want or gn_bwd != want_gn_bwd
+            or gn_bwd_launches != (gn_bwd if DEVICE == "cuda" else 0)):
+        fail(f"{label}: launches {counts} (GroupNorm backward {gn_bwd}, launched "
+             f"{gn_bwd_launches}) != expected {want} ({want_gn_bwd})")
     if not (workdir / "checkpoints" / "last" / f"{max_steps}.pt").exists():
         fail(f"{label}: no checkpoint written")
     shutil.rmtree(workdir, ignore_errors=True)
@@ -2043,16 +2178,18 @@ def options_and_paired_path(dev, s, arrays, ae_t, enc_gn: list, dec_gn: list) ->
         torch.cuda.synchronize()
         for k in kernels:
             k.launches = 0
-        group_norm_silu.backward_calls = 0
+        group_norm_silu.backward_calls = group_norm_silu.backward_launches = 0
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         counts[label] = {k.__name__: k.launches for k in kernels}
         log(f"[4n] {label}: {sec:.3f} s, launches {counts[label]}")
-        if counts[label] != want or group_norm_silu.backward_calls:
+        if (counts[label] != want or group_norm_silu.backward_calls
+                or group_norm_silu.backward_launches):
             fail(f"4n {label}: launches {counts[label]} != expected {want} (GroupNorm backward "
-                 f"{group_norm_silu.backward_calls})")
+                 f"{group_norm_silu.backward_calls}, launched "
+                 f"{group_norm_silu.backward_launches})")
         return out, sec
 
     def waveforms_ok(label, wave):
@@ -2339,7 +2476,7 @@ def zero_launches():
     torch.cuda.synchronize()
     for fn in launch_counters():
         fn.launches = 0
-    group_norm_silu.backward_calls = 0
+    group_norm_silu.backward_calls = group_norm_silu.backward_launches = 0
 
 
 def read_launches() -> dict:
@@ -3452,6 +3589,12 @@ def main():
     bad += gn_checks(s4n.opt_gn + s4n.opt_enc_gn + s4n.opt_dec_gn + s4n.p_gn,
                      (TRAIN_BATCH, BATCH))
     bad += gn_checks(s4n.u1_gn, (PAIRED_1D_BATCH, BATCH))
+    # the backward kernel at the training steps' shapes: the flagship UNet's at 128 and each
+    # recipe's trained module's at its batch (the 1D UNet's at 256), in every dtype pair
+    bad += check_group_norm_backward(
+        gen, dev, errs, [(TRAIN_BATCH, s_, c_, g_) for _, _, s_, c_, g_, _ in train_gn] +
+        [(RECIPE_BATCH[key], s_, c_, g_) for key in RECIPE_BATCH
+         for _, _, s_, c_, g_, _ in step_calls[key][0]])
     path_fa = [(CLF_TRAIN_BATCH, length, h, d) for _, length, h, d, _ in clf_train_fa]
     path_fa += [(BATCH, length, h, d) for key in SAMPLERS
                 for _, length, h, d, _ in sampler_calls[key][1]]
@@ -3742,7 +3885,7 @@ def main():
     kernels = launch_counters()
     for fn in kernels:
         fn.launches = 0
-    group_norm_silu.backward_calls = 0
+    group_norm_silu.backward_calls = group_norm_silu.backward_launches = 0
     bad_loss = train_step(state, bad_batch, generator=tgen)["loss"].item()
     held = (all(torch.equal(b, p) for b, p in zip(before, params))
             and torch.equal(moments_before, state.optimizer.state[params[0]]["exp_avg"]))
@@ -3756,14 +3899,15 @@ def main():
         f"Adam moments held {held}, (updates applied, consecutive non-finite) {count0} -> "
         f"{after_bad}; the next clean batch gave loss {clean_loss:.6e}, moved {moved} of "
         f"{len(params)} parameter tensors, {after_clean}; step {step0} -> {state.step}; "
-        f"launches {recipe_counts['guard']}, GroupNorm plain backward calls "
-        f"{group_norm_silu.backward_calls}")
+        f"launches {recipe_counts['guard']}, GroupNorm backward calls "
+        f"{group_norm_silu.backward_calls}, kernel launches {group_norm_silu.backward_launches}")
     if (math.isfinite(bad_loss) or not held or after_bad != (count0, 1.0)
             or not math.isfinite(clean_loss) or moved < len(params) // 2
             or after_clean != (count0 + 1, 0.0) or state.step != step0 + 2):
         fail("the non-finite guard did not hold a NaN step and apply the clean one")
     if (recipe_counts["guard"] != flagship_want(2)
-            or group_norm_silu.backward_calls != 2 * len(unet_gn)):
+            or group_norm_silu.backward_calls != 2 * len(unet_gn)
+            or group_norm_silu.backward_launches != 2 * len(unet_gn)):
         fail(f"guard launches {recipe_counts['guard']} != {flagship_want(2)}")
     for run_counts in recipe_counts.values():
         launches = {k: launches[k] + v for k, v in run_counts.items()}
@@ -4210,6 +4354,26 @@ def main():
             f"{1e3 * (dq_row['ms'] + dkdv_row['ms']):.2f} us against SDPA's whole backward "
             f"{1e3 * dq_row['library_ms']:.2f} us; the plain attention_delta alone "
             f"{1e3 * dq_row['attention_delta_ms']:.2f} us")
+    # the GroupNorm backward per call, summed over one train step's UNet: the flagship's at
+    # 128 (its gradients arrive contiguous: ms) and the 1D UNet's at 256 (channels first, as
+    # transposed views: transposed_ms, the wrapper's copy included); the library's in each
+    # UNet's own layout
+    gn_bwd_sums = {}
+    for label, calls, batch_size, channels_first in (
+            (f"one flagship train step's UNet, batch {TRAIN_BATCH}", train_gn, TRAIN_BATCH,
+             False),
+            (f"one 1d_edm train step's UNet, batch {RECIPE_BATCH['1d_edm']}",
+             step_calls["1d_edm"][0], RECIPE_BATCH["1d_edm"], True)):
+        rows = []
+        for key in dict.fromkeys(calls):
+            rows.append(gn_backward_timing(gen, dev, *key, batch=batch_size,
+                                           channels_first=channels_first)
+                        | {"calls": calls.count(key)})
+            log(f"[time] {json.dumps(rows[-1])}")
+        gn_bwd_sums[label] = {k: summed(rows, k) for k in ("ms", "transposed_ms", "plain_ms",
+                                                            "library_ms", "bound_ms")} | {
+            "calls": summed(rows, "one"), "bound_by": "bytes"}
+        log(f"[time] group_norm_silu_backward over {label}: {json.dumps(gn_bwd_sums[label])}")
     # the classifier recipe's train step at batch 64: its kernels per call, summed per
     # step, and the step by kernel class
     clf_fa_key = clf_train_fa[0]
@@ -4465,7 +4629,18 @@ def main():
                 f"{BATCH}, bf16; library_ms is torch's group_norm on the whole tensor",
             launches_per_run={run: c[name] for run, c in sp["launches"].items()},
         ))
+    kernels.append(dict(
+        name="group_norm_silu_backward", route="cuda",
+        source="tqdne_tpu_torch/csrc/group_norm.cu",
+        replaces="none: tqdne_tpu/ops/group_norm.py:_bwd is autograd over _reference",
+        max_abs_err=errs["group_norm_silu_backward"], per_train_step=gn_bwd_sums,
+        library="autograd through F.silu(F.group_norm(...)) over its recorded forward, scale "
+                "and bias in x's dtype, channels first for the 1D UNet, channels last for the "
+                "flagship's"))
     redesigned = {
+        "group_norm_silu_backward": "one launch and a sum of per-block partials: the forward's "
+                                    "plan with x and dy staged, the statistics recomputed, two "
+                                    "merges through distributed shared memory",
         "group_norm_silu": "one launch: a thread-block cluster over row chunks of whole-group "
                            "channel slices, each chunk staged once with 16-byte loads, "
                            "statistics merged through distributed shared memory",

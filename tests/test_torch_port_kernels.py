@@ -2,10 +2,13 @@
 
 The CUDA kernels run only on the card (``chip_smoke.py`` holds them against
 their plain versions there).  Here: the GroupNorm kernel's launch plan for
-every shape the flagship paths give it, a PyTorch emulation of the chunked
-statistics that plan implies against the JAX package's ``_reference``, and
-the fused dQ + delta entry and the backward's new order against the JAX
-``custom_vjp`` in interpret mode.  Inputs come from numpy with a seed.
+every shape the flagship paths give it, and its backward's plan at every
+training shape; PyTorch emulations of the chunked statistics and of the
+backward's closed form, chunked as those plans imply, against the JAX
+package's ``_reference`` (and its ``jax.vjp``) and autograd over the plain
+version; the backward's counters on the CPU; and the fused dQ + delta entry
+and the backward's new order against the JAX ``custom_vjp`` in interpret
+mode.  Inputs come from numpy with a seed.
 """
 
 import math
@@ -27,7 +30,13 @@ from tqdne_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_dq_delta_plain,
     flash_attention_bwd_dq_plain,
 )
-from tqdne_tpu_torch.ops.group_norm import MAX_SMEM, group_norm_plan
+from tqdne_tpu_torch.ops.group_norm import (
+    MAX_BWD_THREADS,
+    MAX_SMEM,
+    group_norm_plan,
+    group_norm_silu,
+    group_norm_silu_plain,
+)
 
 F32, BF16 = torch.float32, torch.bfloat16
 PAIRS = [(F32, F32), (BF16, BF16), (BF16, F32)]
@@ -38,9 +47,13 @@ UNET = [(1024, 128), (256, 128), (256, 256), (64, 256), (64, 512), (16, 512), (1
 AUTOENCODER = [(1024, 256), (4096, 256), (4096, 128), (16384, 128), (16384, 64), (4096, 64),
                (1024, 128)]
 PATH_SHAPES = sorted(set(UNET + AUTOENCODER))
+# (S, C) of every GroupNorm of the 1D UNet's training step (S = 4064 down to 508)
+TRAIN_1D = [(4064, 64), (4064, 128), (4064, 192), (2032, 64), (2032, 128), (2032, 192),
+            (2032, 256), (2032, 384), (1016, 128), (1016, 256), (1016, 384), (1016, 512),
+            (508, 256), (508, 512)]
 
 
-def _check_plan(p, b, s, c, g, x_dtype, aligned):
+def _check_plan(p, b, s, c, g, x_dtype, aligned, backward=False):
     esize = 4 if x_dtype == F32 else 2
     gsize = c // g
     cs = p.slice_channels
@@ -48,8 +61,10 @@ def _check_plan(p, b, s, c, g, x_dtype, aligned):
     assert p.cluster * p.chunk_rows >= s > (p.cluster - 1) * p.chunk_rows  # chunks tile S
     assert 1 <= p.cluster <= 16
     assert p.smem <= MAX_SMEM
-    if p.resident:
-        assert p.smem >= p.chunk_rows * cs * esize  # the chunk is staged whole
+    if p.resident:  # the chunk is staged whole (x's, and dy's in the backward)
+        assert p.smem >= (2 if backward else 1) * p.chunk_rows * cs * esize
+    if backward:
+        assert p.threads <= MAX_BWD_THREADS
     if p.vec > 1:  # 16-byte accesses only on aligned rows
         assert aligned and p.vec * esize == 16 and c % p.vec == 0 and cs % p.vec == 0
     else:
@@ -107,13 +122,35 @@ def test_group_norm_plan_grows_the_cluster_then_reads_again():
         group_norm_plan(2, 16, 32, 32, F32, BF16, True)
 
 
+def _chunked_stats(xg, plan):
+    """Each (sample, group)'s mean and variance of ``xg`` (B, S, G, gsize) as the kernel
+    takes them, chunk by chunk as ``plan`` cuts S: per chunk the group mean m1, then the
+    sums of d = x - m1 and of d^2 (the corrected two-pass: mean m1 + sum(d) / n, M2
+    sum(d^2) - sum(d)^2 / n), merged in rank order with Chan's formula."""
+    b, _, g, gsize = xg.shape
+    n = torch.zeros(b, g)
+    mean = torch.zeros(b, g)
+    m2 = torch.zeros(b, g)
+    for rank in range(plan.cluster):
+        chunk = xg[:, rank * plan.chunk_rows:(rank + 1) * plan.chunk_rows]
+        nb = float(chunk.shape[1] * gsize)
+        m1 = chunk.sum(dim=(1, 3)) * (1.0 / nb)
+        d = chunk - m1[:, None, :, None]
+        s1, s2 = d.sum(dim=(1, 3)), (d * d).sum(dim=(1, 3))
+        total = n + nb
+        delta = m1 + s1 / nb - mean
+        frac = nb / total
+        mean = mean + delta * frac
+        m2 = m2 + (s2 - s1 * s1 / nb) + delta * delta * n * frac
+        n = total
+    return mean, m2 / n
+
+
 def _chunked_group_norm(x, scale, bias, g, plan, eps=1e-5, silu=True, one_pass=False):
     """The kernel's arithmetic in f32 PyTorch, chunk by chunk as ``plan`` cuts
-    (B, S, C): per chunk the group mean m1, then the sums of d = x - m1 and
-    of d^2 (the corrected two-pass: mean m1 + sum(d) / n, M2 sum(d^2) -
-    sum(d)^2 / n), merged in rank order with Chan's formula; then (x - mean)
-    * (rstd * scale) + bias and SiLU.  ``one_pass`` takes the TPU kernel's
-    E[x^2] - mean^2 over the whole group instead."""
+    (B, S, C): the statistics of ``_chunked_stats``, then (x - mean) * (rstd *
+    scale) + bias and SiLU.  ``one_pass`` takes the TPU kernel's E[x^2] -
+    mean^2 over the whole group instead."""
     b, s, c = x.shape
     gsize = c // g
     xg = x.reshape(b, s, g, gsize)
@@ -121,22 +158,7 @@ def _chunked_group_norm(x, scale, bias, g, plan, eps=1e-5, silu=True, one_pass=F
         mean = xg.mean(dim=(1, 3))
         var = (xg * xg).mean(dim=(1, 3)) - mean * mean
     else:
-        n = torch.zeros(b, g)
-        mean = torch.zeros(b, g)
-        m2 = torch.zeros(b, g)
-        for rank in range(plan.cluster):
-            chunk = xg[:, rank * plan.chunk_rows:(rank + 1) * plan.chunk_rows]
-            nb = float(chunk.shape[1] * gsize)
-            m1 = chunk.sum(dim=(1, 3)) * (1.0 / nb)
-            d = chunk - m1[:, None, :, None]
-            s1, s2 = d.sum(dim=(1, 3)), (d * d).sum(dim=(1, 3))
-            total = n + nb
-            delta = m1 + s1 / nb - mean
-            frac = nb / total
-            mean = mean + delta * frac
-            m2 = m2 + (s2 - s1 * s1 / nb) + delta * delta * n * frac
-            n = total
-        var = m2 / n
+        mean, var = _chunked_stats(xg, plan)
     rstd = torch.rsqrt(var + eps)
     a = (rstd.repeat_interleave(gsize, dim=1) * scale)[:, None, :]
     y = (x - mean.repeat_interleave(gsize, dim=1)[:, None, :]) * a + bias
@@ -168,6 +190,120 @@ def test_chunked_statistics_match_the_reference_far_from_zero(rng, b, s, c, g):
     np.testing.assert_allclose(got, exact, rtol=1e-4, atol=1e-5)
     one_pass = _chunked_group_norm(*args, one_pass=True).numpy()
     assert not np.allclose(one_pass, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,s,c", [(256, s, c) for s, c in TRAIN_1D] +
+                         [(128, s, c) for s, c in UNET])
+def test_group_norm_backward_plan_on_the_training_paths(b, s, c):
+    """The backward's plan at every GroupNorm of the 1D UNet's training step (B 256) and the
+    flagship UNet's (B 128), in every dtype pair, aligned or not and within either cluster
+    limit: whole groups, chunks that tile S, shared memory within 227 KB for x's and dy's
+    chunks, 16-byte loads only on aligned rows, at most 512 threads, staged."""
+    g = math.gcd(32, c)
+    for x_dtype, p_dtype in PAIRS:
+        for limit in (16, 8):
+            for aligned in (True, False):
+                p = group_norm_plan(b, s, c, g, x_dtype, p_dtype, aligned, limit, True)
+                _check_plan(p, b, s, c, g, x_dtype, aligned, backward=True)
+                assert p.resident and p.cluster <= limit
+    with pytest.raises(ValueError, match="threads"):  # a group of 1024 channels, element loads
+        group_norm_plan(2, 16, 1024, 1, F32, F32, False, backward=True)
+
+
+def _chunked_group_norm_backward(x, dy, scale, bias, g, plan, eps=1e-5, silu=True):
+    """The backward kernel's arithmetic in f32 PyTorch, chunk by chunk as ``plan`` cuts
+    (B, S, C): the statistics of ``_chunked_stats``; g = dy * dSiLU(y); per chunk the
+    channel sums of g and of g * (x - mean), whose group sums weighted by scale merge in
+    rank order; dx = g * scale * rstd - rstd * mean(g * scale) - (x - mean) * rstd^2 *
+    mean(g * scale * xhat); dscale and dbias the sums of every chunk's channel partials
+    (B * cluster, 2, C) over their first axis, as the wrapper takes them."""
+    b, s, c = x.shape
+    gsize = c // g
+    mean, var = _chunked_stats(x.reshape(b, s, g, gsize), plan)
+    rstd = torch.rsqrt(var + eps)
+    per_channel = lambda t: t.repeat_interleave(gsize, dim=1)[:, None, :]  # noqa: E731
+    d = x - per_channel(mean)
+    a = per_channel(rstd) * scale
+    y = d * a + bias
+    if silu:
+        sig = torch.sigmoid(y)
+        gr = dy * sig * (1 + y * (1 - sig))
+    else:
+        gr = dy
+    p1, p2, parts = torch.zeros(b, g), torch.zeros(b, g), []
+    for rank in range(plan.cluster):
+        rows = slice(rank * plan.chunk_rows, (rank + 1) * plan.chunk_rows)
+        sg, sgd = gr[:, rows].sum(1), (gr[:, rows] * d[:, rows]).sum(1)
+        p1 = p1 + (sg * scale).reshape(b, g, gsize).sum(-1)
+        p2 = p2 + (sgd * scale).reshape(b, g, gsize).sum(-1) * rstd
+        parts.append(torch.stack([sgd * per_channel(rstd)[:, 0], sg], dim=1))
+    n = s * gsize
+    dx = gr * a + per_channel(-rstd * (p1 / n)) + d * per_channel(-rstd * rstd * (p2 / n))
+    dscale, dbias = torch.stack(parts, dim=1).reshape(b * plan.cluster, 2, c).sum(0)
+    return dx, dscale, dbias
+
+
+def _plain_f64(x, scale, bias, g, eps=1e-5, silu=True):
+    """``group_norm_silu_plain``'s two-pass formula in float64, the exact reference."""
+    b, s, c = x.shape
+    xg = x.reshape(b, s, g, c // g)
+    mean = xg.mean(dim=(1, 3), keepdim=True)
+    var = ((xg - mean) ** 2).mean(dim=(1, 3), keepdim=True)
+    y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(b, s, c) * scale + bias
+    return F.silu(y) if silu else y
+
+
+@pytest.mark.parametrize("silu", [True, False])
+@pytest.mark.parametrize("b,s,c,g", [(2, 4096, 64, 32), (2, 17, 40, 8), (3, 1024, 256, 32)])
+def test_chunked_backward_matches_autograd_and_jax_far_from_zero(rng, b, s, c, g, silu):
+    """dx, dscale and dbias of the backward's closed form in f32, chunked as its plan cuts,
+    rtol 2e-3 / atol 2e-4 (the JAX package's gradient bound): on data of mean 1e3 and spread
+    30 against autograd over the plain formula in float64 and ``jax.vjp`` of the JAX
+    ``_reference`` in f32 (autograd over ``group_norm_silu_plain`` in f32 misses that bound
+    there, 2.7 times over on dscale at (3, 1024, 256), where the closed form keeps within a
+    sixth of it and ``jax.vjp`` within two fifths); on the same data less its mean, against
+    autograd over ``group_norm_silu_plain``."""
+    x = (30 * rng.standard_normal((b, s, c)) + 1e3).astype(np.float32)
+    scale = (1 + 0.1 * rng.standard_normal(c)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(c)).astype(np.float32)
+    dy = rng.standard_normal((b, s, c)).astype(np.float32)
+    plan = group_norm_plan(b, s, c, g, F32, F32, True, backward=True)
+    _, vjp = jax.vjp(lambda *a: jax_gn_reference(*a, g, 1e-5, silu),
+                     *(jnp.asarray(t) for t in (x, scale, bias)))
+    want_jax = vjp(jnp.asarray(dy))
+    leaves = [torch.from_numpy(t).double().requires_grad_() for t in (x, scale, bias)]
+    _plain_f64(*leaves, g, silu=silu).backward(torch.from_numpy(dy).double())
+    got = _chunked_group_norm_backward(*(torch.from_numpy(t) for t in (x, dy, scale, bias)), g,
+                                       plan, silu=silu)
+    for mine, leaf, other in zip(got, leaves, want_jax):
+        np.testing.assert_allclose(mine.numpy(), leaf.grad.numpy(), rtol=2e-3, atol=2e-4)
+        np.testing.assert_allclose(mine.numpy(), np.asarray(other), rtol=2e-3, atol=2e-4)
+    x0 = x - np.float32(1e3)
+    leaves = [torch.from_numpy(t).requires_grad_() for t in (x0, scale, bias)]
+    group_norm_silu_plain(*leaves, g, 1e-5, silu).backward(torch.from_numpy(dy))
+    got = _chunked_group_norm_backward(*(torch.from_numpy(t) for t in (x0, dy, scale, bias)), g,
+                                       plan, silu=silu)
+    for mine, leaf in zip(got, leaves):
+        np.testing.assert_allclose(mine.numpy(), leaf.grad.numpy(), rtol=2e-3, atol=2e-4)
+
+
+def test_cpu_backward_counts_a_call_and_no_launch(rng):
+    """On the CPU the backward recomputes through the plain version: ``backward_calls``
+    counts it, ``backward_launches`` (kernel launches) stays as it was, and the gradients
+    are autograd's over the plain version."""
+    x, dy = (torch.from_numpy(rng.standard_normal((2, 16, 32)).astype(np.float32))
+             for _ in range(2))
+    scale, bias = torch.ones(32), torch.zeros(32)
+    calls, launches = group_norm_silu.backward_calls, group_norm_silu.backward_launches
+    grads = []
+    for fn in (group_norm_silu, group_norm_silu_plain):
+        leaves = [t.clone().requires_grad_() for t in (x, scale, bias)]
+        fn(*leaves, 8, 1e-5, True).backward(dy)
+        grads.append([t.grad for t in leaves])
+    assert group_norm_silu.backward_calls == calls + 1
+    assert group_norm_silu.backward_launches == launches
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def test_fused_dq_delta_entry_matches_its_parts(rng):

@@ -37,6 +37,8 @@
 //   (mean, rstd) a (sample, group), then the affine and the SiLU.  Both move the bytes the
 //   function needs (x once for the statistics; x once and y once for the apply), in the plan of
 //   the fused kernel, whose code (MODE 0) they leave as it was.
+// - The backward, `tq_group_norm_silu_backward`, is a kernel of its own (see its section below):
+//   it stages x and dy, recomputes the statistics and writes dx and per-block partial sums.
 
 #include <cooperative_groups.h>
 
@@ -351,6 +353,308 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
+// ---- the backward (tq_group_norm_silu_backward) -----------------------------------------------
+//
+// Replaces no TPU kernel: the JAX module has none (tqdne_tpu/ops/group_norm.py:_bwd is autograd
+// over _reference, which XLA fuses on the TPU; eager PyTorch on the card ran it as some fifteen
+// strided elementwise kernels and reductions over f32 copies a call).
+//
+// Bound: bytes.  It reads x and dy once and writes dx once (plus C-sized parameters and per-block
+// partial sums).  The design is the forward's, with both x and dy staged:
+// - The plan (group_norm_plan(..., backward=True)) cuts (B, S, C) as the forward's does, with
+//   twice the bytes a row staged, so a cluster has about twice the blocks.  Each block stages its
+//   chunk of x and of dy into shared memory once (dy's lands while the statistics run) and takes
+//   four passes over them.
+// - Passes 1 and 2 are the forward's statistics (the corrected two-pass a chunk, Chan's merge
+//   over the cluster in rank order), so every block holds each group's mean and rstd.
+// - Pass 3 forms xhat, y = xhat * scale + bias, g = dy * dSiLU(y) (dy without the SiLU) and sums
+//   per channel g and g * (x - mean).  The block writes its channel sums (g * xhat and g: the
+//   partials of dscale and dbias) to `part` (B, cluster, 2, C), which the wrapper sums in a fixed
+//   order (no atomics: the same inputs give the same bits), and publishes each group's sums of
+//   g * scale and g * scale * xhat; the cluster merges them in rank order.
+// - Pass 4 writes dx = rstd * (g * scale - mean(g * scale) - xhat * mean(g * scale * xhat)), the
+//   means over each (sample, group), with 16-byte stores.
+// - 512 threads at most (the plan keeps to it), for 128 registers a thread: x and dy, and five
+//   constants of each of a thread's VEC channels, stay in registers in pass 4.
+
+// Bytes of dynamic shared memory of the backward: the staged chunks of x and dy (RESIDENT only),
+// the partial sums (red_rows x cs), two rows of channel totals (2 x cs), the published sums of
+// each group, the cluster's copies of them (3 x cluster x ng) and four merged values a group
+// (mean, rstd and the two terms of dx).  ops/group_norm.py:_smem repeats this formula.
+size_t smem_bwd_bytes(int esize, int vec, int cs, int gsize, int chunk_rows, int rpp,
+                      int threads, int cluster, bool resident) {
+  const size_t stage = resident ? 2 * (((size_t)chunk_rows * cs * esize + 15) / 16 * 16) : 0;
+  const size_t ng = cs / gsize;
+  return stage + sizeof(float) * ((size_t)red_rows(cs / vec, threads, rpp) * cs + 2 * cs +
+                                  (7 + 3 * (size_t)cluster) * ng);
+}
+
+constexpr int MAX_BWD_THREADS = 512;
+
+// Each thread's VEC partial sums (channels col .. col + VEC - 1 of the slice, over its rows)
+// reduced to one total a channel of the slice, into dst[0, cs): lanes that share a column fold
+// by shuffles where nv divides 32, then each channel sums the rows of `red` (first split over
+// the threads a channel has to spare, where there are many), in a fixed order.
+template <int VEC>
+__device__ __forceinline__ void channel_sums(float (&acc)[VEC], float* red, float* dst, int cs,
+                                             int rpp) {
+  const int nv = cs / VEC;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  if (32 % nv == 0) {
+    for (int off = nv; off < 32; off <<= 1) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[e] += __shfl_xor_sync(FULL, acc[e], off);
+    }
+    if (lane < nv) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) red[(tid >> 5) * cs + lane * VEC + e] = acc[e];
+    }
+  } else if (tid / nv < rpp) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) red[(tid / nv) * cs + (tid % nv) * VEC + e] = acc[e];
+  }
+  __syncthreads();
+  int rows = red_rows(nv, blockDim.x, rpp);
+  const int parts = min(rows, (int)blockDim.x / cs);
+  if (rows > 8 && parts >= 2) {
+    const int c = tid % cs;
+    const int p = tid / cs;
+    float sum = 0.f;
+    if (p < parts)
+      for (int r = p; r < rows; r += parts) sum += red[r * cs + c];
+    __syncthreads();
+    if (p < parts) red[p * cs + c] = sum;
+    __syncthreads();
+    rows = parts;
+  }
+  for (int c = tid; c < cs; c += blockDim.x) {
+    float sum = 0.f;
+    for (int r = 0; r < rows; ++r) sum += red[r * cs + c];
+    dst[c] = sum;
+  }
+  __syncthreads();
+}
+
+// dL/dy from dL/d(out): out = y * sigmoid(y) with the SiLU, else out = y.
+__device__ __forceinline__ float silu_grad(float dout, float y, int silu) {
+  if (!silu) return dout;
+  const float s = __fdividef(1.f, 1.f + __expf(-y));
+  return dout * s * fmaf(y, 1.f - s, 1.f);
+}
+
+template <typename T, typename P, int VEC, bool RESIDENT>
+__global__ void __launch_bounds__(MAX_BWD_THREADS)
+    group_norm_silu_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                               const P* __restrict__ scale, const P* __restrict__ bias,
+                               T* __restrict__ dx, float* __restrict__ part, int S, int C,
+                               int gsize, int cs, int chunk_rows, int rpp, float eps, int silu) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nc = gridDim.x;  // the cluster spans the grid's x dimension
+  const int rank = blockIdx.x;
+  const int nv = cs / VEC;
+  const int ng = cs / gsize;
+  const int tid = threadIdx.x;
+  const int col = (tid % nv) * VEC;  // the thread's first channel in the slice
+  const int rslot = tid / nv;
+  const int r0 = rank * chunk_rows;
+  const int rows = max(0, min(chunk_rows, S - r0));
+  const int first = rslot < rpp ? rslot : rows;  // threads past the last row slot walk none
+  const size_t base = ((size_t)blockIdx.z * S + r0) * C + (size_t)blockIdx.y * cs + col;
+
+  const size_t stage_bytes = RESIDENT ? ((size_t)chunk_rows * cs * sizeof(T) + 15) / 16 * 16 : 0;
+  float* red = reinterpret_cast<float*>(smem + 2 * stage_bytes);  // red_rows x cs
+  float* chan = red + red_rows(nv, blockDim.x, rpp) * cs;         // sums of g, g * d: 2 x cs
+  float* pub = chan + 2 * cs;                                     // 3 x ng
+  float* all = pub + 3 * ng;                                      // every rank's: 3 x nc x ng
+  float* fin = all + 3 * nc * ng;  // mean, rstd, then the two terms of dx: 4 x ng
+
+  // the thread's first row of x and of dy, in global memory (row stride C) or staged (cs)
+  const T* xs = x + base + (long long)rslot * C;
+  const T* ds = dy + base + (long long)rslot * C;
+  long long ld = C;
+  if constexpr (RESIDENT) {  // x's chunk first, then dy's, which lands while the statistics run
+    T* xto = reinterpret_cast<T*>(smem) + rslot * cs + col;
+    T* dto = reinterpret_cast<T*>(smem + stage_bytes) + rslot * cs + col;
+    for (int k = 0; k < 2; ++k) {
+      const T* from = k ? ds : xs;
+      T* to = k ? dto : xto;
+      for (int r = first; r < rows; r += rpp) {
+        if constexpr (VEC > 1)
+          tq::cp_async16(to + (r - rslot) * cs, from + (long long)(r - rslot) * C, 16);
+        else
+          to[(r - rslot) * cs] = from[(long long)(r - rslot) * C];
+      }
+      if constexpr (VEC > 1) tq::cp_async_commit();
+    }
+    if constexpr (VEC > 1) tq::cp_async_wait<1>();
+    __syncthreads();
+    xs = xto;
+    ds = dto;
+    ld = cs;
+  }
+
+  // passes 1 and 2: the statistics, as the forward kernel's
+  float acc[VEC], acc2[VEC], mu[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+#pragma unroll 4
+  for (int r = first; r < rows; r += rpp) {
+    float v[VEC];
+    load_vec<T, VEC>(xs + (r - rslot) * ld, v);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] += v[e];
+  }
+  const float n = (float)rows * gsize;
+  group_sums<VEC>(acc, red, chan, pub + ng, cs, gsize, rpp, rows ? 1.f / n : 0.f);
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    mu[e] = pub[ng + (col + e) / gsize];
+    acc[e] = acc2[e] = 0.f;
+  }
+#pragma unroll 4
+  for (int r = first; r < rows; r += rpp) {
+    float v[VEC];
+    load_vec<T, VEC>(xs + (r - rslot) * ld, v);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      const float d = v[e] - mu[e];
+      acc[e] += d;
+      acc2[e] = fmaf(d, d, acc2[e]);
+    }
+  }
+  group_sums<VEC>(acc, red, chan, fin, cs, gsize, rpp, 1.f);  // fin: scratch until the merge
+  group_sums<VEC>(acc2, red, chan, pub + 2 * ng, cs, gsize, rpp, 1.f);
+  for (int j = tid; j < ng; j += blockDim.x) {
+    const float s1 = fin[j];
+    pub[j] = n;
+    if (rows) {
+      pub[ng + j] += s1 / n;
+      pub[2 * ng + j] -= s1 * s1 / n;
+    }
+  }
+  const float* ranks = pub;
+  if (nc > 1) {
+    cluster.sync();
+    for (int i = tid; i < 3 * nc * ng; i += blockDim.x) {
+      const int k = i / (3 * ng);
+      all[i] = cluster.map_shared_rank(pub, k)[i - k * 3 * ng];
+    }
+    ranks = all;
+  }
+  cluster.sync();  // the copies are complete, and no block's pub is read any more
+  for (int j = tid; j < ng; j += blockDim.x) {
+    float cnt = 0.f, mean = 0.f, m2 = 0.f;
+    for (int k = 0; k < nc; ++k) {
+      const float* other = ranks + k * 3 * ng;
+      const float nb = other[j];
+      if (nb == 0.f) continue;
+      const float total = cnt + nb;
+      const float delta = other[ng + j] - mean;
+      const float frac = nb / total;
+      mean = fmaf(delta, frac, mean);
+      m2 += other[2 * ng + j] + delta * delta * cnt * frac;
+      cnt = total;
+    }
+    fin[j] = mean;
+    fin[ng + j] = rsqrtf(m2 / cnt + eps);
+  }
+  if constexpr (RESIDENT && VEC > 1) tq::cp_async_wait<0>();  // dy's chunk
+  __syncthreads();
+
+  // pass 3: per channel, the sums of g and of g * d, d = x - mean (g * xhat = rstd * g * d)
+  float a[VEC], b[VEC];
+  const int c0 = blockIdx.y * cs + col;
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    const int j = (col + e) / gsize;
+    mu[e] = fin[j];
+    a[e] = fin[ng + j] * to_float(scale[c0 + e]);
+    b[e] = to_float(bias[c0 + e]);
+    acc[e] = acc2[e] = 0.f;
+  }
+#pragma unroll 2
+  for (int r = first; r < rows; r += rpp) {
+    float v[VEC], w[VEC];
+    load_vec<T, VEC>(xs + (r - rslot) * ld, v);
+    load_vec<T, VEC>(ds + (r - rslot) * ld, w);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      const float d = v[e] - mu[e];
+      const float g = silu_grad(w[e], fmaf(d, a[e], b[e]), silu);
+      acc[e] += g;
+      acc2[e] = fmaf(g, d, acc2[e]);
+    }
+  }
+  channel_sums<VEC>(acc, red, chan, cs, rpp);
+  channel_sums<VEC>(acc2, red, chan + cs, cs, rpp);
+
+  // this block's partials of dscale (sums of g * xhat) and dbias (sums of g), and each group's
+  // sums of g * scale and g * scale * xhat for the cluster (pub is free since the merge)
+  const int slice0 = blockIdx.y * cs;
+  float* own = part + ((size_t)blockIdx.z * nc + rank) * 2 * C + slice0;
+  for (int c = tid; c < cs; c += blockDim.x) {
+    own[c] = fin[ng + c / gsize] * chan[cs + c];
+    own[C + c] = chan[c];
+  }
+  for (int j = tid; j < ng; j += blockDim.x) {
+    float p1 = 0.f, p2 = 0.f;
+    for (int c = j * gsize; c < (j + 1) * gsize; ++c) {
+      const float w = to_float(scale[slice0 + c]);
+      p1 = fmaf(w, chan[c], p1);
+      p2 = fmaf(w, chan[cs + c], p2);
+    }
+    pub[j] = p1;
+    pub[ng + j] = p2 * fin[ng + j];
+  }
+  const float* sums = pub;
+  if (nc > 1) {
+    cluster.sync();
+    for (int i = tid; i < 2 * nc * ng; i += blockDim.x) {
+      const int k = i / (2 * ng);
+      all[i] = cluster.map_shared_rank(pub, k)[i - k * 2 * ng];
+    }
+    sums = all;
+  }
+  cluster.sync();  // as above; and no block leaves while another reads its pub
+  const float inv_n = 1.f / ((float)S * gsize);
+  for (int j = tid; j < ng; j += blockDim.x) {
+    float p1 = 0.f, p2 = 0.f;
+    for (int k = 0; k < nc; ++k) {
+      p1 += sums[k * 2 * ng + j];
+      p2 += sums[k * 2 * ng + ng + j];
+    }
+    const float rstd = fin[ng + j];
+    fin[2 * ng + j] = -rstd * (p1 * inv_n);
+    fin[3 * ng + j] = -rstd * rstd * (p2 * inv_n);
+  }
+  __syncthreads();
+
+  // pass 4: dx = g * scale * rstd - rstd * mean(g * scale) - d * rstd^2 * mean(g * scale * xhat)
+  float k1[VEC], k2[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    const int j = (col + e) / gsize;
+    k1[e] = fin[2 * ng + j];
+    k2[e] = fin[3 * ng + j];
+  }
+  T* og = dx + base;
+#pragma unroll 2
+  for (int r = first; r < rows; r += rpp) {
+    float v[VEC], w[VEC];
+    load_vec<T, VEC>(xs + (r - rslot) * ld, v);
+    load_vec<T, VEC>(ds + (r - rslot) * ld, w);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      const float d = v[e] - mu[e];
+      const float g = silu_grad(w[e], fmaf(d, a[e], b[e]), silu);
+      v[e] = fmaf(g, a[e], fmaf(d, k2[e], k1[e]));
+    }
+    store_vec<T, VEC>(og + (long long)r * C, v);
+  }
+}
+
 // Once per device and kernel: room for 227 KB of shared memory and clusters of 16.
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, int device, bool (&done)[64]) {
@@ -482,6 +786,38 @@ int launch_dtypes(int x_dtype, int p_dtype, int vec, int resident, const Args& a
   return (int)err;
 }
 
+// The backward's launch: `a` as the forward's (out is dx, stats the partials) and dy.
+template <typename T, typename P, int VEC, bool RESIDENT>
+cudaError_t launch_bwd(const Args& a, const void* dy) {
+  auto kernel = group_norm_silu_bwd_kernel<T, P, VEC, RESIDENT>;
+  static bool prepared[64] = {};
+  cudaError_t err = prepare(kernel, a.device, prepared);
+  if (err != cudaSuccess) return err;
+  const size_t smem = smem_bwd_bytes(sizeof(T), VEC, a.cs, a.gsize, a.chunk_rows, a.rpp,
+                                     a.threads, a.cluster, RESIDENT);
+  if (smem > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
+  Config c;
+  make_config(c, a.cluster, a.C / a.cs, a.B, a.threads, smem, a.st);
+  bool ok = false;
+  err = co_scheduled(kernel, c, a.device, ok);
+  if (err != cudaSuccess) return err;
+  if (!ok) return cudaErrorLaunchOutOfResources;
+  return cudaLaunchKernelEx(&c.cfg, kernel, static_cast<const T*>(a.x), static_cast<const T*>(dy),
+                            static_cast<const P*>(a.scale), static_cast<const P*>(a.bias),
+                            static_cast<T*>(a.out), a.stats, a.S, a.C, a.gsize, a.cs,
+                            a.chunk_rows, a.rpp, a.eps, a.silu);
+}
+
+template <typename T, typename P>
+cudaError_t launch_bwd_variant(int vec, int resident, const Args& a, const void* dy) {
+  constexpr int WIDE = 16 / sizeof(T);
+  if (vec == WIDE && resident) return launch_bwd<T, P, WIDE, true>(a, dy);
+  if (vec == WIDE) return launch_bwd<T, P, WIDE, false>(a, dy);
+  if (vec == 1 && resident) return launch_bwd<T, P, 1, true>(a, dy);
+  if (vec == 1) return launch_bwd<T, P, 1, false>(a, dy);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16; (x, params) may be (f32, f32), (bf16, bf16) or
@@ -504,6 +840,37 @@ extern "C" int tq_group_norm_silu(const void* x, const void* scale, const void* 
                chunk_rows, rows_per_pass, threads, eps, silu, device,
                static_cast<cudaStream_t>(stream)};
   return launch_dtypes<0>(x_dtype, p_dtype, vec, resident, a);
+}
+
+// The backward of tq_group_norm_silu: from x and dy (both contiguous (B, S, C) of x's dtype) and
+// the forward's scale, bias, eps and silu, dx into dx (B, S, C) and each block's per-channel
+// partials into part (B, cluster, 2, C) float32: [.., 0, c] the sum of dy' * xhat and [.., 1, c]
+// the sum of dy' over the block's rows, dy' the gradient before the SiLU; dscale and dbias are
+// their sums over the first two axes.  The plan is group_norm_plan(..., backward=True)'s, with
+// threads at most 512.  Returns the CUDA error code of the launch.
+extern "C" int tq_group_norm_silu_backward(const void* x, const void* dy, const void* scale,
+                                           const void* bias, void* dx, float* part, int x_dtype,
+                                           int p_dtype, int B, int S, int C, int G, float eps,
+                                           int silu, int slice_channels, int cluster,
+                                           int chunk_rows, int rows_per_pass, int threads,
+                                           int vec, int resident, int device, void* stream) {
+  if (!valid_plan(B, S, C, G, slice_channels, cluster, chunk_rows, rows_per_pass, threads, vec) ||
+      threads > MAX_BWD_THREADS)
+    return (int)cudaErrorInvalidValue;
+  const Args a{x, scale, bias, dx, part, nullptr, B, S, C, C / G, slice_channels, cluster,
+               chunk_rows, rows_per_pass, threads, eps, silu, device,
+               static_cast<cudaStream_t>(stream)};
+  cudaError_t err = tq::use_device(device);
+  if (err != cudaSuccess) return (int)err;
+  if (x_dtype == 0 && p_dtype == 0)
+    err = launch_bwd_variant<float, float>(vec, resident, a, dy);
+  else if (x_dtype == 1 && p_dtype == 1)
+    err = launch_bwd_variant<bf16, bf16>(vec, resident, a, dy);
+  else if (x_dtype == 1 && p_dtype == 0)
+    err = launch_bwd_variant<bf16, float>(vec, resident, a, dy);
+  else
+    err = cudaErrorInvalidValue;
+  return (int)err;
 }
 
 // The statistics alone: stats (B, G, 3) float32 receives each (sample, group)'s element count,

@@ -12,12 +12,18 @@ statistics with eps inside the rsqrt, output cast back to the input dtype.
 - On a CPU tensor it runs ``group_norm_silu_plain``, the two-pass PyTorch
   version of the JAX module's ``_reference``.
 
-The backward recomputes through the plain version, as the JAX ``_bwd`` does
-(XLA autograd over ``_reference``: the TPU package has no backward kernel).
-``group_norm_silu.launches`` counts kernel launches and
-``group_norm_silu.backward_calls`` the plain backward recomputations, which
-run inside a ``tq::group_norm_silu_backward`` span (``utils.tracing``); a forward
-call runs inside ``tq::group_norm_silu``.
+The backward of a CUDA tensor launches the kernel's backward entry
+(``tq_group_norm_silu_backward``, in the plan ``group_norm_plan(...,
+backward=True)`` picks): it recomputes the statistics from x, writes dx and
+each block's per-channel partials of dscale and dbias, which the wrapper sums
+in a fixed order (no atomics).  The TPU package has no backward kernel (the JAX
+``_bwd`` is XLA autograd over ``_reference``); a CPU tensor's backward
+recomputes through the plain version under autograd as that one does.
+``group_norm_silu.launches`` counts forward launches,
+``group_norm_silu.backward_launches`` backward launches and
+``group_norm_silu.backward_calls`` every backward, kernel or plain; a backward
+runs inside a ``tq::group_norm_silu_backward`` span (``utils.tracing``), a
+forward inside ``tq::group_norm_silu``.
 
 For an activation whose rows are split over ranks (``parallel/spatial.py``),
 the statistics span every shard: ``group_norm_silu_sharded`` takes each
@@ -56,6 +62,8 @@ MIN_SEGMENT = 64  # bytes of a row a slice reads at least: two full 32-byte sect
 THREADS = 256  # a block's threads, more only where a slice has more vector columns
 SMS = 132  # streaming multiprocessors of an H100 SXM
 BLOCKS = 2 * SMS  # slices stay narrow while fewer blocks would run
+BWD_THREADS = 128  # a backward block's threads: more blocks an SM at its 122 registers a thread
+MAX_BWD_THREADS = 512  # a backward block's threads at most (its launch bound)
 
 
 def group_norm_silu_plain(x, scale, bias, groups: int = 32, eps: float = 1e-5,
@@ -100,25 +108,29 @@ class GroupNormPlan(NamedTuple):
     smem: int
 
 
-def _smem(esize, vec, cs, gsize, chunk_rows, rpp, threads, cluster, resident):
+def _smem(esize, vec, cs, gsize, chunk_rows, rpp, threads, cluster, resident,
+          backward=False):
     """``smem_bytes`` of ``csrc/group_norm.cu``: the staged chunk, the
     partial sums (one row of cs a warp where the lanes of a column fold by
     shuffles, else one a row slot), channel totals, and 5 + 3 * cluster
-    floats a group."""
-    stage = -(-chunk_rows * cs * esize // 16) * 16 if resident else 0
+    floats a group; ``smem_bwd_bytes`` where ``backward``: the chunks of x
+    and dy, two rows of channel totals and 7 + 3 * cluster floats a group."""
+    k = 2 if backward else 1
+    stage = k * -(-chunk_rows * cs * esize // 16) * 16 if resident else 0
     red_rows = threads // 32 if 32 % (cs // vec) == 0 else rpp
-    return stage + 4 * (red_rows * cs + cs + (5 + 3 * cluster) * (cs // gsize))
+    return stage + 4 * (red_rows * cs + k * cs + (3 + 2 * k + 3 * cluster) * (cs // gsize))
 
 
-def _threads(cs, vec, chunk_rows):
-    """(rows_per_pass, threads) of a block over chunks of ``chunk_rows``."""
-    rpp = max(1, min(THREADS // (cs // vec), chunk_rows))
+def _threads(cs, vec, chunk_rows, target=THREADS):
+    """(rows_per_pass, threads) of a block over chunks of ``chunk_rows``, about ``target``
+    threads where a slice has fewer vector columns."""
+    rpp = max(1, min(target // (cs // vec), chunk_rows))
     return rpp, -(-rpp * (cs // vec) // 32) * 32
 
 
 @functools.cache
 def group_norm_plan(b: int, s: int, c: int, g: int, x_dtype, p_dtype, aligned: bool,
-                    max_cluster: int = MAX_CLUSTER) -> GroupNormPlan:
+                    max_cluster: int = MAX_CLUSTER, backward: bool = False) -> GroupNormPlan:
     """The kernel's variant for a (B, S, C) call with G groups.
 
     A slice is the fewest whole groups that read ``MIN_SEGMENT`` bytes of a
@@ -128,28 +140,32 @@ def group_norm_plan(b: int, s: int, c: int, g: int, x_dtype, p_dtype, aligned: b
     fewer blocks than SMs would run, up to ``max_cluster`` blocks (the
     largest cluster the card co-schedules); where a chunk would still not
     fit in shared memory it is read again from L2 instead of staged
-    (``resident`` False).
+    (``resident`` False).  The ``backward`` stages x and dy: twice the bytes
+    a row, so about twice the blocks a cluster, with at most
+    ``MAX_BWD_THREADS`` threads a block (raises where a slice needs more).
     """
     if (x_dtype, p_dtype) not in _DTYPE_PAIRS:
         raise TypeError(f"group_norm_silu: unsupported dtypes {x_dtype}, {p_dtype}")
     if c % g or s < 1 or b < 1:
         raise ValueError(f"group_norm_silu: unsupported shape {(b, s, c)} with {g} groups")
     esize = 4 if x_dtype == torch.float32 else 2
+    staged = 2 * esize if backward else esize  # bytes a block stages of each element
+    target = BWD_THREADS if backward else THREADS
     vec = 16 // esize if aligned and c * esize % 16 == 0 else 1
     gsize = c // g
     unit = math.lcm(gsize, vec)
     widths = [w for w in range(unit, c + 1, unit) if c % w == 0]
     cs = next((w for w in widths if w * esize >= MIN_SEGMENT), widths[-1])
     for w in widths:
-        if w > cs and s * w * esize <= TARGET_CHUNK and b * (c // w) >= BLOCKS \
+        if w > cs and s * w * staged <= TARGET_CHUNK and b * (c // w) >= BLOCKS \
                 and w // vec <= THREADS:
             cs = w
-    slab = s * cs * esize
+    slab = s * cs * staged
 
     def fits(cluster):
         rows = -(-s // cluster)
-        return _smem(esize, vec, cs, gsize, rows, *_threads(cs, vec, rows), cluster,
-                     True) <= MAX_SMEM
+        return _smem(esize, vec, cs, gsize, rows, *_threads(cs, vec, rows, target), cluster,
+                     True, backward) <= MAX_SMEM
 
     # chunks of about TARGET_CHUNK bytes, and at least one block for each of 132 SMs
     want = max(-(-slab // TARGET_CHUNK), -(-SMS // (b * (c // cs))))
@@ -159,10 +175,13 @@ def group_norm_plan(b: int, s: int, c: int, g: int, x_dtype, p_dtype, aligned: b
     resident = fits(cluster)
     chunk_rows = -(-s // cluster)
     cluster = -(-s // chunk_rows)  # no block without rows
-    rpp, threads = _threads(cs, vec, chunk_rows)
+    rpp, threads = _threads(cs, vec, chunk_rows, target)
+    if backward and threads > MAX_BWD_THREADS:
+        raise ValueError(f"group_norm_silu backward: a slice of {cs // vec} columns takes more "
+                         f"than {MAX_BWD_THREADS} threads (16-byte aligned rows take fewer)")
     return GroupNormPlan(cs, c // cs, cluster, chunk_rows, rpp, threads, vec, resident,
                          _smem(esize, vec, cs, gsize, chunk_rows, rpp, threads, cluster,
-                               resident))
+                               resident, backward))
 
 
 @functools.cache
@@ -170,6 +189,15 @@ def _lib():
     lib = cuda_build.load("group_norm")
     fn = lib.tq_group_norm_silu
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float] + \
+        [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_lib():
+    fn = cuda_build.load("group_norm").tq_group_norm_silu_backward
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float] + \
         [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -196,10 +224,10 @@ def cluster_limit(device: int) -> int:
     return limit.value
 
 
-def _checked_plan(name: str, x, groups: int, params=()):
+def _checked_plan(name: str, x, groups: int, params=(), grad=None):
     """(B, S, C, device, plan) of a kernel call on ``x`` (B, *spatial, C) with ``params``
     (scale and bias, each (C,)), after the checks the kernel needs; raises on what it
-    does not take."""
+    does not take.  With ``grad`` (dy, x's shape and dtype) the backward's plan."""
     shape = x.shape
     b, c = shape[0], shape[-1]
     s = x.numel() // (b * c) if b * c else 0
@@ -215,8 +243,14 @@ def _checked_plan(name: str, x, groups: int, params=()):
         raise ValueError(f"{name}: unsupported shape {tuple(shape)} with {groups} groups")
     device = x.device.index or 0
     p_dtype = params[0].dtype if params else x.dtype
-    plan = group_norm_plan(b, s, c, groups, x.dtype, p_dtype, x.data_ptr() % 16 == 0,
-                           cluster_limit(device))
+    aligned = x.data_ptr() % 16 == 0
+    if grad is not None:
+        if grad.shape != shape or grad.dtype != x.dtype or grad.device != x.device \
+                or not grad.is_contiguous():
+            raise ValueError(f"{name}: the gradient must be contiguous, of x's shape and dtype")
+        aligned = aligned and grad.data_ptr() % 16 == 0
+    plan = group_norm_plan(b, s, c, groups, x.dtype, p_dtype, aligned, cluster_limit(device),
+                           grad is not None)
     return b, s, c, device, plan
 
 
@@ -239,6 +273,27 @@ def _launch(x, scale, bias, groups: int, eps: float, apply_silu: bool):
     return out
 
 
+def _launch_backward(x, grad, scale, bias, groups: int, eps: float, apply_silu: bool):
+    """(dx, dscale, dbias) from the kernel's backward entry: one launch, then the sum of its
+    per-block partials (B * cluster, 2, C) in f32, in a fixed order.  A transposed gradient
+    (the 1D ``Norm32``'s, from a channels-first convolution) is made contiguous first."""
+    dy = grad.contiguous()
+    b, s, c, device, plan = _checked_plan("group_norm_silu_backward", x, groups, (scale, bias),
+                                          dy)
+    dx = torch.empty_like(x)
+    part = torch.empty((b * plan.cluster, 2, c), dtype=torch.float32, device=x.device)
+    err = _bwd_lib()(
+        x.data_ptr(), dy.data_ptr(), scale.data_ptr(), bias.data_ptr(), dx.data_ptr(),
+        part.data_ptr(), _DTYPE_CODES[x.dtype], _DTYPE_CODES[scale.dtype], b, s, c, groups, eps,
+        int(apply_silu), *_plan_args(plan), device, torch._C._cuda_getCurrentRawStream(device),
+    )
+    if err:
+        raise RuntimeError(f"group_norm_silu_backward: kernel launch failed with CUDA error {err}")
+    group_norm_silu.backward_launches += 1
+    dscale, dbias = part.sum(0).to(scale.dtype)
+    return dx, dscale, dbias
+
+
 def _forward(x, scale, bias, groups, eps, apply_silu):
     if x.device.type == "cpu":
         return group_norm_silu_plain(x, scale, bias, groups, eps, apply_silu)
@@ -256,14 +311,21 @@ class _GroupNormSiLU(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
-        wanted = [t for t in inputs if t.requires_grad]
-        with torch.enable_grad(), span("group_norm_silu_backward"):
-            out = group_norm_silu_plain(*inputs, *ctx.config)
-            grads = iter(torch.autograd.grad(out, wanted, grad))
+        x, scale, bias = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:3]
+        with span("group_norm_silu_backward"):
+            if x.device.type == "cpu":
+                inputs = [t.detach().requires_grad_(need)
+                          for t, need in zip((x, scale, bias), needs)]
+                with torch.enable_grad():
+                    out = group_norm_silu_plain(*inputs, *ctx.config)
+                    grads = iter(torch.autograd.grad(
+                        out, [t for t in inputs if t.requires_grad], grad))
+                grads = [next(grads) if need else None for need in needs]
+            else:
+                grads = _launch_backward(x, grad, scale, bias, *ctx.config)
         group_norm_silu.backward_calls += 1
-        return (*(next(grads) if t.requires_grad else None for t in inputs), None, None, None)
+        return (*(g if need else None for g, need in zip(grads, needs)), None, None, None)
 
 
 def group_norm_silu(x, scale, bias, groups: int = 32, eps: float = 1e-5,
@@ -275,6 +337,7 @@ def group_norm_silu(x, scale, bias, groups: int = 32, eps: float = 1e-5,
 
 
 group_norm_silu.launches = 0
+group_norm_silu.backward_launches = 0
 group_norm_silu.backward_calls = 0
 
 
