@@ -29,7 +29,8 @@ Phases (any failure exits non-zero and prints no result line):
    of their samplers' UNet evals and decodes and of their train steps, at
    batch 32 and 256 (1D) or 64 (``edm``), and the flash kernels at (32, 508,
    4, 64), (256, 508, 4, 64), (32, 127, 4, 64), (256, 127, 4, 64), (32, 256,
-   4, 128) and (64, 256, 4, 128); and at the few-eval and DDPM recipes'
+   4, 128) and (64, 256, 4, 128), and at the ``latent_dit`` DiT-XL/2's
+   (128, 256, 16, 72) as fused-qkv views; and at the few-eval and DDPM recipes'
    (``consistency``, ``latent_consistency``, ``latent_distill``, ``ddpm``)
    (shape, batch) pairs not held above: their samplers' at batch 32 and their
    train steps' at batch 256 (the flagship UNet and encoder, and the flash
@@ -380,6 +381,9 @@ def check_flash_kernels(gen, dev, errs: dict, path_cases: list = ()) -> int:
                   "flash_attention_bwd_dq": 0.0}
     flash_cases = [(BATCH, 16, 4, 128, "separate"), (TRAIN_BATCH, 16, 4, 128, "fused"),
                    (BATCH, 256, 4, 64, "fused")]
+    # the DiT-XL/2's token attention at the latent_dit cell's batch: 256 tokens x 16 heads
+    # of 72 (padded to the 128-wide head block), views of one (B, L, 3, H, D) qkv output
+    flash_cases += [(128, 256, 16, 72, "fused")]
     flash_cases += [(*case, "fused") for case in dict.fromkeys(path_cases)]
     flash_cases += [(4, length, 4, d, "fused") for length in (16, 17, 100, 256, 508)
                     for d in (32, 64, 128)]

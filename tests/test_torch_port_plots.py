@@ -437,11 +437,12 @@ DIFFUSION = [k for k, r in common.RECIPES.items() if r.kind in common.SAMPLED_KI
 
 @pytest.mark.parametrize("recipe", DIFFUSION)
 def test_eval_sampler_takes_the_jax_defaults(monkeypatch, recipe):
-    """Each of the eight diffusion recipes' callback samples with its kind's
+    """Each of the nine diffusion recipes' (the JAX package's eight and the
+    port's ``latent_dit``) callback samples with its kind's
     sampler at the JAX step factories' defaults: EDM Heun at 25 steps, one
     eval from sigma_max and one refinement at sigma 1, DDPM's ``DDPMConfig``;
     with a latent recipe's autoencoder."""
-    assert len(DIFFUSION) == 8
+    assert len(DIFFUSION) == 9
     kind = common.RECIPES[recipe].kind
     jax_defaults = {
         "edm": inspect.signature(jsteps.make_edm_steps).parameters["num_sampling_steps"].default,

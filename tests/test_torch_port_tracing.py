@@ -10,9 +10,10 @@ import pytest
 import torch
 
 from tqdne_tpu_torch.cli.common import build_inference
+from tqdne_tpu_torch.models.dit import DiT
 from tqdne_tpu_torch.models.unet import UNet
 from tqdne_tpu_torch.train.loop import Trainer
-from tqdne_tpu_torch.train.state import TrainState, make_optimizer
+from tqdne_tpu_torch.train.state import TrainState, apply_updates, make_optimizer
 from tqdne_tpu_torch.train.steps import make_edm_steps
 from tqdne_tpu_torch.utils import randomize_
 from tqdne_tpu_torch.utils.tracing import span
@@ -28,7 +29,9 @@ PARENTS = {"tq::generate": {None}, "tq::sample": {"tq::generate"},
            "tq::norm": {"tq::denoise", "tq::decode"}, "tq::group_norm_silu": {"tq::norm"},
            "tq::attention": {"tq::denoise", "tq::decode"},
            "tq::loss": {None}, "tq::backward": {None}, "tq::update": {None},
-           "tq::group_norm_silu_backward": {"tq::backward"}}
+           "tq::group_norm_silu_backward": {"tq::backward"}, "tq::allreduce": {"tq::update"}}
+TINY_DIT = dict(input_size=8, patch_size=2, in_channels=4, out_channels=4, hidden_size=48,
+                depth=3, num_heads=2, frequency_embedding_size=16, cond_features=5)
 
 
 @pytest.fixture(autouse=True)
@@ -149,3 +152,31 @@ def test_trainer_profile_window_writes_the_fit_spans(tmp_path):
     for name in ("tq::fit.load", "tq::fit.step", "tq::fit.log", "tq::loss", "tq::backward",
                  "tq::update"):
         assert names.count(name) == 1, name
+
+
+def test_dit_spans_in_every_block():
+    """A DiT forward of 3 blocks: each block's attention projections (qkv and
+    out) and kernel call, its MLP, its two LayerNorm-modulations and two gated
+    residuals; the final layer's modulation once more; ``DiT.forwards`` counts
+    the forward."""
+    dit = randomize_(DiT(**TINY_DIT), 2)
+    x = torch.randn(2, 8, 8, 4, generator=torch.Generator().manual_seed(0))
+    before = DiT.forwards
+    spans = tq_spans(profiled(lambda: dit(x, torch.zeros(2), torch.zeros(2, 5))))
+    assert DiT.forwards == before + 1
+    names = [n for n, _ in spans]
+    depth = TINY_DIT["depth"]
+    assert {n: names.count(n) for n in set(names)} == {
+        "tq::attention": depth, "tq::attn_proj": 2 * depth, "tq::mlp": depth,
+        "tq::modulate": 4 * depth + 1}
+    assert all(parent is None for _, parent in spans), spans  # none nests in another
+
+
+def test_allreduce_span_inside_update():
+    """One process: ``apply_updates`` records ``tq::allreduce`` (which issues
+    nothing at world size 1) inside ``tq::update``, once a step."""
+    state, train_step, batch = tiny_train()
+    state.model(batch["signal"], torch.zeros(2), batch["cond"]).square().mean().backward()
+    spans = tq_spans(profiled(lambda: apply_updates(state)))
+    assert spans.count(("tq::allreduce", "tq::update")) == 1
+    assert [n for n, _ in spans] == ["tq::update", "tq::allreduce"]

@@ -5,7 +5,11 @@ fixed-batch ``sampler`` for serving, ``build_inference``, ``parse_dtype``,
 ``load_ae_variables`` as ``frozen_autoencoder``, ``signal_shape``,
 ``dataset_feature_stats`` and the flags the train CLI reads), and the table
 of ported recipes (``RECIPES``, the JAX ``tqdne_tpu/cli/train.py:RECIPES``)
-that every CLI reads.
+that every CLI reads, with the port's own ``latent_dit`` (DiT-XL/2 in the
+flagship's place, ``models.dit``).  A recipe's ``network`` (``unet`` or
+``dit``) chooses the denoiser on every route: ``build_network`` at the preset,
+``stored_network`` at the widths a run's ``hparams.json`` or an artifact's
+manifest stores under that key.
 
 Weights come from ``.pt`` state dicts written by
 ``python -m tqdne_tpu_torch.utils.convert`` from the JAX package's flax
@@ -37,6 +41,7 @@ from tqdne_tpu_torch.diffusion import ddpm as ddpm_lib
 from tqdne_tpu_torch.diffusion.consistency import sample_consistency
 from tqdne_tpu_torch.diffusion.distillation import sample_distilled
 from tqdne_tpu_torch.models.autoencoder import AutoencoderKL
+from tqdne_tpu_torch.models.dit import DiT
 from tqdne_tpu_torch.models.unet import UNet
 from tqdne_tpu_torch.nn.layers import set_compute_dtype
 from tqdne_tpu_torch.nn.quant import int8_scope
@@ -61,6 +66,8 @@ DTYPES = {"f32": torch.float32, "float32": torch.float32, "bf16": torch.bfloat16
           "bfloat16": torch.bfloat16}
 TINY_CHANNELS = 32  # model_channels of the --tiny UNet and autoencoder
 TINY_CLASSIFIER = {"model_channels": 16, "out_channels": 32}  # the --tiny classifier encoder
+TINY_DIT = {"hidden_size": 96, "depth": 2, "num_heads": 4}  # the --tiny DiT: heads of 24
+NETWORKS = {"unet": UNet, "dit": DiT}
 
 
 @dataclasses.dataclass
@@ -76,6 +83,7 @@ class Recipe:
     optimizer: str = "adam"
     weight_decay: float = 0.0
     ema_decay: float = 0.999
+    network: str = "unet"  # the denoiser: unet | dit (the hparams.json key of its widths)
 
 
 def _autoencoder(name, config_cls, dims, epochs, batch):
@@ -94,6 +102,8 @@ RECIPES = {
     "edm": Recipe("EDM-128x128-LogSpectrogram", configs.SpectrogramConfig, 2, 300, 64),
     "latent_edm": Recipe(RUN_NAME, configs.LatentSpectrogramConfig, 2, 200, 256, latent=True,
                          ae_name=AE_NAME),
+    "latent_dit": Recipe("Latent-DiT-XL2-32x32x8-LogSpectrogram", configs.LatentSpectrogramConfig,
+                         2, 200, 256, latent=True, ae_name=AE_NAME, network="dit"),
     "classifier": Recipe("Classifier-LogSpectrogram", configs.SpectrogramClassificationConfig, 2,
                          110, 64, "classifier", ema_decay=0.0),
     "consistency": Recipe("Consistency-MovingAvg", configs.MovingAverageEnvelopeConfig, 1, 200,
@@ -204,6 +214,44 @@ def build_unet(config, in_channels: int, out_channels: int, dtype=None, *, dims:
     get = configs.get_1d_unet_config if dims == 1 else configs.get_2d_unet_config
     ucfg = get(config, in_channels, out_channels) | overrides
     return set_compute_dtype(UNet(**ucfg), dtype), ucfg
+
+
+def build_network(recipe: Recipe, config, channels: int, dtype=None, *, tiny: bool = False,
+                  **overrides):
+    """The recipe's denoiser preset over ``channels`` in and out (the UNet's
+    ``build_unet``, or the DiT's ``configs.get_dit_config``), computing in
+    ``dtype`` over f32 parameters, at the ``--tiny`` widths when ``tiny``;
+    returns (module, its config)."""
+    if recipe.network == "dit":
+        cfg = configs.get_dit_config(config, channels) | (TINY_DIT if tiny else {}) | overrides
+        return set_compute_dtype(DiT(**cfg), dtype), cfg
+    tiny_over = {"model_channels": TINY_CHANNELS} if tiny else {}
+    return build_unet(config, channels, channels, dtype, dims=recipe.dims,
+                      **tiny_over | overrides)
+
+
+def stored_network(recipe: Recipe, hparams: dict) -> torch.nn.Module:
+    """The recipe's denoiser at the widths ``hparams`` stores under its
+    ``network`` key (a run's ``hparams.json``, an artifact's manifest)."""
+    if recipe.network not in hparams:
+        raise SystemExit(f"the stored hyperparameters hold no {recipe.network!r} widths (keys: "
+                         f"{', '.join(sorted(hparams))})")
+    return NETWORKS[recipe.network](**tuplify(hparams[recipe.network]))
+
+
+def refuse_options(recipe_key: str, *, int8: bool = False, spatial: int = 0) -> None:
+    """SystemExit for ``--int8`` or ``--spatial`` on a recipe whose denoiser is
+    not the UNet: the int8 mode quantizes convolutions and the spatial split
+    exchanges convolution halos and GroupNorm statistics, and the DiT has
+    neither."""
+    recipe = RECIPES.get(recipe_key)
+    if recipe is None or recipe.network == "unet":
+        return
+    for flag, on in (("--int8", int8), ("--spatial", spatial > 1)):
+        if on:
+            raise SystemExit(f"{flag} does not apply to recipe {recipe_key!r}: its "
+                             f"{recipe.network} has no convolutions or GroupNorms to quantize "
+                             "or split")
 
 
 def signal_shape(config) -> tuple[int, ...]:
@@ -339,7 +387,8 @@ def add_common_args(parser):
 
 
 class InferenceBundle:
-    """A sampleable recipe: the UNet, the frozen autoencoder of a latent
+    """A sampleable recipe: the denoiser (``unet``: the UNet, or the DiT of
+    ``latent_dit``), the frozen autoencoder of a latent
     recipe (None otherwise), the representation that turns the sampled
     signal into waveforms, and the sampler of the recipe's ``kind``: the EDM
     ODE (``solver``, ``num_steps`` as its steps), few-eval consistency
@@ -456,23 +505,24 @@ def build_inference(recipe_key: str = "latent_edm", *, workdir=None, unet_weight
                     refine_sigma: float = 1.0, int8: bool = False,
                     spatial: int = 0) -> InferenceBundle:
     """Build the sampler of a diffusion recipe on ``device`` (``cuda``
-    unless asked): an EDM recipe (``latent_edm``, ``edm``, ``1d_edm``,
-    ``1d_latent_edm``; ``solver`` heun or dpmpp_2m), a consistency recipe
+    unless asked): an EDM recipe (``latent_edm``, ``latent_dit``, ``edm``,
+    ``1d_edm``, ``1d_latent_edm``; ``solver`` heun or dpmpp_2m), a consistency recipe
     (``consistency``, ``latent_consistency``), the distilled student
     (``latent_distill``) or ``ddpm``.  ``num_steps`` counts the EDM ODE's
     steps, or the network evals of the few-eval samplers, whose refinement
     passes run at ``refine_sigma`` in the ``consistency_noise`` convention
     (``auto``, ``song`` or ``reference``); DDPM runs its 1000 steps.
 
-    The UNet's weights come from the first of: its ``.pt`` state dict
-    (``unet_weights``); a reference Lightning checkpoint converted on the fly
-    (``edm_checkpoint``, its EMA weights where it holds them); an exported
-    artifact (``exported_weights``, ``cli.export_weights``: digest-checked
-    against its manifest, the UNet built at the manifest's widths); the port's
-    run ``run_name`` (default: the recipe's) in ``workdir``, its newest
-    checkpoint's EMA weights, the model rebuilt at the widths its
-    ``hparams.json`` stores, as the JAX ``build_inference`` rebuilds it; and,
-    without a workdir, seeded random weights (``init_seed``) at the preset.
+    The denoiser (the recipe's ``network``) takes its weights from the first
+    of: its ``.pt`` state dict (``unet_weights``); a reference Lightning
+    checkpoint converted on the fly (``edm_checkpoint``, its EMA weights where
+    it holds them; UNets only); an exported artifact (``exported_weights``,
+    ``cli.export_weights``: digest-checked against its manifest, the network
+    built at the manifest's widths); the port's run ``run_name`` (default: the
+    recipe's) in ``workdir``, its newest checkpoint's EMA weights, the model
+    rebuilt at the widths its ``hparams.json`` stores, as the JAX
+    ``build_inference`` rebuilds it; and, without a workdir, seeded random
+    weights (``init_seed``) at the preset.
     A latent recipe's autoencoder likewise: ``ae_weights``,
     ``autoencoder_checkpoint``, the run ``ae_name`` (default: the recipe's),
     random.  ``bundle.provenance`` records the source (``run_name``,
@@ -481,17 +531,18 @@ def build_inference(recipe_key: str = "latent_edm", *, workdir=None, unet_weight
     ``weights_sha256``).
     ``dtype``: compute dtype; bf16 casts the bundle's UNet parameters once
     (the JAX ``cast_params``) and runs the autoencoder's convolutions in bf16.
-    ``tiny``: 32-channel presets (the JAX ``--tiny`` widths).  ``gl_iters``
+    ``tiny``: 32-channel presets (the JAX ``--tiny`` widths; ``TINY_DIT``).  ``gl_iters``
     is refused by a recipe that has no Griffin-Lim.
     ``int8``: the sampler's convolutions run in the int8 mode (``nn.quant``;
     the caller's other models, a classifier, keep theirs).  ``spatial`` K > 1:
     an EDM recipe samples each batch split K ways along its first spatial axis
     over a ``("data", "model")`` mesh of the launched ranks
     (``parallel.spatial``), the weights replicated from rank 0; at most 1
-    changes nothing.
+    changes nothing.  Neither applies to ``latent_dit`` (``refuse_options``).
     """
     if recipe_key not in RECIPES:
         raise SystemExit(f"unknown recipe {recipe_key!r} (have: {', '.join(RECIPES)})")
+    refuse_options(recipe_key, int8=int8, spatial=spatial)
     recipe = RECIPES[recipe_key]
     if recipe.kind not in SAMPLED_KINDS:
         raise SystemExit(f"recipe {recipe_key!r} has no sampler (kind={recipe.kind})")
@@ -520,7 +571,6 @@ def build_inference(recipe_key: str = "latent_edm", *, workdir=None, unet_weight
     provenance = {"run_name": run_name or recipe.name, "recipe": recipe_key}
 
     autoencoder = None
-    preset = {"model_channels": TINY_CHANNELS} if tiny else {}
     if recipe.latent:
         if ae_weights is None and autoencoder_checkpoint is None and workdir is not None:
             state, stored = run_checkpoint(config, ae_name or recipe.ae_name)
@@ -540,14 +590,16 @@ def build_inference(recipe_key: str = "latent_edm", *, workdir=None, unet_weight
 
     if unet_weights is edm_checkpoint is exported_weights is None and workdir is not None:
         state, stored = run_checkpoint(config, run_name or recipe.name, provenance)
-        unet = UNet(**tuplify(stored["unet"]))
+        unet = stored_network(recipe, stored)
         unet.load_state_dict(state)
     else:
-        unet, ucfg = build_unet(config, model_shape[-1], model_shape[-1], dims=recipe.dims,
-                                **preset)
+        unet, ucfg = build_network(recipe, config, model_shape[-1], tiny=tiny)
         if unet_weights is not None or edm_checkpoint is None and exported_weights is None:
             load_weights(unet, unet_weights, init_seed)
         elif edm_checkpoint is not None:
+            if recipe.network != "unet":
+                raise SystemExit(f"a reference Lightning checkpoint holds a UNet; recipe "
+                                 f"{recipe_key!r} samples a {recipe.network}")
             sd, _ = load_lightning_checkpoint(edm_checkpoint, prefix="unet", ema=True)
             unet.load_state_dict(convert_unet(sd, ucfg))
             provenance["torch_checkpoint"] = str(edm_checkpoint)
@@ -559,8 +611,8 @@ def build_inference(recipe_key: str = "latent_edm", *, workdir=None, unet_weight
             if manifest is not None:
                 provenance["checkpoint_step"] = manifest.get("checkpoint_step")
                 provenance["weights_sha256"] = manifest.get("sha256")
-                if "unet" in manifest.get("hparams", {}):  # the artifact's own widths
-                    unet = UNet(**tuplify(manifest["hparams"]["unet"]))
+                if recipe.network in manifest.get("hparams", {}):  # the artifact's own widths
+                    unet = stored_network(recipe, manifest["hparams"])
             unet.load_state_dict(flax_to_state_dict(params))
     if dtype == torch.bfloat16:
         unet.to(dtype)  # the bundle's own UNet: its parameters are cast once

@@ -1,6 +1,6 @@
 """Generate over a dataset split on a GPU and write everything the report
 needs to HDF5: the port of ``tqdne_tpu/cli/evaluate.py`` for every diffusion
-recipe (``--config``): the EDM recipes ``latent_edm`` (default), ``edm``,
+recipe (``--config``): the EDM recipes ``latent_edm`` (default), ``latent_dit``, ``edm``,
 ``1d_edm`` and ``1d_latent_edm``, the few-eval ``consistency``,
 ``latent_consistency`` and ``latent_distill`` (``--consistency-noise``,
 ``--refine-sigma``; ``--solver consistency`` or ``distill`` routes
@@ -133,8 +133,8 @@ def main(argv=None):
                                      description=__doc__.split("\n\n")[0])
     parser.add_argument("--workdir", type=str, required=True)
     parser.add_argument("--config", type=str, default="latent_edm",
-                        help="recipe: latent_edm, edm, 1d_edm, 1d_latent_edm, consistency, "
-                             "latent_consistency, latent_distill or ddpm")
+                        help="recipe: latent_edm, latent_dit, edm, 1d_edm, 1d_latent_edm, "
+                             "consistency, latent_consistency, latent_distill or ddpm")
     parser.add_argument("--split", type=str, default="test",
                         choices=["train", "validation", "test", "train_validation", "full"])
     parser.add_argument("-b", "--batchsize", type=int, default=32)

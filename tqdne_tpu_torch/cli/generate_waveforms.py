@@ -1,7 +1,7 @@
 """Sample accelerograms from a diffusion recipe on a GPU.
 
 The port of ``tqdne_tpu/cli/generate_waveforms.py`` for the EDM recipes
-``latent_edm`` (default), ``edm``, ``1d_edm`` and ``1d_latent_edm``, the
+``latent_edm`` (default), ``latent_dit``, ``edm``, ``1d_edm`` and ``1d_latent_edm``, the
 few-eval ``consistency``, ``latent_consistency`` and ``latent_distill``, and
 ``ddpm`` (``--config``): conditioning from flags or a CSV
 (hypocentral_distance, magnitude, vs30, hypocentre_depth, azimuthal_gap[,
@@ -92,8 +92,8 @@ def main(argv=None):
     parser.add_argument("--csv", type=str, default=None)
     parser.add_argument("--outfile", type=str, required=True)
     parser.add_argument("--config", type=str, default="latent_edm",
-                        help="recipe: latent_edm, edm, 1d_edm, 1d_latent_edm, consistency, "
-                             "latent_consistency, latent_distill or ddpm")
+                        help="recipe: latent_edm, latent_dit, edm, 1d_edm, 1d_latent_edm, "
+                             "consistency, latent_consistency, latent_distill or ddpm")
     parser.add_argument("--workdir", type=str, default=None,
                         help="read each model without a weights file from the port's run here")
     parser.add_argument("--name", type=str, default=None,
@@ -154,6 +154,7 @@ def main(argv=None):
         raise SystemExit("give the weights files (--unet-weights, --edm-checkpoint or --weights, "
                          "and --ae-weights or --autoencoder-checkpoint for a latent recipe) or "
                          "the --workdir of the runs")
+    common.refuse_options(args.config, int8=args.int8, spatial=args.spatial)
     if args.spatial > 1 and getattr(RECIPES.get(args.config), "kind", None) != "edm":
         raise SystemExit(f"--spatial serves EDM recipes only (got --config {args.config})")
     common.run_ranks(generate, args, args.spatial)

@@ -1,6 +1,6 @@
 """Long-lived HTTP generation service on a GPU: the port of
 ``tqdne_tpu/cli/serve.py`` for every diffusion recipe (``--config``): the EDM
-recipes ``latent_edm`` (default), ``edm``, ``1d_edm`` and ``1d_latent_edm``
+recipes ``latent_edm`` (default), ``latent_dit``, ``edm``, ``1d_edm`` and ``1d_latent_edm``
 (``--solver heun`` or ``dpmpp_2m``), the few-eval ``consistency``,
 ``latent_consistency`` and ``latent_distill`` (``--solver consistency`` or
 ``distill`` routes ``latent_edm`` to them; 2 network evals unless
@@ -57,8 +57,8 @@ def parse_args(argv=None):
                              "from the port's run here, and its dataset feeds "
                              "--stats-from-dataset")
     parser.add_argument("--config", type=str, default="latent_edm",
-                        help="recipe: latent_edm, edm, 1d_edm, 1d_latent_edm, consistency, "
-                             "latent_consistency, latent_distill or ddpm")
+                        help="recipe: latent_edm, latent_dit, edm, 1d_edm, 1d_latent_edm, "
+                             "consistency, latent_consistency, latent_distill or ddpm")
     parser.add_argument("--name", type=str, default=None,
                         help="run name under outputs/ (default: the recipe's run name)")
     parser.add_argument("--ae-name", type=str, default=None,
@@ -103,6 +103,7 @@ def parse_args(argv=None):
                         help="quality-gated fast mode: the sampler's convolutions in int8")
     args = parser.parse_args(argv)
     args.config, args.num_steps = common.route_solver(args.config, args.solver, args.num_steps)
+    common.refuse_options(args.config, int8=args.int8, spatial=args.spatial)
     if args.spatial > 1 and getattr(RECIPES.get(args.config), "kind", None) != "edm":
         raise SystemExit(f"--spatial serves EDM recipes only (got --config {args.config})")
     return args

@@ -1,5 +1,6 @@
 """Train on a GPU: the port of ``tqdne_tpu/cli/train.py`` for all eleven of
-its recipes, with the JAX run names, epochs, batches and optimizers:
+its recipes, with the JAX run names, epochs, batches and optimizers, and the
+port's own ``latent_dit``:
 
   1d_edm              EDM-MovingAvg                              200 epochs, batch 256, Adam
   1d_autoencoder      Autoencoder-1024x16-MovingAvg              200 epochs, batch 256, AdamW
@@ -7,6 +8,7 @@ its recipes, with the JAX run names, epochs, batches and optimizers:
   autoencoder         Autoencoder-32x32x4-LogSpectrogram         300 epochs, batch 128, AdamW
   edm                 EDM-128x128-LogSpectrogram                 300 epochs, batch 64, Adam
   latent_edm          Latent-EDM-32x32x8-LogSpectrogram          200 epochs, batch 256, Adam
+  latent_dit          Latent-DiT-XL2-32x32x8-LogSpectrogram      200 epochs, batch 256, Adam
   classifier          Classifier-LogSpectrogram                  110 epochs, batch 64, Adam
   consistency         Consistency-MovingAvg                      200 epochs, batch 256, RAdam
   latent_consistency  Latent-Consistency-32x32x8-LogSpectrogram  200 epochs, batch 256, RAdam
@@ -26,8 +28,9 @@ A latent recipe trains after its autoencoder, in one workdir:
     python -m tqdne_tpu_torch.cli.train classifier --workdir W [--tiny]
 
 and the same with ``1d_autoencoder``, ``precompute_latents --config
-1d_latent_edm`` and ``1d_latent_edm``; ``latent_consistency`` trains like
-``latent_edm``; ``1d_edm``, ``edm``, ``consistency`` and ``ddpm`` need no
+1d_latent_edm`` and ``1d_latent_edm``; ``latent_consistency`` and ``latent_dit`` (DiT-XL/2 in
+the UNet's place; its widths stored under ``dit`` in ``hparams.json``) train
+like ``latent_edm``; ``1d_edm``, ``edm``, ``consistency`` and ``ddpm`` need no
 autoencoder.  ``latent_distill`` distills the EDM run ``--teacher`` (default:
 its run name with ``Distill`` -> ``EDM``, the flagship): the student is
 rebuilt at the teacher's stored widths and starts from its EMA weights.  A
@@ -229,9 +232,10 @@ def _run_diffusion(recipe, args, config, device, dtype, batch, epochs, device_re
                "ae_name": recipe.ae_name, "dtype": args.dtype}
     kw = dict(autoencoder=ae, latent_moments=lat_path is not None,
               device_representation=device_rep)
-    overrides = ({"model_channels": common.TINY_CHANNELS} if args.tiny else {}) | _dropout(args)
-    unet, ucfg = common.build_unet(config, model_shape[-1], model_shape[-1], dtype,
-                                   dims=recipe.dims, **overrides)
+    if args.dropout is not None and recipe.network != "unet":
+        raise SystemExit(f"--dropout: recipe {args.recipe!r}'s {recipe.network} has no dropout")
+    unet, ucfg = common.build_network(recipe, config, model_shape[-1], dtype, tiny=args.tiny,
+                                      **_dropout(args))
     init_like_flax_(unet, args.seed)
     if recipe.kind == "distill":
         # the EDM teacher's run (default: the run name with Distill -> EDM) at its stored
@@ -251,7 +255,7 @@ def _run_diffusion(recipe, args, config, device, dtype, batch, epochs, device_re
         steps = ddpm_lib.make_ddpm_steps(ddpm_lib.DDPMConfig(), ema_decay=recipe.ema_decay)
     else:
         steps = make_edm_steps(ema_decay=recipe.ema_decay, **kw)
-    hparams["unet"] = ucfg
+    hparams[recipe.network] = ucfg
     callback = _sampling_eval(recipe, args, config, representation, val_loader, ae, model_shape,
                               device)
     return _fit(recipe, args, config, device, _placed(unet, device), train_loader, val_loader,

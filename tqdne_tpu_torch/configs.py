@@ -6,7 +6,9 @@ conditioning feature names, the ``SpectrogramConfig``,
 ``LatentSpectrogramConfig``, ``MovingAverageEnvelopeConfig`` and
 ``LatentMovingAverageEnvelopeConfig`` fields, the magnitude and distance
 bins, ``SpectrogramClassificationConfig`` and the 1D and 2D UNet /
-autoencoder / classifier-encoder presets, with the same values.
+autoencoder / classifier-encoder presets, with the same values; and the DiT
+preset of the ``latent_dit`` recipe (``get_dit_config``), which the JAX
+package has not.
 """
 
 from __future__ import annotations
@@ -181,4 +183,21 @@ def get_2d_unet_config(
         "num_heads": 4,
         "dropout": 0.1,
         "use_causal_mask": use_causal_mask,
+    }
+
+
+def get_dit_config(config, channels: int) -> dict:
+    """DiT-XL/2 (arXiv 2212.09748, ``DiT_XL_2``: depth 28, hidden 1152, patch 2,
+    16 heads) over the flagship's 8 x 32 x 32 latent: 256 tokens."""
+    return {
+        "input_size": 32,
+        "patch_size": 2,
+        "in_channels": channels,
+        "out_channels": channels,
+        "hidden_size": 1152,
+        "depth": 28,
+        "num_heads": 16,
+        "mlp_ratio": 4.0,
+        "frequency_embedding_size": 256,
+        "cond_features": len(config.features_keys),
     }

@@ -150,8 +150,10 @@ class DeviceResidentLoader:
     ``drop_last``, as ``BatchLoader`` trains.
 
     For small training sets (the flagship's cached latent moments): a step
-    then moves one index tensor to the device instead of a batch.  The
-    caller decides with ``fits()`` and keeps ``BatchLoader`` otherwise.
+    then moves one index tensor to the device instead of a batch, from pinned
+    memory without waiting, so the host issues the next step while the card
+    runs the last.  The caller decides with ``fits()`` and keeps
+    ``BatchLoader`` otherwise.
     """
 
     def __init__(self, dataset, batch_size: int, *, keys: tuple[str, ...], seed: int = 0,
@@ -183,5 +185,8 @@ class DeviceResidentLoader:
                                  self.seed + self.epoch)
         self.epoch += 1
         for batch_idx in batches:
-            idx = torch.from_numpy(batch_idx).to(self.device)
+            idx = torch.from_numpy(batch_idx)
+            if self.device.type == "cuda":  # a pageable copy would wait for the queued steps
+                idx = idx.pin_memory()
+            idx = idx.to(self.device, non_blocking=True)
             yield {k: v.index_select(0, idx) for k, v in self._resident.items()}

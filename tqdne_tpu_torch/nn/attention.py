@@ -14,13 +14,16 @@ shard are gathered, the kernel attends over all the tokens (it takes q, k
 and v of one shape, so each rank repeats the whole attention) and the
 block keeps this shard's rows; the gather's backward sums the gradient over
 the shards, so dK, dV and dQ of each rank's rows reach their owners.
+
+``TokenAttention`` is the token-major entry of ``models.dit``: (B, L, C) in
+and out, dense projections with biases, the same ``flash_attention`` call.
 """
 
 from __future__ import annotations
 
 from torch import nn
 
-from tqdne_tpu_torch.nn.layers import Norm32, conv_nd
+from tqdne_tpu_torch.nn.layers import Dense, Norm32, conv_nd
 from tqdne_tpu_torch.ops.flash_attention import flash_attention
 from tqdne_tpu_torch.parallel import spatial
 from tqdne_tpu_torch.utils.tracing import span
@@ -58,3 +61,29 @@ class AttentionBlock(nn.Module):
         if sharded:
             a = a.narrow(2, scope.model_rank * x.shape[2], x.shape[2])
         return x + self.proj_out(a)
+
+
+class TokenAttention(nn.Module):
+    """Multi-head self-attention over tokens (B, L, C), DiT's (timm's
+    ``Attention`` with ``qkv_bias``): a biased dense projection to 3C in the
+    channel order [q|k|v] x heads x head_dim, ``flash_attention`` (q and k
+    each scaled by d^-1/4, so d^-1/2 in all) on views of it, and a biased
+    dense projection out.  No norm, no residual: the block around it adds
+    both."""
+
+    def __init__(self, channels: int, num_heads: int):
+        super().__init__()
+        if channels % num_heads:
+            raise ValueError(f"{channels} channels do not split into {num_heads} heads")
+        self.num_heads = num_heads
+        self.qkv = Dense(channels, 3 * channels)
+        self.proj = Dense(channels, channels)
+
+    def forward(self, x):  # (B, L, C)
+        b, length, c = x.shape
+        with span("attn_proj"):
+            qkv = self.qkv(x).view(b, length, 3, self.num_heads, c // self.num_heads)
+        with span("attention"):
+            a = flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+        with span("attn_proj"):
+            return self.proj(a.reshape(b, length, c))

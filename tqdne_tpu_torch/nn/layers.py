@@ -14,6 +14,10 @@ weight's dtype, which is how a model whose weights were cast once for
 inference runs.  ``Norm32`` returns its input's dtype with f32 statistics and
 keeps its scale and bias in their own dtype.
 
+``modulate`` and ``gated_add`` are the token-major (B, L, C) LayerNorm with
+per-sample modulation and the gated residual of ``models.dit``, which the JAX
+package has no counterpart of.
+
 Two scopes change the layers' arithmetic, not their parameters:
 ``nn.quant.int8_scope`` runs every convolution as ``quant_conv`` (on its input
 and weight as they come, as the JAX ``QuantConv`` does), and
@@ -181,6 +185,22 @@ class Downsample(nn.Module):
 
     def forward(self, x):
         return self.pool(x, 2, 2) if self.op is None else self.op(x)
+
+
+def modulate(x, shift, scale):
+    """DiT's ``modulate(norm(x), shift, scale)``: LayerNorm over the channels of
+    the tokens ``x`` (B, L, C) without affine, eps 1e-6 and f32 statistics,
+    then the per-sample ``x (1 + scale) + shift`` with ``shift`` and ``scale``
+    (B, C), in ``x``'s dtype."""
+    with span("modulate"):
+        h = F.layer_norm(x, x.shape[-1:], eps=1e-6)
+        return torch.addcmul(shift[:, None], h, 1 + scale[:, None])
+
+
+def gated_add(x, gate, y):
+    """DiT's gated residual ``x + gate y`` with a per-sample ``gate`` (B, C)."""
+    with span("modulate"):
+        return torch.addcmul(x, gate[:, None], y)
 
 
 class MLP(nn.Module):

@@ -115,8 +115,9 @@ def apply_updates(state: TrainState, ema_decay: float = 0.999) -> None:
     with span("update"):
         optimizer = state.optimizer
         scope = spatial.current()  # spatial: sum over the model group, average over data
-        all_reduce_gradients_([p for g in optimizer.param_groups for p in g["params"]],
-                              scope.data_size if scope is not None else None)
+        with span("allreduce"):
+            all_reduce_gradients_([p for g in optimizer.param_groups for p in g["params"]],
+                                  scope.data_size if scope is not None else None)
         # the optimizer reads ``found_inf``; a guard disarmed later must not leave it set
         optimizer.found_inf = _reject_nonfinite(state) if state.skip_nonfinite else None
         if state.lr_schedule is not None:

@@ -50,15 +50,17 @@ def randomize_(module: torch.nn.Module, seed: int) -> torch.nn.Module:
     return module
 
 
-# attribute names of the layers the JAX UNet creates with zero_init=True
-_ZERO_INIT = ("out_conv", "proj_out")
+# attribute names of the layers the JAX UNet creates with zero_init=True, and of DiT's
+# adaLN-Zero modulations and final dense layer
+_ZERO_INIT = ("out_conv", "proj_out", "adaLN_modulation", "linear")
 
 
 @torch.no_grad()
 def init_like_flax_(module: torch.nn.Module, seed: int) -> torch.nn.Module:
     """Initialise as the JAX modules' ``init`` does (the draws differ): conv and
     dense weights lecun-normal (truncated at 2 sigma), biases zero, the UNet's
-    zero-init layers (``out_conv``, ``proj_out``) zero, norms 1 and 0, and the
+    zero-init layers (``out_conv``, ``proj_out``) and DiT's (``adaLN_modulation``,
+    ``final_layer.linear``) zero, norms 1 and 0, and the
     Fourier frequencies N(0, scale^2)."""
     from tqdne_tpu_torch.nn.layers import GaussianFourierProjection, Norm32, _Cast
 

@@ -22,10 +22,18 @@ The spans, outermost first (each wraps the call at that place, nothing finer):
   GroupNorm; ``tq::group_norm_silu``: the GroupNorm itself;
   ``tq::group_norm_silu_backward``: its backward's recompute;
   ``tq::attention``: the attention block's call into ``flash_attention``.
+- The DiT's (``models.dit``): ``tq::modulate``: each LayerNorm with its
+  per-sample modulation and each gated residual add (``nn.layers.modulate``,
+  ``gated_add``); ``tq::mlp``: each block's MLP (fc1, tanh-GELU, fc2);
+  ``tq::attn_proj``: the token attention's qkv and output projections (its
+  ``flash_attention`` call stays in ``tq::attention``).  The counter
+  ``DiT.forwards`` counts the network's forward calls.
 - ``tq::loss``, ``tq::backward``: a recipe's ``train_step``, its forward with
   the draws and the loss, then ``loss.backward()``; ``tq::update``:
   ``apply_updates`` (the gradient all-reduce, the guard, the optimizer,
-  ``zero_grad`` and the EMA).
+  ``zero_grad`` and the EMA); ``tq::allreduce``: the all-reduce of the
+  gradients inside it (recorded at world size 1 too, where it issues
+  nothing).
 - ``tq::fit.load``, ``tq::fit.step``, ``tq::fit.log``: ``Trainer.fit``'s
   ``next(loader)``, its call of the step and the logging sync;
   ``Trainer(profile_steps=)`` records a window of them.
