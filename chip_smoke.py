@@ -4,7 +4,7 @@
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. build the three CUDA sources of ``tqdne_tpu_torch/csrc`` (one nvcc each,
+1. build the four CUDA sources of ``tqdne_tpu_torch/csrc`` (one nvcc each,
    in parallel);
 2. hold each kernel against its plain PyTorch version on the card: GroupNorm
    (+SiLU) at every (S, C) that sampling's UNet and decoder, training's UNet
@@ -37,7 +37,10 @@ Phases (any failure exits non-zero and prints no result line):
    kernels at (256, 16, 4, 128)); and at the shapes of 4n below (GroupNorm without SiLU
    at every scale-shift ``out_norm`` of the options UNet, its resample-free
    autoencoder's, the paired 1D UNet's at batch 64 with its flash kernels at
-   (64, 508, 4, 64));
+   (64, 508, 4, 64)); and the convolutions' bias epilogue at every convolution
+   output of the flagship UNet and decoder at batch 1024 and of the
+   ``1d_edm`` UNet at 128 and 256, channels innermost and channels first, f32
+   and bf16, with and without the ResBlock's embedding shift, bit for bit;
 3. full-width flagship sampling in f32, 2 Heun steps, once through the
    kernels and once through the plain versions: the decoded spectrograms
    must agree (TF32 off); the full-width f32 classifier the same way (its
@@ -52,7 +55,9 @@ Phases (any failure exits non-zero and prints no result line):
    full-width f32 ``consistency`` and ``latent_distill`` sample (2 network
    evals, the same draws) and one f32 step of each few-eval and DDPM recipe;
 4. the main paths, each with the launch counters set to 0 just before it and
-   read just after: sampling (``build_inference`` + ``generate`` at full width
+   read just after (GroupNorm, flash forward and backward, and the bias
+   epilogue: 78 launches, 22 with a shift, per UNet eval and 18 per decode):
+   sampling (``build_inference`` + ``generate`` at full width
    in bf16, batch 32, Heun-25 then dpmpp_2m-10, each with 32 Griffin-Lim
    iterations, seeded random weights; waveforms must be finite
    (32, 3, 4064)), training (``Trainer.fit`` through ``BatchLoader`` over
@@ -172,7 +177,9 @@ Phases (any failure exits non-zero and prints no result line):
    profiled device time, DDPM's device ms a step, and each kernel per call
    at the new shapes (a shape and batch is timed once a run, and its row
    reused), and the callback's UNet eval and decode at batch 256; GroupNorm
-   without SiLU at the options UNet's shapes at batch 128.
+   without SiLU at the options UNet's shapes at batch 128; the bias epilogue
+   over one UNet eval and one decode and over one ``1d_edm`` UNet eval
+   beside its byte bound, its plain version and ATen's adds it replaced.
 
 Prints the card's name and power limit and a ``{"kernels": [...]}`` line,
 then, last, ``{"ok": true, "device": {...}}``.
@@ -589,6 +596,55 @@ def check_group_norm_backward(gen, dev, errs: dict, shapes, forced: bool = True)
     return bad
 
 
+def conv_output(b, shape, dtype, channels_last, gen, dev):
+    """A convolution's (B, C, *spatial) output of ``shape`` = (C, *spatial) in ``dtype``,
+    channels innermost in memory where ``channels_last``, a bias (C,) and a shift (B, C)."""
+    c, *sp = shape
+    if channels_last:
+        y = torch.randn((b, *sp, c), generator=gen, device=dev).to(dtype).movedim(-1, 1)
+    else:
+        y = torch.randn((b, c, *sp), generator=gen, device=dev).to(dtype)
+    bias = torch.randn(c, generator=gen, device=dev).to(dtype)
+    shift = torch.randn(b, c, generator=gen, device=dev).to(dtype)
+    return y, bias, shift
+
+
+def check_conv_bias_kernels(gen, dev, errs: dict, cases) -> int:
+    """The convolutions' bias epilogue against its plain version at each (batch, output
+    (C, *spatial)) of ``cases``, channels innermost and channels first, f32 and bf16, with
+    and without the shift: bit for bit, in place, one launch a call.  Returns the failures."""
+    from tqdne_tpu_torch.ops.conv_bias import conv_bias_add, conv_bias_add_plain
+
+    bad = n = 0
+    errs.setdefault("conv_bias_add", 0.0)
+    for b, shape in cases:
+        for channels_last in (True, False):
+            for dtype in (torch.float32, torch.bfloat16):
+                y, bias, shift = conv_output(b, shape, dtype, channels_last, gen, dev)
+                for shifted in (False, True):
+                    addend = shift if shifted else None
+                    got, want = y.clone(), y.clone()  # the clones keep y's strides
+                    launches = conv_bias_add.launches
+                    out = conv_bias_add(got, bias, addend)
+                    conv_bias_add_plain(want, bias, addend)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs().max().item()
+                    errs["conv_bias_add"] = max(errs["conv_bias_add"], err)
+                    n += 1
+                    if (out is not got or conv_bias_add.launches != launches + 1
+                            or got.stride() != y.stride() or not torch.equal(got, want)):
+                        bad += 1
+                        log(f"[check] conv_bias_add B={b} {shape} channels_last={channels_last} "
+                            f"{dtype} shift={shifted}: max_abs_err={err:.3e} MISMATCH")
+                    del got, want, out
+                del y, bias, shift
+                torch.cuda.empty_cache()
+    log(f"[check] conv_bias_add: {n} cases over {len(cases)} (batch, output) pairs, both "
+        f"layouts, f32 and bf16, with and without the shift: {bad} differ from the plain "
+        f"version, max_abs_err={errs['conv_bias_add']:.3e}")
+    return bad
+
+
 def gn_backward_timing(gen, dev, dtype, pdtype, s, c, g, silu, batch,
                        channels_first: bool = False) -> dict:
     """Device ms of one GroupNorm backward at (batch, S, C) with G groups: the kernel's entry
@@ -635,10 +691,12 @@ def gn_backward_timing(gen, dev, dtype, pdtype, s, c, g, silu, batch,
                 bound_ms=1e3 * nbytes / HBM_BYTES_PER_S)
 
 
+CONV_BIAS_KERNELS = ("bias_channels_kernel", "bias_rows_kernel")
 OWN_KERNELS = ("group_norm_silu_kernel", "group_norm_silu_bwd_kernel", "flash_fwd",
-               "flash_bwd_dkdv", "flash_bwd_dq")
+               "flash_bwd_dkdv", "flash_bwd_dq", *CONV_BIAS_KERNELS)
 KERNEL_CLASSES = (("group_norm_silu", ("group_norm_silu_kernel",)),
                   ("flash_attention", ("flash_fwd",)),
+                  ("conv_bias_add", CONV_BIAS_KERNELS),
                   ("convolution", ("conv", "xmma", "cudnn", "implicit", "gemm", "cutlass")),
                   ("fft", ("fft",)))
 
@@ -652,7 +710,8 @@ def profiled(fn):
     from tqdne_tpu_torch.ops.group_norm import group_norm_silu
 
     def count():
-        return sum(k.launches for k in launch_counters()) + group_norm_silu.backward_launches
+        return sum(k.launches for k in launch_counters() if not isinstance(k, ShiftedLaunches)
+                   ) + group_norm_silu.backward_launches
 
     before = count()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -696,6 +755,7 @@ TRAIN_CLASSES = (("group_norm_silu", ("group_norm_silu_kernel",)),
                  ("flash_fwd", ("flash_fwd",)),
                  ("flash_bwd_dkdv", ("flash_bwd_dkdv",)),
                  ("flash_bwd_dq", ("flash_bwd_dq",)),
+                 ("conv_bias_add", CONV_BIAS_KERNELS),
                  ("convolution_gemm", ("conv", "xmma", "cudnn", "implicit", "gemm", "cutlass",
                                        "wgrad", "dgrad")),
                  ("copies_and_casts", ("direct_copy", "copy_kernel")),
@@ -854,19 +914,22 @@ def guard_update_cost(state, windows: int = 8, calls: int = 20) -> dict:
 
 @contextlib.contextmanager
 def plain_versions():
-    """Run the models' GroupNorm and attention through the plain versions."""
+    """Run the models' GroupNorm, attention and convolution bias epilogue through the plain
+    versions."""
     from tqdne_tpu_torch.nn import attention as attention_mod
     from tqdne_tpu_torch.nn import layers as layers_mod
+    from tqdne_tpu_torch.ops.conv_bias import conv_bias_add_plain
     from tqdne_tpu_torch.ops.flash_attention import flash_attention_plain
     from tqdne_tpu_torch.ops.group_norm import group_norm_silu_plain
 
-    saved = layers_mod.group_norm_silu, attention_mod.flash_attention
-    layers_mod.group_norm_silu, attention_mod.flash_attention = (group_norm_silu_plain,
-                                                                 flash_attention_plain)
+    saved = layers_mod.group_norm_silu, attention_mod.flash_attention, layers_mod.conv_bias_add
+    layers_mod.group_norm_silu, attention_mod.flash_attention, layers_mod.conv_bias_add = (
+        group_norm_silu_plain, flash_attention_plain, conv_bias_add_plain)
     try:
         yield
     finally:
-        layers_mod.group_norm_silu, attention_mod.flash_attention = saved
+        layers_mod.group_norm_silu, attention_mod.flash_attention, layers_mod.conv_bias_add = \
+            saved
 
 
 def post(url: str, payload: dict) -> tuple[int, dict, float]:
@@ -947,7 +1010,7 @@ def serve_split(label: str, rounds: list, batches: int, issue: list, gen_issue: 
         + " x ".join(f"{k} {v:.3f}" for k, v in factors.items()))
 
 
-def serve_path(bundle, per_batch: tuple[int, int]) -> tuple[int, int]:
+def serve_path(bundle, per_batch: tuple[int, int, int]) -> tuple[int, int, int]:
     """The serving path: the HTTP server on loopback over ``bundle``, warmed
     up as the serve CLI does, then, with the launch counters set to 0 just
     before and read just after: SERVE_ROUNDS rounds of SERVE_CLIENTS
@@ -958,14 +1021,15 @@ def serve_path(bundle, per_batch: tuple[int, int]) -> tuple[int, int]:
     that they share one batch.  Then one JSON round and ``bundle.generate``'s
     rate in the same process.  The seeded and the coalesced rows must equal,
     bit for bit, a direct ``bundle.sampler`` call at the same seed on the
-    card.  ``per_batch``: the (GroupNorm, flash) launches of one device
-    batch.  Returns the counted launches."""
+    card.  ``per_batch``: the (GroupNorm, flash, bias epilogue) launches of
+    one device batch.  Returns the counted launches."""
     from argparse import Namespace
 
     import numpy as np
 
     from tqdne_tpu_torch import serving
     from tqdne_tpu_torch.cli.generate_waveforms import normalize, read_conditioning
+    from tqdne_tpu_torch.ops.conv_bias import conv_bias_add
     from tqdne_tpu_torch.ops.flash_attention import flash_attention
     from tqdne_tpu_torch.ops.group_norm import group_norm_silu
     from tqdne_tpu_torch.utils import fold_seed
@@ -991,7 +1055,7 @@ def serve_path(bundle, per_batch: tuple[int, int]) -> tuple[int, int]:
             for i in range(2)]
     try:
         torch.cuda.synchronize()
-        group_norm_silu.launches = flash_attention.launches = 0
+        group_norm_silu.launches = flash_attention.launches = conv_bias_add.launches = 0
         batches0, rows0 = batcher.batches_run, batcher.rows_served
         rounds = [serve_round(url, rows, "b64", SERVE_CLIENTS, SERVE_ROWS)
                   for _ in range(SERVE_ROUNDS)]
@@ -1011,7 +1075,7 @@ def serve_path(bundle, per_batch: tuple[int, int]) -> tuple[int, int]:
                 fail(f"coalesced request: done {p.done.is_set()}, error {p.error!r}")
         coalesced = np.concatenate([p.out for p in pending])
         pair_batches = batcher.batches_run - pair_batches0
-        counts = (group_norm_silu.launches, flash_attention.launches)
+        counts = (group_norm_silu.launches, flash_attention.launches, conv_bias_add.launches)
         batches, served = batcher.batches_run - batches0, batcher.rows_served - rows0
         json_round = serve_round(url, rows, "json", SERVE_CLIENTS, SERVE_ROWS)
     finally:
@@ -1048,8 +1112,8 @@ def serve_path(bundle, per_batch: tuple[int, int]) -> tuple[int, int]:
         f"{sum(r['rows'] for r in full_rounds) / sum(r['seconds'] for r in full_rounds):.2f}; "
         f"request latency p50 {percentile([t for r in full_rounds for t in r['latencies']], 0.5):.4f} s")
     log(f"[serve] counted window: batches_run {batches} for {requests} requests, rows_served "
-        f"{served}; launches group_norm_silu={counts[0]} flash_attention={counts[1]} (batches x "
-        f"{per_batch}); seeded repeat bit-identical {repeat_equal}, another seed differs "
+        f"{served}; launches group_norm_silu={counts[0]} flash_attention={counts[1]} "
+        f"conv_bias_add={counts[2]} (batches x {per_batch}); seeded repeat bit-identical {repeat_equal}, another seed differs "
         f"{other_differs}; served seeded rows bit-identical to a direct sampler call "
         f"{seeded_direct}; two unseeded requests in {pair_batches} batch, bit-identical to a "
         f"direct sampler call at the counter's seed {pair_direct}")
@@ -1065,7 +1129,7 @@ def serve_path(bundle, per_batch: tuple[int, int]) -> tuple[int, int]:
     if batches >= requests or served != want_rows:
         fail(f"serving: {batches} batches for {requests} requests, {served} rows served "
              f"(want {want_rows})")
-    if counts != (batches * per_batch[0], batches * per_batch[1]):
+    if counts != tuple(batches * n for n in per_batch):
         fail(f"serving launches {counts} != {batches} batches x {per_batch}")
     cond = torch.as_tensor(normalize(np.array(rows[:BATCH])), dtype=torch.float32)
     gen = torch.Generator(device=bundle.device).manual_seed(SEED)
@@ -1087,17 +1151,19 @@ def serve_path(bundle, per_batch: tuple[int, int]) -> tuple[int, int]:
     return counts
 
 
-def evaluate_path(bundle, classifier, per_batch: tuple[int, int]) -> tuple[int, int]:
+def evaluate_path(bundle, classifier,
+                  per_batch: tuple[int, int, int]) -> tuple[int, int, int]:
     """The evaluation path: EVAL_BATCHES ``evaluate_batch`` calls at batch 32
     over in-memory synthetic waveforms, with the launch counters set to 0
     just before and read just after, then ``report_from_arrays`` over their
     outputs; FID, IS and ASD must be finite.  ``per_batch``: the (GroupNorm,
-    flash) launches of one batch.  Returns the counted launches."""
+    flash, bias epilogue) launches of one batch.  Returns the counted launches."""
     import numpy as np
 
     from tqdne_tpu_torch.cli.evaluate import evaluate_batch
     from tqdne_tpu_torch.data.dataset import ArrayDataset, synthetic_arrays
     from tqdne_tpu_torch.eval.report import report_from_arrays
+    from tqdne_tpu_torch.ops.conv_bias import conv_bias_add
     from tqdne_tpu_torch.ops.flash_attention import flash_attention
     from tqdne_tpu_torch.ops.group_norm import group_norm_silu
     from tqdne_tpu_torch.utils import fold_seed
@@ -1108,7 +1174,7 @@ def evaluate_path(bundle, classifier, per_batch: tuple[int, int]) -> tuple[int, 
     with torch.no_grad():  # the classifier's cuDNN plans at batch 32, outside the count
         classifier.embed_and_logits(torch.zeros(BATCH, 128, 128, 3, device=bundle.device))
     torch.cuda.synchronize()
-    group_norm_silu.launches = flash_attention.launches = 0
+    group_norm_silu.launches = flash_attention.launches = conv_bias_add.launches = 0
     parts, wall_ms = [], []
     for i in range(EVAL_BATCHES):
         batch = data.load_batch(np.arange(i * BATCH, (i + 1) * BATCH))
@@ -1119,7 +1185,7 @@ def evaluate_path(bundle, classifier, per_batch: tuple[int, int]) -> tuple[int, 
         wall_ms.append(1e3 * (time.perf_counter() - t0))
         parts.append({k: v.cpu().numpy() for k, v in out.items()}
                      | {"target_waveform": batch["waveform"]})
-    counts = (group_norm_silu.launches, flash_attention.launches)
+    counts = (group_norm_silu.launches, flash_attention.launches, conv_bias_add.launches)
     arrays = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
     arrays |= {k: data.get_feature(k)[:n] for k in ("magnitude", "hypocentral_distance")}
     report = report_from_arrays(arrays)
@@ -1128,7 +1194,8 @@ def evaluate_path(bundle, classifier, per_batch: tuple[int, int]) -> tuple[int, 
                                             *report["mse_per_channel"]))
     log(f"[evaluate] {EVAL_BATCHES} evaluate_batch calls (Heun-25 + GL 128, batch {BATCH}, "
         f"bf16, classifier bf16): wall ms per batch {[round(t, 3) for t in wall_ms]}; launches "
-        f"group_norm_silu={counts[0]} flash_attention={counts[1]} (batches x {per_batch}); "
+        f"group_norm_silu={counts[0]} flash_attention={counts[1]} conv_bias_add={counts[2]} "
+        f"(batches x {per_batch}); "
         f"report over {n} waveforms: fid {report['fid']:.6e}, inception_score "
         f"{report['inception_score']:.6f}, asd_frechet_per_channel "
         f"{report['asd_frechet_per_channel']}, mse_per_channel {report['mse_per_channel']}, "
@@ -1137,7 +1204,7 @@ def evaluate_path(bundle, classifier, per_batch: tuple[int, int]) -> tuple[int, 
         f"show that the path runs)")
     if not finite or arrays["predicted_waveform"].shape != (n, 3, bundle.t):
         fail("evaluation: a non-finite statistic or a wrong waveform shape")
-    if counts != (EVAL_BATCHES * per_batch[0], EVAL_BATCHES * per_batch[1]):
+    if counts != tuple(EVAL_BATCHES * n for n in per_batch):
         fail(f"evaluation launches {counts} != {EVAL_BATCHES} batches x {per_batch}")
     return counts
 
@@ -1165,8 +1232,28 @@ def training_setup(dev, dtype):
     return config, state, (train_step, eval_step), ae, model_shape, schedule
 
 
+class ShiftedLaunches:
+    """``conv_bias_add.shifted_launches`` read and set as a counter's ``launches``."""
+
+    __name__ = "conv_bias_add.shifted"
+
+    @property
+    def launches(self) -> int:
+        from tqdne_tpu_torch.ops.conv_bias import conv_bias_add
+
+        return conv_bias_add.shifted_launches
+
+    @launches.setter
+    def launches(self, value: int):
+        from tqdne_tpu_torch.ops.conv_bias import conv_bias_add
+
+        conv_bias_add.shifted_launches = value
+
+
 def launch_counters():
-    """Every kernel wrapper's launch counter (``fn.launches``)."""
+    """Every kernel wrapper's launch counter (``fn.launches``), and the bias epilogue's
+    launches with a shift."""
+    from tqdne_tpu_torch.ops.conv_bias import conv_bias_add
     from tqdne_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_bwd_dkdv,
@@ -1174,13 +1261,18 @@ def launch_counters():
     )
     from tqdne_tpu_torch.ops.group_norm import group_norm_silu
 
-    return group_norm_silu, flash_attention, flash_attention_bwd_dkdv, flash_attention_bwd_dq
+    return (group_norm_silu, flash_attention, flash_attention_bwd_dkdv, flash_attention_bwd_dq,
+            conv_bias_add, ShiftedLaunches())
 
 
-def want_launches(gn: int = 0, fa: int = 0, bwd: int = 0) -> dict:
-    """The launches a path must count: GroupNorm, flash forward, and each backward kernel."""
+def want_launches(gn: int = 0, fa: int = 0, bwd: int = 0, convs=()) -> dict:
+    """The launches a path must count: GroupNorm, flash forward, each backward kernel, and
+    the convolutions' bias epilogue, all and with a shift, over ``convs``: (the convolution
+    calls of one forward, as ``record_calls`` gives them, forwards) pairs."""
     return {"group_norm_silu": gn, "flash_attention": fa, "flash_attention_bwd_dkdv": bwd,
-            "flash_attention_bwd_dq": bwd}
+            "flash_attention_bwd_dq": bwd,
+            "conv_bias_add": sum(len(calls) * n for calls, n in convs),
+            "conv_bias_add.shifted": sum(sum(c[-1] for c in calls) * n for calls, n in convs)}
 
 
 def counted_fit(label: str, steps, state, loader, *, max_steps: int, want: dict,
@@ -1324,14 +1416,28 @@ RECIPE_STEPS = 10  # Trainer.fit steps of each recipe at its batch (2 or 8 per e
 F32_BATCH = 4  # the full-width f32 checks' batch
 
 
-def record_calls(modules, fn) -> tuple[list, list]:
-    """The (x dtype, scale dtype, S, C, G, silu) of every GroupNorm and the
-    (dtype, L, H, D, causal) of every attention call that ``fn()`` makes
+def conv_hooks(module, sink: list) -> list:
+    """Forward hooks on ``module``'s convolutions that append each call's (output (C,
+    *spatial), channels innermost, shift given) to ``sink``; returns their handles."""
+    from tqdne_tpu_torch.nn.layers import _Conv
+
+    def hook(mod, args, kwargs, out):
+        cl = out.dim() > 3 and out.is_contiguous(memory_format=torch.channels_last)
+        sink.append((tuple(out.shape[1:]), cl, kwargs.get("shift") is not None))
+
+    return [m.register_forward_hook(hook, with_kwargs=True) for m in module.modules()
+            if isinstance(m, _Conv)]
+
+
+def record_calls(modules, fn) -> tuple[list, list, list]:
+    """The (x dtype, scale dtype, S, C, G, silu) of every GroupNorm, the
+    (dtype, L, H, D, causal) of every attention call and the (output shape,
+    channels innermost, shifted) of every convolution that ``fn()`` makes
     through ``modules``."""
     from tqdne_tpu_torch.nn.attention import AttentionBlock
     from tqdne_tpu_torch.nn.layers import Norm32
 
-    gn, fa = [], []
+    gn, fa, cv = [], [], []
 
     def gn_hook(mod, args):
         x = args[0]
@@ -1348,13 +1454,14 @@ def record_calls(modules, fn) -> tuple[list, list]:
                   if isinstance(m, Norm32)]
         hooks += [m.register_forward_pre_hook(fa_hook) for m in module.modules()
                   if isinstance(m, AttentionBlock)]
+        hooks += conv_hooks(module, cv)
     try:
         with torch.no_grad():
             fn()
     finally:
         for h in hooks:
             h.remove()
-    return gn, fa
+    return gn, fa, cv
 
 
 def recipe_setup(key: str, dev, dtype, init):
@@ -1711,7 +1818,7 @@ def seismology_on_card(pred, target, dist, mag, vs30):
 
 
 def sampling_eval_path(*, state, steps, loader, ae, model_shape, config, schedule, arrays,
-                       flagship_want, per_eval, per_decode, few_runs) -> dict:
+                       flagship_want, per_eval, per_decode, convs, few_runs) -> dict:
     """The sampling-eval callback on the card.  A counted ``Trainer.fit`` of
     the flagship at full width (CB_STEPS steps, the callback firing once on
     CB_BATCHES validation batches of CB_BATCH): exact launches for the fit and
@@ -1722,8 +1829,10 @@ def sampling_eval_path(*, state, steps, loader, ae, model_shape, config, schedul
     DDPM's at DDPM_CB_STEPS timesteps (timed, for an estimate of its 1000),
     and the seismology of the flagship's waveforms.  ``per_eval`` /
     ``per_decode``: (GroupNorm, flash) launches of one UNet eval, GroupNorm
-    launches of one decode;
-    ``few_runs``: key -> (TrainState, model shape, per-eval launches).
+    launches of one decode; ``convs``: the convolution calls (``record_calls``)
+    of one UNet eval and of one decode;
+    ``few_runs``: key -> (TrainState, model shape, (GroupNorm and flash
+    launches, convolution calls) of one UNet eval).
     Returns the counts by run."""
     import importlib.util
     import logging
@@ -1761,7 +1870,8 @@ def sampling_eval_path(*, state, steps, loader, ae, model_shape, config, schedul
         metrics=split.metrics(asd_metrics(config)) + [keep], every_n_epochs=1, seed=CB_SEED,
         feature_stats=stats, features_keys=config.features_keys)
     per_pass = want_launches(CB_BATCHES * (HEUN_EVALS * per_eval[0] + per_decode),
-                             CB_BATCHES * HEUN_EVALS * per_eval[1])
+                             CB_BATCHES * HEUN_EVALS * per_eval[1],
+                             convs=[(convs[0], CB_BATCHES * HEUN_EVALS), (convs[1], CB_BATCHES)])
     fit_want = {k: v + per_pass[k] for k, v in flagship_want(CB_STEPS).items()}
     windows = []
     counts["callback flagship fit"], rows = counted_fit(
@@ -1827,14 +1937,15 @@ def sampling_eval_path(*, state, steps, loader, ae, model_shape, config, schedul
     ddpm_lib.DDPMConfig = functools.partial(saved, num_train_timesteps=DDPM_CB_STEPS)
     try:
         for key, evals in (("consistency", FEW_EVALS), ("ddpm", DDPM_CB_STEPS)):
-            st, mshape, (gn, fa) = few_runs[key]
+            st, mshape, (gn, fa, cv) = few_runs[key]
             cfg = RECIPES[key].config_cls()
             few_split = Split()
             few_cb = SamplingEvalCallback(
                 few_split.timed("sampling", eval_sampler(RECIPES[key].kind, None, mshape, dev)),
                 host_batches(arrays, cfg), few_split.representation(cfg.make_representation()),
                 metrics=few_split.metrics(asd_metrics(cfg)), every_n_epochs=1, seed=CB_SEED)
-            want = want_launches(CB_BATCHES * evals * gn, CB_BATCHES * evals * fa)
+            want = want_launches(CB_BATCHES * evals * gn, CB_BATCHES * evals * fa,
+                                 convs=[(cv, CB_BATCHES * evals)])
             got, sec, rows = direct_callback(f"callback-{key}", few_cb, st)
             counts[f"callback {key} pass"] = got
             few_out[key] = dict(evals=evals, wall_s=sec, **few_split.seconds,
@@ -1860,8 +1971,7 @@ def sampling_eval_path(*, state, steps, loader, ae, model_shape, config, schedul
     return counts
 
 
-def reference_checkpoints_path(dev, per_eval: tuple[int, int], per_decode: int,
-                               per_clf: tuple[int, int]) -> dict:
+def reference_checkpoints_path(dev, want: dict, want_clf: dict) -> dict:
     """4m: full-width reference Lightning checkpoints (seeded random live
     weights and a different EMA; the UNet's EMA at the top level, the
     autoencoder's under ``callbacks``, the classifier's at the top level)
@@ -1869,9 +1979,10 @@ def reference_checkpoints_path(dev, per_eval: tuple[int, int], per_decode: int,
     batch 32, dpmpp_2m-10, GL 32) by three routes, each from its own
     ``build_inference``: (a) the imported runs, (b) the checkpoints converted
     on the fly, (c) the EMA weights as the port's ``.pt`` files.  (a) and (b)
-    must equal (c) bit for bit, each run's GroupNorm and flash-forward launches
-    exactly the flagship's; one forward at 32 of the imported classifier run
-    bit-identical to its ``.pt``.  Returns each counted run's launches."""
+    must equal (c) bit for bit, each run's launches ``want``, the flagship's;
+    one forward at 32 of the imported classifier run bit-identical to its
+    ``.pt``, with the launches ``want_clf``.  Returns each counted run's
+    launches."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
     from lightning_layout import lightning_checkpoint, reference_state_dict
 
@@ -1881,8 +1992,6 @@ def reference_checkpoints_path(dev, per_eval: tuple[int, int], per_decode: int,
     from tqdne_tpu_torch.cli.import_checkpoint import import_checkpoint
     from tqdne_tpu_torch.models.classifier import Classifier
     from tqdne_tpu_torch.models.unet import UNet
-    from tqdne_tpu_torch.ops.flash_attention import flash_attention
-    from tqdne_tpu_torch.ops.group_norm import group_norm_silu
     from tqdne_tpu_torch.utils import randomize_
 
     work = Path(__file__).resolve().parent / "build" / "chip_smoke_4m"
@@ -1927,8 +2036,6 @@ def reference_checkpoints_path(dev, per_eval: tuple[int, int], per_decode: int,
         ".pt": lambda: build_inference(unet_weights=work / "edm-ema.pt",
                                        ae_weights=work / "autoencoder-ema.pt", **kw),
     }
-    want = {"group_norm_silu": per_eval[0] * 10 + per_decode,
-            "flash_attention": per_eval[1] * 10}
     waves, counts, first_s = {}, {}, {}
     for route, make in routes.items():
         torch.cuda.synchronize()
@@ -1936,12 +2043,10 @@ def reference_checkpoints_path(dev, per_eval: tuple[int, int], per_decode: int,
         bundle = make()
         gen = torch.Generator(device=dev).manual_seed(SEED)
         cond = torch.randn(BATCH, 5, generator=gen, device=dev)
-        group_norm_silu.launches = flash_attention.launches = 0
+        zero_launches()
         waves[route] = bundle.generate(cond, generator=gen)
-        torch.cuda.synchronize()
+        counts[route] = read_launches()
         first_s[route] = round(time.perf_counter() - t0, 3)
-        counts[route] = {"group_norm_silu": group_norm_silu.launches,
-                         "flash_attention": flash_attention.launches}
         wave = waves[route]
         if wave.shape != (BATCH, 3, 4064) or not torch.isfinite(wave).all():
             fail(f"4m {route}: waveforms {tuple(wave.shape)} "
@@ -1966,22 +2071,18 @@ def reference_checkpoints_path(dev, per_eval: tuple[int, int], per_decode: int,
     x = torch.randn(BATCH, 128, 128, 3, generator=torch.Generator(device=dev).manual_seed(SEED),
                     device=dev)
     with torch.no_grad():
-        torch.cuda.synchronize()
-        group_norm_silu.launches = flash_attention.launches = 0
+        zero_launches()
         got = clf_run.embed_and_logits(x)
-        torch.cuda.synchronize()
-        counts["classifier run"] = {"group_norm_silu": group_norm_silu.launches,
-                                    "flash_attention": flash_attention.launches}
+        counts["classifier run"] = read_launches()
         ref = clf_pt.embed_and_logits(x)
     same = all(torch.equal(a, b) for a, b in zip(got, ref))
     log(f"[ckpt] imported classifier forward at {BATCH}: embeddings and logits bit-identical to "
         f"the .pt route {same}, launches {json.dumps(counts['classifier run'])}")
-    if not same or tuple(counts["classifier run"].values()) != per_clf:
+    if not same or counts["classifier run"] != want_clf:
         fail(f"4m: the imported classifier: identical {same}, launches "
-             f"{counts['classifier run']} (want {per_clf})")
+             f"{counts['classifier run']} (want {want_clf})")
     shutil.rmtree(work, ignore_errors=True)
-    return {run: want_launches(c["group_norm_silu"], c["flash_attention"]) for run, c in
-            counts.items()}
+    return counts
 
 
 def synthetic_records(n: int, t: int, dev) -> torch.Tensor:
@@ -2115,14 +2216,21 @@ def setup_4n(dev, gen):
     x = torch.randn(2, *s.model_shape, generator=gen, device=dev)
     t2 = torch.zeros(2, device=dev)
     cond = torch.randn(2, 5, generator=gen, device=dev)
-    s.opt_gn, s.opt_fa = record_calls([s.unet], lambda: s.unet(x, t2, cond))
-    s.n_res = sum(isinstance(m, ResBlock) for m in s.unet.modules())
-    s.opt_enc_gn = record_calls([s.ae.encoder], lambda: s.ae.moments(
-        torch.zeros(2, *common.signal_shape(s.config), device=dev)))[0]
-    s.opt_dec_gn = record_calls([s.ae.decoder], lambda: s.ae.decode(x.float()))[0]
-    s.p_gn, s.p_fa = record_calls([s.unet_p], lambda: s.unet_p(torch.cat([x, x], -1), t2))
+    s.opt_gn, s.opt_fa, s.opt_cv = record_calls([s.unet], lambda: s.unet(x, t2, cond))
+    res_blocks = [m for m in s.unet.modules() if isinstance(m, ResBlock)]
+    s.n_res = len(res_blocks)
+    # the convolution epilogues a checkpointed step recomputes: a ResBlock's but its last,
+    # where the recomputation stops (all its saved tensors are back once that convolution ran)
+    s.res_cv = [c for block in res_blocks
+                for c in record_calls([block], lambda: s.unet(x, t2, cond))[2][:-1]]
+    s.opt_enc_gn, _, s.opt_enc_cv = record_calls([s.ae.encoder], lambda: s.ae.moments(
+        torch.zeros(2, *common.signal_shape(s.config), device=dev)))
+    s.opt_dec_gn, _, s.opt_dec_cv = record_calls([s.ae.decoder],
+                                                 lambda: s.ae.decode(x.float()))
+    s.p_gn, s.p_fa, s.p_cv = record_calls([s.unet_p],
+                                          lambda: s.unet_p(torch.cat([x, x], -1), t2))
     x1 = torch.randn(2, *s.sig_1d[:-1], 2 * c1, generator=gen, device=dev)
-    s.u1_gn, s.u1_fa = record_calls([s.cons_unet], lambda: s.cons_unet(x1, t2))
+    s.u1_gn, s.u1_fa, s.u1_cv = record_calls([s.cons_unet], lambda: s.cons_unet(x1, t2))
     plain_norms = collections.Counter((sh, ch) for *_, sh, ch, _, silu in s.opt_gn if not silu)
     log(f"[shapes] 4n options UNet ({sum(p.numel() for p in s.unet.parameters())} parameters, "
         f"{s.n_res} ResBlocks): {len(s.opt_gn)} GroupNorm calls, "
@@ -2139,7 +2247,8 @@ def setup_4n(dev, gen):
     return s
 
 
-def options_and_paired_path(dev, s, arrays, ae_t, enc_gn: list, dec_gn: list) -> dict:
+def options_and_paired_path(dev, s, arrays, ae_t, enc_gn: list, dec_gn: list, enc_cv: list,
+                            dec_cv: list) -> dict:
     """4n: (a) the flagship with every option of the JAX UNet: ``Trainer.fit``
     of ``OPT_STEPS`` at batch 128 (the frozen autoencoder without resampling
     convolutions), checkpointed, then the same steps from the same state and
@@ -2225,11 +2334,15 @@ def options_and_paired_path(dev, s, arrays, ae_t, enc_gn: list, dec_gn: list) ->
             _losses.append(out["loss"])
             return out
 
-        # the recomputation relaunches each ResBlock's two GroupNorms in the backward
+        # the recomputation relaunches each ResBlock's two GroupNorms and its convolutions'
+        # epilogues in the backward
         gn = (per_step + 2 * s.n_res * (mode == "checkpointed")) * OPT_STEPS
+        convs = [(s.opt_cv, OPT_STEPS), (s.opt_enc_cv, OPT_STEPS),
+                 (s.res_cv, OPT_STEPS * (mode == "checkpointed"))]
         counts[f"options {mode} train"], _ = counted_fit(
             f"options-{mode}", (step, steps[1]), st, flagship_loader(), max_steps=OPT_STEPS,
-            want=want_launches(gn, len(s.opt_fa) * OPT_STEPS, len(s.opt_fa) * OPT_STEPS),
+            want=want_launches(gn, len(s.opt_fa) * OPT_STEPS, len(s.opt_fa) * OPT_STEPS,
+                               convs=convs),
             want_gn_bwd=len(s.opt_gn) * OPT_STEPS, lr_schedule=schedule)
         rates[f"options {mode}"] = tail_rate(
             f"options flagship, {mode}, batch {TRAIN_BATCH}, bf16", marks, TRAIN_BATCH,
@@ -2297,7 +2410,8 @@ def options_and_paired_path(dev, s, arrays, ae_t, enc_gn: list, dec_gn: list) ->
     for name, bundle, evals in (("heun-25", heun, 49), ("dpmpp_2m-10", dpmpp, 10)):
         wave, sec = counted(f"options {name}", lambda: bundle.generate(cond, generator=gen),
                             want_launches(evals * len(s.opt_gn) + len(s.opt_dec_gn),
-                                          evals * len(s.opt_fa)))
+                                          evals * len(s.opt_fa),
+                                          convs=[(s.opt_cv, evals), (s.opt_dec_cv, 1)]))
         rates[f"options {name}"] = BATCH / sec
         waveforms_ok(f"options {name} + Griffin-Lim 32, {BATCH / sec:.2f} waveforms/s", wave)
     del heun, dpmpp, unet
@@ -2318,7 +2432,8 @@ def options_and_paired_path(dev, s, arrays, ae_t, enc_gn: list, dec_gn: list) ->
     n_ae = len(s.opt_enc_gn) + len(s.opt_dec_gn)
     counts["options autoencoder train"], _ = counted_fit(
         "options-ae", make_autoencoder_steps(kl_weight=config.kl_weight, ema_decay=0.0),
-        ae_state, flagship_loader(("signal",)), max_steps=1, want=want_launches(n_ae),
+        ae_state, flagship_loader(("signal",)), max_steps=1,
+        want=want_launches(n_ae, convs=[(s.opt_enc_cv, 1), (s.opt_dec_cv, 1)]),
         want_gn_bwd=n_ae)
     del ae_state, ae_train, ckpt_state
     torch.cuda.empty_cache()
@@ -2346,7 +2461,8 @@ def options_and_paired_path(dev, s, arrays, ae_t, enc_gn: list, dec_gn: list) ->
         "paired-train", (timed, psteps[1]), pstate, paired_loader(paired),
         max_steps=PAIRED_STEPS,
         want=want_launches((len(s.p_gn) + 2 * len(enc_gn)) * PAIRED_STEPS,
-                           len(s.p_fa) * PAIRED_STEPS, len(s.p_fa) * PAIRED_STEPS),
+                           len(s.p_fa) * PAIRED_STEPS, len(s.p_fa) * PAIRED_STEPS,
+                           convs=[(s.p_cv, PAIRED_STEPS), (enc_cv, 2 * PAIRED_STEPS)]),
         want_gn_bwd=len(s.p_gn) * PAIRED_STEPS, lr_schedule=schedule)
     rates["paired train"] = tail_rate(f"paired flagship, batch {TRAIN_BATCH}, bf16", marks,
                                       TRAIN_BATCH, PAIRED_STEPS // 2)
@@ -2355,7 +2471,8 @@ def options_and_paired_path(dev, s, arrays, ae_t, enc_gn: list, dec_gn: list) ->
     counts["paired autoencoder train"], rows = counted_fit(
         "paired-ae", make_autoencoder_steps(kl_weight=config.kl_weight, ema_decay=0.0),
         TrainState(pae, make_optimizer("adamw", pae, 1e-4, 1e-4)), paired_loader(paired),
-        max_steps=1, want=want_launches(2 * n_ae), want_gn_bwd=2 * n_ae)
+        max_steps=1, want=want_launches(2 * n_ae, convs=[(enc_cv, 2), (dec_cv, 2)]),
+        want_gn_bwd=2 * n_ae)
     metrics = {k: v for r in rows for k, v in r.items() if k.startswith("training/")}
     log(f"[paired-ae] one step on a paired batch of {TRAIN_BATCH}: {json.dumps(metrics)}")
     if not {"training/cond_reconstruction_loss", "training/cond_kl_divergence"} <= set(metrics) \
@@ -2373,7 +2490,8 @@ def options_and_paired_path(dev, s, arrays, ae_t, enc_gn: list, dec_gn: list) ->
 
     paired_sample()  # warm-up at its shapes
     wave, sec = counted("paired dpmpp_2m-10", paired_sample, want_launches(
-        10 * len(s.p_gn) + len(enc_gn) + len(dec_gn), 10 * len(s.p_fa)))
+        10 * len(s.p_gn) + len(enc_gn) + len(dec_gn), 10 * len(s.p_fa),
+        convs=[(s.p_cv, 10), (enc_cv, 1), (dec_cv, 1)]))
     rates["paired dpmpp_2m-10"] = BATCH / sec
     waveforms_ok(f"paired dpmpp_2m-10 from a validation cond_signal + Griffin-Lim 32, "
                  f"{BATCH / sec:.2f} waveforms/s", wave)
@@ -2393,12 +2511,13 @@ def options_and_paired_path(dev, s, arrays, ae_t, enc_gn: list, dec_gn: list) ->
     counts["paired consistency train"], _ = counted_fit(
         "paired-consistency", make_consistency_steps(ConsistencyConfig(), NEW_MAX_STEPS), cst,
         paired_loader(paired_1d, PAIRED_1D_BATCH), max_steps=k,
-        want=want_launches(2 * n1 * k, 2 * f1 * k, f1 * k), want_gn_bwd=n1 * k)
+        want=want_launches(2 * n1 * k, 2 * f1 * k, f1 * k, convs=[(s.u1_cv, 2 * k)]),
+        want_gn_bwd=n1 * k)
     dst = TrainState(s.ddpm_unet, make_optimizer("adamw", s.ddpm_unet, 1e-4, 0.0))
     counts["paired ddpm train"], _ = counted_fit(
         "paired-ddpm", ddpm_lib.make_ddpm_steps(ddpm_lib.DDPMConfig()), dst,
         paired_loader(paired_1d, PAIRED_1D_BATCH), max_steps=k,
-        want=want_launches(n1 * k, f1 * k, f1 * k), want_gn_bwd=n1 * k)
+        want=want_launches(n1 * k, f1 * k, f1 * k, convs=[(s.u1_cv, k)]), want_gn_bwd=n1 * k)
     with torch.no_grad():
         for label, fn, evals in (
                 ("paired consistency 2 evals", lambda: sample_consistency(
@@ -2407,7 +2526,8 @@ def options_and_paired_path(dev, s, arrays, ae_t, enc_gn: list, dec_gn: list) ->
                 (f"paired ddpm {PAIRED_DDPM_STEPS} timesteps", lambda: ddpm_lib.ddpm_sample(
                     ddpm_lib.DDPMConfig(num_train_timesteps=PAIRED_DDPM_STEPS), dst.ema, shape,
                     cond_signal=cond_signal, generator=gen, device=dev), PAIRED_DDPM_STEPS)):
-            signal, sec = counted(label, fn, want_launches(evals * n1, evals * f1))
+            signal, sec = counted(label, fn, want_launches(evals * n1, evals * f1,
+                                                           convs=[(s.u1_cv, evals)]))
             rates[label] = BATCH / sec
             waveforms_ok(f"{label}, the envelope inverse, {BATCH / sec:.2f} waveforms/s",
                          envelope.invert_representation(signal.movedim(-1, 1)))
@@ -3026,7 +3146,8 @@ def spatial_worker(rank: int, port: int, out_dir: str):
     dist.destroy_process_group()
 
 
-def spatial_path(per_eval: tuple[int, int], per_decode: int, dev, errs: dict) -> dict:
+def spatial_path(per_eval: tuple[int, int], per_decode: int, convs: tuple[list, list], dev,
+                 errs: dict) -> dict:
     """Phase 4p: the two gloo ranks of ``spatial_worker``, then the GroupNorm
     entries against their plain versions and timed at the shapes rank 0 recorded.
     Returns the entries' timing rows and the launch counts by run."""
@@ -3046,9 +3167,8 @@ def spatial_path(per_eval: tuple[int, int], per_decode: int, dev, errs: dict) ->
     ranks = [json.loads((SP_RESULTS / f"rank{r}.json").read_text()) for r in range(SP_K)]
     lead = ranks[0]
     per_sample = per_eval[0] * SP_STEPS + per_decode
-    want = {"group_norm_silu": 0, "flash_attention": per_eval[1] * SP_STEPS,
-            "flash_attention_bwd_dkdv": 0, "flash_attention_bwd_dq": 0,
-            "group_norm_stats": per_sample, "group_norm_apply": per_sample}
+    want = want_launches(0, per_eval[1] * SP_STEPS, convs=[(convs[0], SP_STEPS), (convs[1], 1)])
+    want |= {"group_norm_stats": per_sample, "group_norm_apply": per_sample}
     bad = []
     for label, c in lead["checks"].items():
         # f32: the largest error within 1e-4 of the peak; bf16, whose 1-ulp roundings the ODE
@@ -3167,7 +3287,8 @@ def spatial_path(per_eval: tuple[int, int], per_decode: int, dev, errs: dict) ->
 INT8_SOLVERS = (("heun", 25), ("dpmpp_2m", 10))
 
 
-def int8_path(dev, per_eval: tuple[int, int], per_decode: int) -> dict:
+def int8_path(dev, per_eval: tuple[int, int], per_decode: int,
+              convs: tuple[list, list]) -> dict:
     """Phase 4q: the flagship (bf16, batch 32, Griffin-Lim 32) with ``--int8`` beside
     bf16 at Heun-25 and dpmpp_2m-10: waveforms/s of each, launches, the int32 sums of
     every convolution shape of one UNet eval and one decode against the plain version
@@ -3210,7 +3331,9 @@ def int8_path(dev, per_eval: tuple[int, int], per_decode: int) -> dict:
             out[label] = {"signal": signal.float(), "wf_s": BATCH / statistics.median(walls[1:]),
                           "walls": walls, "finite": bool(torch.isfinite(wave).all())}
             evals = 2 * steps - 1 if solver == "heun" else steps
-            want = want_launches(per_eval[0] * evals + per_decode, per_eval[1] * evals)
+            # int8: every convolution is quant_conv, with its own bias
+            want = want_launches(per_eval[0] * evals + per_decode, per_eval[1] * evals,
+                                 convs=[] if int8 else [(convs[0], evals), (convs[1], 1)])
             want |= {"group_norm_stats": 0, "group_norm_apply": 0}
             got = {k: v for k, v in counts.items() if k != "quant_conv"}
             if got != want or (counts["quant_conv"] > 0) != int8 or not out[label]["finite"]:
@@ -3315,6 +3438,7 @@ def main():
         flash_attention_bwd_dq_delta_plain,
         flash_attention_plain,
     )
+    from tqdne_tpu_torch.ops.conv_bias import conv_bias_add, conv_bias_add_plain
     from tqdne_tpu_torch.ops.group_norm import group_norm_silu, group_norm_silu_plain
     from tqdne_tpu_torch.train.state import (
         TrainState,
@@ -3380,9 +3504,11 @@ def main():
     fa_hook = fa_recorder(fa_calls)
 
     unet, ae = main_bundle.unet.to(torch.bfloat16), main_bundle.autoencoder
+    unet_cv, dec_cv = [], []  # the convolutions' (output, channels innermost, shifted)
     hooks = [m.register_forward_pre_hook(gn_hook) for m in unet.modules() if isinstance(m, Norm32)]
     hooks += [m.register_forward_pre_hook(fa_hook) for m in unet.modules()
               if isinstance(m, AttentionBlock)]
+    hooks += conv_hooks(unet, unet_cv)
     with torch.no_grad():
         x = torch.randn(BATCH, *main_bundle.model_shape, generator=gen, device=dev)
         unet(x, torch.zeros(BATCH, device=dev), cond)
@@ -3390,6 +3516,7 @@ def main():
         gn_calls.clear()
         hooks += [m.register_forward_pre_hook(gn_hook) for m in ae.decoder.modules()
                   if isinstance(m, Norm32)]
+        hooks += conv_hooks(ae.decoder, dec_cv)
         ae.decode(x.float())
         dec_gn = list(gn_calls)
     for h in hooks:
@@ -3397,11 +3524,12 @@ def main():
     # the training path's: the bf16 train step's UNet and frozen encoder (no update here)
     config, state, (train_step, eval_step), ae_t, model_shape, schedule = training_setup(
         dev, torch.bfloat16)
-    train_gn, enc_gn = [], []
+    train_gn, enc_gn, train_cv, enc_cv = [], [], [], []
     hooks = [m.register_forward_pre_hook(gn_recorder(train_gn)) for m in state.model.modules()
              if isinstance(m, Norm32)]
     hooks += [m.register_forward_pre_hook(gn_recorder(enc_gn)) for m in ae_t.encoder.modules()
               if isinstance(m, Norm32)]
+    hooks += conv_hooks(state.model, train_cv) + conv_hooks(ae_t.encoder, enc_cv)
     with torch.no_grad():
         edm_step_loss(state.model, {"signal": torch.zeros(2, 128, 128, 3, device=dev),
                                     "cond": torch.zeros(2, 5, device=dev)}, autoencoder=ae_t)
@@ -3410,14 +3538,15 @@ def main():
     # the sampling-eval callback's: the EMA flagship UNet (f32 weights, bf16 compute) and the
     # frozen autoencoder's decoder, at the validation batch
     x2 = torch.randn(2, *model_shape, generator=gen, device=dev)
-    cb_gn, cb_fa = record_calls([state.ema], lambda: state.ema(x2, torch.zeros(2, device=dev),
-                                                              cond[:2]))
-    cb_dec = record_calls([ae_t.decoder], lambda: ae_t.decode(x2.float()))[0]
+    cb_gn, cb_fa, cb_cv = record_calls([state.ema], lambda: state.ema(
+        x2, torch.zeros(2, device=dev), cond[:2]))
+    cb_dec, _, cb_dec_cv = record_calls([ae_t.decoder], lambda: ae_t.decode(x2.float()))
     # the evaluation path's: the full-width bf16 classifier (seeded random weights)
     classifier = load_classifier(dtype=torch.bfloat16, device=dev, init_seed=CLASSIFIER_SEED)
-    clf_gn, clf_fa = [], []
+    clf_gn, clf_fa, clf_cv = [], [], []
     hooks = [m.register_forward_pre_hook(gn_recorder(clf_gn)) for m in classifier.modules()
              if isinstance(m, Norm32)]
+    hooks += conv_hooks(classifier, clf_cv)
     hooks += [m.register_forward_pre_hook(fa_recorder(clf_fa)) for m in classifier.modules()
               if isinstance(m, AttentionBlock)]
     with torch.no_grad():
@@ -3435,6 +3564,18 @@ def main():
     if (len(unet_gn), len(unet_fa), len(train_gn)) != (51, 6, 51):
         fail(f"expected 45 + 6 GroupNorm and 6 attention calls per UNet eval, got "
              f"{len(unet_gn)} and {len(unet_fa)} ({len(train_gn)} in training)")
+    conv_counts = {name: (len(cv), sum(c[-1] for c in cv)) for name, cv in (
+        ("UNet eval", unet_cv), ("decode", dec_cv), ("train UNet", train_cv),
+        ("train encoder", enc_cv), ("classifier", clf_cv), ("callback UNet eval", cb_cv),
+        ("callback decode", cb_dec_cv))}
+    log(f"[shapes] convolutions (calls, of them with the embedding shift): "
+        f"{json.dumps(conv_counts)}; UNet eval outputs (C, *spatial) "
+        f"{sorted(set(c[0] for c in unet_cv))}, decode {sorted(set(c[0] for c in dec_cv))}")
+    if (conv_counts["UNet eval"] != (78, 22) or conv_counts["decode"] != (18, 0)
+            or conv_counts["train UNet"] != (78, 22) or conv_counts["callback UNet eval"]
+            != (78, 22) or conv_counts["callback decode"] != (18, 0)):
+        fail(f"expected 78 convolutions (22 with a shift) per UNet eval and 18 (none) per "
+             f"decode, got {conv_counts}")
     log(f"[shapes] sampling-eval callback at batch {CB_BATCH}: EMA UNet eval {len(cb_gn)} "
         f"GroupNorm calls, {len(cb_fa)} attention calls {sorted(set(cb_fa), key=str)}; decode "
         f"{len(cb_dec)} GroupNorm calls (S, C): "
@@ -3452,13 +3593,14 @@ def main():
     clf_train = init_like_flax_(set_compute_dtype(Classifier(
         configs.get_classifier_encoder_config(clf_config), clf_config.num_classes),
         torch.bfloat16), CLASSIFIER_SEED + 1)
-    ae_gn, clf_train_gn, clf_train_fa = [], [], []
+    ae_gn, clf_train_gn, clf_train_fa, ae_cv, clf_train_cv = [], [], [], [], []
     hooks = []
     for module in (ae_train, clf_train):
         module.to(dev, memory_format=torch.channels_last).train()
         sink = ae_gn if module is ae_train else clf_train_gn
         hooks += [m.register_forward_pre_hook(gn_recorder(sink)) for m in module.modules()
                   if isinstance(m, Norm32)]
+        hooks += conv_hooks(module, ae_cv if module is ae_train else clf_train_cv)
     hooks += [m.register_forward_pre_hook(fa_recorder(clf_train_fa)) for m in clf_train.modules()
               if isinstance(m, AttentionBlock)]
     with torch.no_grad():
@@ -3480,7 +3622,7 @@ def main():
 
     # the EDM recipes beyond the flagship: each sampler's UNet eval (and decode) at batch 32,
     # and one bf16 forward of each recipe's train step in train mode
-    new_bundles, sampler_calls = {}, {}
+    new_bundles, sampler_calls, sampler_convs = {}, {}, {}
     for key in SAMPLERS:
         gl = {"gl_iters": 32} if key == "edm" else {}
         b = build_inference(key, dtype=torch.bfloat16, num_steps=25, solver="heun", device=dev,
@@ -3489,37 +3631,43 @@ def main():
         dpmpp.num_steps, dpmpp.solver = 10, "dpmpp_2m"
         new_bundles[key] = {"heun-25": b, "dpmpp_2m-10": dpmpp}
         x = torch.randn(BATCH, *b.model_shape, generator=gen, device=dev)
-        u_gn, u_fa = record_calls([b.unet], lambda: b.unet(x, torch.zeros(BATCH, device=dev),
-                                                           cond))
-        d_gn = [] if b.autoencoder is None else record_calls(
-            [b.autoencoder.decoder], lambda: b.autoencoder.decode(x.float()))[0]
+        u_gn, u_fa, u_cv = record_calls([b.unet], lambda: b.unet(
+            x, torch.zeros(BATCH, device=dev), cond))
+        d_gn, _, d_cv = ([], [], []) if b.autoencoder is None else record_calls(
+            [b.autoencoder.decoder], lambda: b.autoencoder.decode(x.float()))
         sampler_calls[key] = (u_gn, u_fa, d_gn)
+        sampler_convs[key] = (u_cv, d_cv)
         log(f"[shapes] {key} sampling, batch {BATCH}: UNet eval {len(u_gn)} GroupNorm calls "
             f"(S, C): {sorted(collections.Counter((s, c) for *_, s, c, _, _ in u_gn).items())}; "
             f"{len(u_fa)} attention calls {sorted(set(u_fa), key=str)}; decode {len(d_gn)} "
             f"GroupNorm calls")
-    recipe_models, step_calls = {}, {}
+    recipe_models, step_calls, step_convs = {}, {}, {}
     for key in RECIPE_BATCH:
         model, frozen, steps, sig, mshape = recipe_setup(key, dev, torch.bfloat16,
                                                          init_like_flax_)
         recipe_models[key] = (model.train(), frozen, steps)
         rb, rd = recipe_batch(key, 2, sig, mshape, gen, dev)
-        gn, fa = record_calls([model], lambda: recipe_loss(key, model, frozen, rb, rd))
-        enc = [] if frozen is None else record_calls([frozen.encoder],
-                                                     lambda: frozen.moments(rb["signal"]))[0]
+        gn, fa, cv = record_calls([model], lambda: recipe_loss(key, model, frozen, rb, rd))
+        enc, _, enc_cv_ = ([], [], []) if frozen is None else record_calls(
+            [frozen.encoder], lambda: frozen.moments(rb["signal"]))
         step_calls[key] = (gn, fa, enc)
+        step_convs[key] = (cv, enc_cv_)
         log(f"[shapes] {key} train step at batch {RECIPE_BATCH[key]}: signal {sig}, model "
             f"{mshape}; {len(gn)} GroupNorm calls (S, C): "
             f"{sorted(collections.Counter((s, c) for *_, s, c, _, _ in gn).items())}, frozen "
             f"encoder {len(enc)}; {len(fa)} attention calls {sorted(set(fa), key=str)}")
     if any(not fa for key, (_, fa, _) in sampler_calls.items()):
         fail("a sampler's UNet made no attention call")
+    u1_cv = sampler_convs["1d_edm"][0]
+    if (len(u1_cv), sum(c[-1] for c in u1_cv)) != (78, 22):
+        fail(f"expected 78 convolutions (22 with a shift) per 1d_edm UNet eval, got "
+             f"{len(u1_cv)}")
 
     # the few-eval and DDPM recipes: each sampler's UNet eval (and decode) at batch 32, and
     # one bf16 forward of each recipe's train step in train mode
     from tqdne_tpu_torch.cli.common import RECIPES
 
-    few_bundles, few_calls = {}, {}
+    few_bundles, few_calls, few_convs = {}, {}, {}
     for key in NEW_RECIPES:
         gl = {"gl_iters": 32} if RECIPES[key].latent else {}
         b = build_inference(key, dtype=torch.bfloat16, num_steps=FEW_NFE[0], device=dev,
@@ -3530,33 +3678,37 @@ def main():
                 bn.num_steps = nfe
             few_bundles[(key, nfe)] = bn
         x = torch.randn(BATCH, *b.model_shape, generator=gen, device=dev)
-        u_gn, u_fa = record_calls([b.unet], lambda: b.unet(x, torch.ones(BATCH, device=dev),
-                                                           cond))
-        d_gn = [] if b.autoencoder is None else record_calls(
-            [b.autoencoder.decoder], lambda: b.autoencoder.decode(x.float()))[0]
+        u_gn, u_fa, u_cv = record_calls([b.unet], lambda: b.unet(
+            x, torch.ones(BATCH, device=dev), cond))
+        d_gn, _, d_cv = ([], [], []) if b.autoencoder is None else record_calls(
+            [b.autoencoder.decoder], lambda: b.autoencoder.decode(x.float()))
         few_calls[key] = (u_gn, u_fa, d_gn)
+        few_convs[key] = (u_cv, d_cv)
         log(f"[shapes] {key} sampling, batch {BATCH}: UNet eval {len(u_gn)} GroupNorm calls, "
             f"{len(u_fa)} attention calls {sorted(set(u_fa), key=str)}; decode {len(d_gn)} "
             f"GroupNorm calls")
-    new_models, new_calls = {}, {}
+    new_models, new_calls, new_convs = {}, {}, {}
     for key in NEW_RECIPES:
         model, frozen, teacher, steps, sig, mshape = new_recipe_setup(key, dev, torch.bfloat16,
                                                                       init_like_flax_)
         new_models[key] = (model.train(), frozen, teacher, steps, sig, mshape)
         rb, rd = new_batch(key, 2, sig, mshape, gen, dev)
         x = torch.randn(2, *mshape, generator=gen, device=dev)
-        u_gn, u_fa = record_calls([model], lambda: model(x, torch.ones(2, device=dev),
-                                                         rb["cond"]))
-        gn, fa = record_calls([model] + ([teacher] if teacher is not None else []),
-                              lambda: new_loss(key, model, frozen, teacher, rb, rd))
-        enc = [] if frozen is None else record_calls([frozen.encoder],
-                                                     lambda: frozen.moments(rb["signal"]))[0]
+        u_gn, u_fa, u_cv = record_calls([model], lambda: model(x, torch.ones(2, device=dev),
+                                                               rb["cond"]))
+        gn, fa, cv = record_calls([model] + ([teacher] if teacher is not None else []),
+                                  lambda: new_loss(key, model, frozen, teacher, rb, rd))
+        enc, _, enc_cv_ = ([], [], []) if frozen is None else record_calls(
+            [frozen.encoder], lambda: frozen.moments(rb["signal"]))
         new_calls[key] = (gn, fa, enc, u_gn, u_fa)
+        new_convs[key] = (cv, enc_cv_)
         log(f"[shapes] {key} train step at batch {NEW_BATCH}: signal {sig}, model {mshape}; "
             f"{len(gn)} GroupNorm and {len(fa)} attention calls over {NEW_FORWARDS[key]} UNet "
             f"forwards of {len(u_gn)} and {len(u_fa)} {sorted(set(u_fa), key=str)}; frozen "
             f"encoder {len(enc)}")
-        if (len(gn), len(fa)) != (NEW_FORWARDS[key] * len(u_gn), NEW_FORWARDS[key] * len(u_fa)):
+        if ((len(gn), len(fa), len(cv))
+                != (NEW_FORWARDS[key] * len(u_gn), NEW_FORWARDS[key] * len(u_fa),
+                    NEW_FORWARDS[key] * len(u_cv))):
             fail(f"{key}: a train step's forwards are not {NEW_FORWARDS[key]} UNet evals")
 
     # the UNet's options and paired data (4n): the options flagship and its resample-free
@@ -3614,6 +3766,11 @@ def main():
     path_fa += [(b_, length, h, d) for _, length, h, d, _ in s4n.u1_fa
                 for b_ in (PAIRED_1D_BATCH, BATCH)]
     bad += check_flash_kernels(gen, dev, errs, path_fa)
+    # the bias epilogue at every convolution output of the benchmarked generation paths at
+    # their batches: the flagship UNet and decoder at 1024, the 1d_edm UNet at 128 and 256
+    bad += check_conv_bias_kernels(gen, dev, errs, sorted(
+        {(1024, c[0]) for c in unet_cv + dec_cv}
+        | {(b_, c[0]) for c in sampler_convs["1d_edm"][0] for b_ in (128, 256)}))
     torch.cuda.synchronize()
     if bad:
         fail(f"{bad} kernel checks disagree with the plain versions")
@@ -3749,29 +3906,26 @@ def main():
     # ---- 4. the main path ------------------------------------------------------
     phase("4. the main paths")
     bundles["dpmpp_2m-10"].generate(cond, generator=gen)  # warm-up: lazy CUDA init, cuDNN plans
-    torch.cuda.synchronize()
-    group_norm_silu.launches = 0
-    flash_attention.launches = 0
     runs, counts = {}, {}
     for name, bundle in bundles.items():
-        before = (group_norm_silu.launches, flash_attention.launches)
+        zero_launches()
         t0 = time.perf_counter()
         wave = bundle.generate(cond, generator=gen)
         torch.cuda.synchronize()
         runs[name] = [time.perf_counter() - t0]
-        counts[name] = (group_norm_silu.launches - before[0], flash_attention.launches - before[1])
+        counts[name] = read_launches()
         if wave.shape != (BATCH, 3, 4064) or not torch.isfinite(wave).all():
             fail(f"{name}: waveforms {tuple(wave.shape)} finite={bool(torch.isfinite(wave).all())}")
         log(f"[main] {name}: waveforms {tuple(wave.shape)} finite, peak "
-            f"{wave.abs().max().item():.3e}, launches group_norm_silu={counts[name][0]} "
-            f"flash_attention={counts[name][1]}")
-    launches = {"group_norm_silu": group_norm_silu.launches,
-                "flash_attention": flash_attention.launches}
+            f"{wave.abs().max().item():.3e}, launches {counts[name]}")
+    launches = {k: sum(c[k] for c in counts.values()) for k in counts["heun-25"]}
     for name, evals in (("heun-25", 2 * 25 - 1), ("dpmpp_2m-10", 10)):
-        want = (len(unet_gn) * evals + len(dec_gn), len(unet_fa) * evals)
+        want = want_launches(len(unet_gn) * evals + len(dec_gn), len(unet_fa) * evals,
+                             convs=[(unet_cv, evals), (dec_cv, 1)])
         if counts[name] != want:
             fail(f"{name}: launches {counts[name]} != expected {want} ({evals} UNet evals)")
-    if min(launches.values()) == 0:
+    if min(launches[k] for k in ("group_norm_silu", "flash_attention", "conv_bias_add",
+                                 "conv_bias_add.shifted")) == 0:
         fail(f"a kernel of the path was never launched: {launches}")
 
     # ---- 4b. the main training path: Trainer.fit, bf16, batch 128 -------------
@@ -3785,9 +3939,11 @@ def main():
         f"encode: {len(enc_gn)}")
 
     def flagship_want(steps: int, encoder: bool = True) -> dict:
-        """The flagship step's launches: the UNet's, and the frozen encoder's GroupNorm."""
+        """The flagship step's launches: the UNet's, and the frozen encoder's GroupNorm and
+        convolutions."""
         gn = len(unet_gn) + (len(enc_gn) if encoder else 0)
-        return want_launches(gn * steps, len(unet_fa) * steps, len(unet_fa) * steps)
+        return want_launches(gn * steps, len(unet_fa) * steps, len(unet_fa) * steps,
+                             convs=[(train_cv, steps), (enc_cv, steps if encoder else 0)])
 
     train_counts, metric_rows = counted_fit(
         "train", (train_step, eval_step), state, loader, max_steps=TRAIN_STEPS,
@@ -3804,7 +3960,8 @@ def main():
     ae_steps = make_autoencoder_steps(kl_weight=config.kl_weight, ema_decay=0.0)
     recipe_counts["ae_train"], _ = counted_fit(
         "ae-train", ae_steps, ae_state, ae_loader, max_steps=AE_STEPS,
-        want=want_launches(len(ae_gn) * AE_STEPS), want_gn_bwd=len(ae_gn) * AE_STEPS,
+        want=want_launches(len(ae_gn) * AE_STEPS, convs=[(ae_cv, AE_STEPS)]),
+        want_gn_bwd=len(ae_gn) * AE_STEPS,
         lr_schedule=ae_schedule)
 
     # ---- 4f. the classifier recipe: Adam, bf16, batch 64, one validation pass ------
@@ -3825,7 +3982,8 @@ def main():
         "classifier-train", (clf_train_step, clf_eval_step), clf_state, clf_loader,
         max_steps=CLF_STEPS, want=want_launches(len(clf_train_gn) * forwards,
                                                 len(clf_train_fa) * forwards,
-                                                len(clf_train_fa) * CLF_STEPS),
+                                                len(clf_train_fa) * CLF_STEPS,
+                                                convs=[(clf_train_cv, forwards)]),
         want_gn_bwd=len(clf_train_gn) * CLF_STEPS, val_loader=clf_val,
         eval_every=CLF_STEPS // len(clf_loader), metric_postprocess=clf_post,
         lr_schedule=clf_schedule)
@@ -3917,17 +4075,19 @@ def main():
         launches = {k: launches[k] + v for k, v in run_counts.items()}
 
     # ---- 4c. the serving path: the HTTP server over the dpmpp_2m-10 bundle -----
-    per_serve_batch = (len(unet_gn) * 10 + len(dec_gn), len(unet_fa) * 10)
+    per_serve_batch = (len(unet_gn) * 10 + len(dec_gn), len(unet_fa) * 10,
+                       len(unet_cv) * 10 + len(dec_cv))
     path_counts = {"serve": serve_path(bundles["dpmpp_2m-10"], per_serve_batch)}
 
     # ---- 4d. the evaluation path: evaluate_batch + report_from_arrays ----------
     eval_bundle = build_inference(dtype=torch.bfloat16, num_steps=25, solver="heun", device=dev,
                                   init_seed=SEED)  # the evaluate CLI's defaults: GL 128
     per_eval_batch = (len(unet_gn) * 49 + len(dec_gn) + 2 * len(clf_gn),
-                      len(unet_fa) * 49 + 2 * len(clf_fa))
+                      len(unet_fa) * 49 + 2 * len(clf_fa),
+                      len(unet_cv) * 49 + len(dec_cv) + 2 * len(clf_cv))
     path_counts["evaluate"] = evaluate_path(eval_bundle, classifier, per_eval_batch)
     del eval_bundle
-    for which, name in enumerate(("group_norm_silu", "flash_attention")):
+    for which, name in enumerate(("group_norm_silu", "flash_attention", "conv_bias_add")):
         launches[name] += sum(c[which] for c in path_counts.values())
 
     # ---- 4j. the EDM recipes beyond the flagship: each sampler, then Trainer.fit of each
@@ -3937,6 +4097,7 @@ def main():
     kernels_ = launch_counters()
     for key, runs_ in new_bundles.items():
         u_gn, u_fa, d_gn = sampler_calls[key]
+        u_cv, d_cv = sampler_convs[key]
         runs_["dpmpp_2m-10"].generate(cond, generator=gen)  # warm-up: cuDNN plans at its shapes
         for name, bundle in runs_.items():
             evals = 2 * 25 - 1 if name == "heun-25" else 10
@@ -3948,7 +4109,8 @@ def main():
             torch.cuda.synchronize()
             sec = time.perf_counter() - t0
             got = {fn.__name__: fn.launches for fn in kernels_}
-            want = want_launches(len(u_gn) * evals + len(d_gn), len(u_fa) * evals)
+            want = want_launches(len(u_gn) * evals + len(d_gn), len(u_fa) * evals,
+                                 convs=[(u_cv, evals), (d_cv, 1)])
             finite = bool(torch.isfinite(wave).all())
             new_counts[f"{key} {name}"] = got
             new_rates[f"{key} {name}"] = BATCH / sec
@@ -3978,11 +4140,13 @@ def main():
         st = TrainState(model, make_optimizer(recipe.optimizer, model, 1e-4,
                                               recipe.weight_decay), sched)
         gn, fa, enc = step_calls[key]
+        cv, enc_cv_ = step_convs[key]
         timed, marks = tail_timed(steps[0], RECIPE_STEPS, RECIPE_STEPS // 2)
         new_counts[f"{key} train"], rows = counted_fit(
             f"{key}-train", (timed, steps[1]), st, ld, max_steps=RECIPE_STEPS,
             want=want_launches((len(gn) + len(enc)) * RECIPE_STEPS, len(fa) * RECIPE_STEPS,
-                               len(fa) * RECIPE_STEPS),
+                               len(fa) * RECIPE_STEPS,
+                               convs=[(cv, RECIPE_STEPS), (enc_cv_, RECIPE_STEPS)]),
             want_gn_bwd=len(gn) * RECIPE_STEPS, lr_schedule=sched)
         new_rates[f"{key} train"] = tail_rate(
             f"{key} train step, batch {RECIPE_BATCH[key]}, bf16", marks, RECIPE_BATCH[key],
@@ -3999,6 +4163,7 @@ def main():
     few_counts, few_rates, few_wall = {}, {}, {}
     for (key, nfe), bundle in few_bundles.items():
         u_gn, u_fa, d_gn = few_calls[key]
+        u_cv, d_cv = few_convs[key]
         evals = nfe or bundle.ddpm_cfg.num_train_timesteps
         label = f"{key} {'ddpm-1000' if nfe is None else f'nfe-{nfe}'}"
         warm = copy.copy(bundle)  # warm-up at its shapes (cuDNN plans); DDPM's at 2 steps
@@ -4013,7 +4178,8 @@ def main():
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         got = {fn.__name__: fn.launches for fn in kernels_}
-        want = want_launches(len(u_gn) * evals + len(d_gn), len(u_fa) * evals)
+        want = want_launches(len(u_gn) * evals + len(d_gn), len(u_fa) * evals,
+                             convs=[(u_cv, evals), (d_cv, 1)])
         finite = bool(torch.isfinite(wave).all())
         few_counts[label], few_rates[label], few_wall[label] = got, BATCH / sec, 1e3 * sec
         log(f"[{key}] {label.split()[1]} ({evals} UNet evals"
@@ -4038,11 +4204,13 @@ def main():
         st = TrainState(model, make_optimizer(recipe.optimizer, model, 1e-4,
                                               recipe.weight_decay), sched)
         gn, fa, enc, u_gn, u_fa = new_calls[key]
+        cv, enc_cv_ = new_convs[key]
         timed, marks = tail_timed(steps[0], NEW_STEPS, NEW_STEPS // 2)
         few_counts[f"{key} train"], _ = counted_fit(
             f"{key}-train", (timed, steps[1]), st, ld, max_steps=NEW_STEPS,
             want=want_launches((len(gn) + len(enc)) * NEW_STEPS, len(fa) * NEW_STEPS,
-                               len(u_fa) * NEW_STEPS),
+                               len(u_fa) * NEW_STEPS,
+                               convs=[(cv, NEW_STEPS), (enc_cv_, NEW_STEPS)]),
             want_gn_bwd=len(u_gn) * NEW_STEPS, lr_schedule=sched)
         few_rates[f"{key} train"] = tail_rate(f"{key} train step, batch {NEW_BATCH}, bf16",
                                               marks, NEW_BATCH, NEW_STEPS // 2)
@@ -4067,6 +4235,7 @@ def main():
     st.skip_nonfinite = 0
     few_counts["latent_consistency guard"] = {fn.__name__: fn.launches for fn in kernels_}
     gn, fa, enc, u_gn, u_fa = new_calls["latent_consistency"]
+    cv, enc_cv_ = new_convs["latent_consistency"]
     log(f"[radam-guard] latent_consistency, skip_nonfinite={GUARD_N}: a NaN batch gave loss "
         f"{bad_loss}, parameters and RAdam moments held {held}, (updates applied, consecutive "
         f"non-finite) {count0} -> {after_bad}; the next clean batch gave loss {clean_loss:.6e}, "
@@ -4077,7 +4246,7 @@ def main():
             or after_clean != (count0 + 1, 0.0) or st.step != step0 + 2):
         fail("RAdam under the guard did not hold a NaN step and apply the clean one")
     if few_counts["latent_consistency guard"] != want_launches(
-            2 * (len(gn) + len(enc)), 2 * len(fa), 2 * len(u_fa)):
+            2 * (len(gn) + len(enc)), 2 * len(fa), 2 * len(u_fa), convs=[(cv, 2), (enc_cv_, 2)]):
         fail(f"RAdam guard launches {few_counts['latent_consistency guard']}")
     # and a NaN at the very first update (count 0, where the bias corrections have no value)
     lin = torch.nn.Linear(8, 8).to(dev)
@@ -4099,9 +4268,9 @@ def main():
         state=state, steps=(train_step, eval_step), loader=loader, ae=ae_t,
         model_shape=model_shape, config=config, schedule=schedule, arrays=arrays,
         flagship_want=flagship_want, per_eval=(len(unet_gn), len(unet_fa)),
-        per_decode=len(dec_gn),
+        per_decode=len(dec_gn), convs=(cb_cv, cb_dec_cv),
         few_runs={key: (new_runs[key][0], new_models[key][5],
-                        (len(few_calls[key][0]), len(few_calls[key][1])))
+                        (len(few_calls[key][0]), len(few_calls[key][1]), few_convs[key][0]))
                   for key in ("consistency", "ddpm")})
     for run, run_counts in cb_counts.items():
         if run != "callback flagship pass":  # within the fit's count
@@ -4110,8 +4279,10 @@ def main():
 
     # ---- 4m. reference checkpoints and the data scans ------------------------------------
     phase("4m. reference checkpoints and the data scans")
-    ckpt_counts = reference_checkpoints_path(dev, (len(unet_gn), len(unet_fa)), len(dec_gn),
-                                             (len(clf_gn), len(clf_fa)))
+    ckpt_counts = reference_checkpoints_path(
+        dev, want_launches(len(unet_gn) * 10 + len(dec_gn), len(unet_fa) * 10,
+                           convs=[(unet_cv, 10), (dec_cv, 1)]),
+        want_launches(len(clf_gn), len(clf_fa), convs=[(clf_cv, 1)]))
     for run_counts in ckpt_counts.values():
         launches = {k: launches[k] + v for k, v in run_counts.items()}
     data_scans(dev)
@@ -4119,7 +4290,7 @@ def main():
 
     # ---- 4n. the UNet's options and paired (cond_signal) data --------------------------------
     phase("4n. the UNet's options and paired (cond_signal) data")
-    opt_counts = options_and_paired_path(dev, s4n, arrays, ae_t, enc_gn, dec_gn)
+    opt_counts = options_and_paired_path(dev, s4n, arrays, ae_t, enc_gn, dec_gn, enc_cv, dec_cv)
     for run_counts in opt_counts.values():
         launches = {k: launches[k] + v for k, v in run_counts.items()}
     torch.cuda.empty_cache()
@@ -4132,7 +4303,7 @@ def main():
 
     # ---- 4p. spatial partitioning ------------------------------------------------------------
     phase("4p. spatial partitioning")
-    sp = spatial_path((len(unet_gn), len(unet_fa)), len(dec_gn), dev, errs)
+    sp = spatial_path((len(unet_gn), len(unet_fa)), len(dec_gn), (unet_cv, dec_cv), dev, errs)
     for run_counts in sp["launches"].values():
         launches = {k: launches[k] + run_counts[k] for k in launches}
     entry_launches = {name: sum(c[name] for c in sp["launches"].values())
@@ -4141,7 +4312,7 @@ def main():
 
     # ---- 4q. the int8 mode -------------------------------------------------------------------
     phase("4q. the int8 mode")
-    int8_counts = int8_path(dev, (len(unet_gn), len(unet_fa)), len(dec_gn))
+    int8_counts = int8_path(dev, (len(unet_gn), len(unet_fa)), len(dec_gn), (unet_cv, dec_cv))
     for run_counts in int8_counts.values():
         launches = {k: launches[k] + run_counts[k] for k in launches}
     torch.cuda.empty_cache()
@@ -4217,18 +4388,42 @@ def main():
                                                            scale=1.0)),
             **bound(4 * q.numel() * q.element_size(), 4 * batch * h * pairs * d, dtype))
 
-    gn_row, fa_row = once(gn_timing), once(fa_timing)
+    def bias_timing(shape, channels_last, shifted, batch=BATCH):
+        y, bias, shift = conv_output(batch, shape, torch.bfloat16, channels_last, gen, dev)
+        shift = shift if shifted else None
+        tail = (1,) * (len(shape) - 1)
+
+        def library():  # what the epilogue replaced: ATen's add_ of the bias, then h + emb_out
+            out = y.add_(bias.view(-1, *tail))
+            return out if shift is None else out + shift.view(*shift.shape, *tail)
+
+        nbytes = 2 * y.numel() * y.element_size() + bias.numel() * bias.element_size() + (
+            0 if shift is None else shift.numel() * shift.element_size())
+        return dict(
+            shape=[batch, *shape], channels_last=channels_last, shifted=shifted,
+            dtype="bfloat16",
+            **timed(lambda: conv_bias_add(y, bias, shift),
+                    lambda: conv_bias_add_plain(y, bias, shift), library),
+            **bound(nbytes, (1 + shifted) * y.numel(), torch.float32))
+
+    gn_row, fa_row, bias_row = once(gn_timing), once(fa_timing), once(bias_timing)
     gn_rows = [gn_row(*key, calls=unet_gn.count(key)) for key in dict.fromkeys(unet_gn)]
     gn_rows += [gn_row(*key, calls=dec_gn.count(key)) for key in dict.fromkeys(dec_gn)]
     step_gn = train_gn + enc_gn  # one bf16 train step's GroupNorm calls, at batch 128
     gn_train_rows = [gn_row(*key, calls=step_gn.count(key), batch=TRAIN_BATCH)
                      for key in dict.fromkeys(step_gn)]
     fa_rows = [fa_row(*key, calls=unet_fa.count(key)) for key in dict.fromkeys(unet_fa)]
+    # the bias epilogue over one UNet eval and one decode, and over one 1d_edm UNet eval
+    bias_rows = [bias_row(*key, calls=(unet_cv + dec_cv).count(key))
+                 for key in dict.fromkeys(unet_cv + dec_cv)]
+    u1_cv = sampler_convs["1d_edm"][0]
+    bias_1d_rows = [bias_row(*key, calls=u1_cv.count(key)) for key in dict.fromkeys(u1_cv)]
     # the classifier's, one forward at batch 32: the new (32, 256, 256) GroupNorm with
     # SiLU on and off, and the forward at 256 tokens
     clf_gn_rows = [gn_row(*key, calls=clf_gn.count(key)) for key in dict.fromkeys(clf_gn)]
     clf_fa_rows = [fa_row(*key, calls=clf_fa.count(key)) for key in dict.fromkeys(clf_fa)]
-    for row in gn_rows + gn_train_rows + fa_rows + clf_gn_rows + clf_fa_rows:
+    for row in gn_rows + gn_train_rows + fa_rows + clf_gn_rows + clf_fa_rows + bias_rows + \
+            bias_1d_rows:
         log(f"[time] {json.dumps(row)}")
     clf_sums = {}
     for label, name, rows in (
@@ -4574,7 +4769,7 @@ def main():
             library_ms=summed(rows, "library_ms"), issue_ms=summed(rows, "issue_ms"),
             per=f"all calls of one UNet eval{' and one decode' if which == 0 else ''}, "
                 f"batch {BATCH}, bf16",
-            launches_per_run={**{run: counts[run][which] for run in counts},
+            launches_per_run={**{run: counts[run][name] for run in counts},
                               "train": train_counts[name],
                               **{run: c[which] for run, c in path_counts.items()},
                               **{run: c[name] for run, c in recipe_counts.items()},
@@ -4633,6 +4828,35 @@ def main():
                 f"{BATCH}, bf16; library_ms is torch's group_norm on the whole tensor",
             launches_per_run={run: c[name] for run, c in sp["launches"].items()},
         ))
+    bias_sums = {}
+    for label, rows in ((f"one UNet eval and one decode, batch {BATCH}, bf16", bias_rows),
+                        (f"one 1d_edm UNet eval, batch {BATCH}, bf16", bias_1d_rows)):
+        bias_sums[label] = {k: summed(rows, k) for k in ("ms", "bound_ms", "plain_ms",
+                                                       "library_ms", "issue_ms")} | {
+            "calls": summed(rows, "one"),
+            "bound_by": "bytes" if summed(rows, "bytes_ms") >= summed(rows, "ops_ms")
+            else "operations"}
+        log(f"[time] conv_bias_add over {label}: {json.dumps(bias_sums[label])}")
+    bias_label = f"one UNet eval and one decode, batch {BATCH}, bf16"
+    conv_runs = {**counts, "train": train_counts, **recipe_counts, **new_counts, **few_counts,
+                 **cb_counts, **{f"4m {run}": c for run, c in ckpt_counts.items()},
+                 **{f"4n {run}": c for run, c in opt_counts.items()}, **dp_counts,
+                 **sp["launches"], **int8_counts}
+    kernels.append(dict(
+        name="conv_bias_add", route="cuda", source="tqdne_tpu_torch/csrc/conv_bias.cu",
+        replaces="none: XLA fuses the bias into tqdne_tpu's convolutions; on the port it "
+                 "replaces ATen's strided add_ of the bias and the ResBlock's h + emb_out",
+        launches=launches["conv_bias_add"],
+        shifted_launches=launches["conv_bias_add.shifted"],
+        max_abs_err=errs["conv_bias_add"],
+        **{k: bias_sums[bias_label][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                             "library_ms", "issue_ms")},
+        per=f"all calls of {bias_label}; library_ms is ATen's add_ of the bias, plus h + "
+            f"emb_out where a shift is added",
+        launches_per_run={**{run: c["conv_bias_add"] for run, c in conv_runs.items()},
+                          **{run: c[2] for run, c in path_counts.items()}},
+        edm_recipes={k: v for k, v in bias_sums.items() if k != bias_label},
+    ))
     kernels.append(dict(
         name="group_norm_silu_backward", route="cuda",
         source="tqdne_tpu_torch/csrc/group_norm.cu",
@@ -4656,6 +4880,8 @@ def main():
                             "merged (n, mean, M2) written, no normalisation",
         "group_norm_apply": "the fused kernel's plan and code (its mode 2): a given (mean, "
                             "rstd), no statistics",
+        "conv_bias_add": "one in-place pass over cuDNN's output in 16-byte vectors along its "
+                         "contiguous axis, the bias and the embedding shift held in registers",
     }
     for entry in kernels:
         entry["redesigned"] = redesigned[entry["name"]]

@@ -26,6 +26,7 @@ TINY_UNET = dict(in_channels=4, out_channels=4, model_channels=16, num_res_block
 PARENTS = {"tq::generate": {None}, "tq::sample": {"tq::generate"},
            "tq::invert": {"tq::generate"}, "tq::denoise": {"tq::sample"},
            "tq::decode": {"tq::sample"}, "tq::conv": {"tq::denoise", "tq::decode"},
+           "tq::conv_bias": {"tq::conv"},
            "tq::norm": {"tq::denoise", "tq::decode"}, "tq::group_norm_silu": {"tq::norm"},
            "tq::attention": {"tq::denoise", "tq::decode"},
            "tq::loss": {None}, "tq::backward": {None}, "tq::update": {None},
@@ -82,8 +83,8 @@ def test_generate_spans_nest_and_count_the_evaluations(recipe, solver, evals):
     noise = torch.randn(1, *bundle.model_shape, generator=torch.Generator().manual_seed(0))
     spans = tq_spans(profiled(lambda: bundle.generate(torch.zeros(1, 5), noise=noise)))
     names = [n for n, _ in spans]
-    want = {"tq::generate", "tq::sample", "tq::invert", "tq::denoise", "tq::conv", "tq::norm",
-            "tq::group_norm_silu", "tq::attention"}
+    want = {"tq::generate", "tq::sample", "tq::invert", "tq::denoise", "tq::conv",
+            "tq::conv_bias", "tq::norm", "tq::group_norm_silu", "tq::attention"}
     if recipe == "latent_edm":
         want.add("tq::decode")
     assert set(names) == want
@@ -92,6 +93,7 @@ def test_generate_spans_nest_and_count_the_evaluations(recipe, solver, evals):
     assert names.count("tq::generate") == names.count("tq::sample") == 1
     assert names.count("tq::denoise") == evals
     assert names.count("tq::norm") == names.count("tq::group_norm_silu")
+    assert names.count("tq::conv") == names.count("tq::conv_bias")  # every bias in the epilogue
 
 
 def test_train_step_spans_once_a_step():

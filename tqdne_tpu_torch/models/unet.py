@@ -66,16 +66,18 @@ class ResBlock(nn.Module):
         self.skip = None if out_ch == channels else conv_nd(dims, channels, out_ch, 1)
 
     def forward(self, x, emb):
-        h = self.in_conv(self.in_norm(x))
-        emb_out = self.emb_proj(F.silu(emb)).to(h.dtype)
-        emb_out = emb_out.reshape(emb_out.shape + (1,) * (h.ndim - 2))
+        emb_out = self.emb_proj(F.silu(emb))
         if self.use_scale_shift_norm:
+            h = self.in_conv(self.in_norm(x))
+            emb_out = emb_out.to(h.dtype)
+            emb_out = emb_out.reshape(emb_out.shape + (1,) * (h.ndim - 2))
             # the JAX order and dtype: the normalised h (compute dtype) scaled and
             # shifted in that dtype, then the SiLU
             scale, shift = emb_out.chunk(2, dim=1)
             h = F.silu(self.out_norm(h) * (1 + scale) + shift)
         else:
-            h = self.out_norm(h + emb_out)
+            # the embedding added with the convolution's bias, in its epilogue
+            h = self.out_norm(self.in_conv(self.in_norm(x), shift=emb_out))
         h = self.out_conv(self.dropout(h))
         skip = x if self.skip is None else self.skip(x)
         return skip + h

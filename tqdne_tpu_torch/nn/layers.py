@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tqdne_tpu_torch.nn.quant import int8_enabled, quant_conv
+from tqdne_tpu_torch.ops.conv_bias import conv_bias_add
 from tqdne_tpu_torch.ops.group_norm import group_norm_silu, group_norm_silu_sharded
 from tqdne_tpu_torch.parallel import spatial
 from tqdne_tpu_torch.utils.tracing import span
@@ -84,11 +85,13 @@ class _Cast:
 
 
 class _Conv(_Cast):
-    """The forward of ``conv_nd``'s convolutions: under a sharded spatial scope
-    with the halo rows of the neighbouring shards and no padding along the rows,
-    and under the int8 scope as ``quant_conv``."""
+    """The forward of ``conv_nd``'s convolutions: cuDNN without its bias, then
+    ``ops.conv_bias.conv_bias_add`` of the bias and an optional per-sample
+    ``shift`` (B, C) in place, in one pass; under a sharded spatial scope with
+    the halo rows of the neighbouring shards and no padding along the rows, and
+    under the int8 scope as ``quant_conv`` (its own bias, then ``shift`` added)."""
 
-    def forward(self, x):
+    def forward(self, x, shift=None):
         with span("conv"):
             padding = self.padding
             scope = spatial.current()
@@ -98,12 +101,15 @@ class _Conv(_Cast):
                 x = spatial.halo_rows(x, p, max(0, p - s + 1), scope)
                 padding = (0, *self.padding[1:])
             if int8_enabled():
-                return quant_conv(x, self.weight, self.bias, self.stride, padding)
-            if padding == self.padding:
-                return self._conv_forward(*self._cast(x))
+                y = quant_conv(x, self.weight, self.bias, self.stride, padding)
+                if shift is None:
+                    return y
+                return y + shift.to(y.dtype).view(*shift.shape, *(1,) * (y.dim() - 2))
             x, weight, bias = self._cast(x)
             conv = F.conv1d if isinstance(self, nn.Conv1d) else F.conv2d
-            return conv(x, weight, bias, self.stride, padding, self.dilation, self.groups)
+            y = conv(x, weight, None, self.stride, padding, self.dilation, self.groups)
+            with span("conv_bias"):
+                return conv_bias_add(y, bias, None if shift is None else shift.to(y.dtype))
 
 
 class _Conv1d(_Conv, nn.Conv1d):

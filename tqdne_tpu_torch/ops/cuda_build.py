@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tqdne_tpu_torch"
-SOURCES = ("group_norm", "flash_attention", "flash_attention_bwd")
+SOURCES = ("group_norm", "flash_attention", "flash_attention_bwd", "conv_bias")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

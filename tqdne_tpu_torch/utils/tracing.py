@@ -18,7 +18,9 @@ The spans, outermost first (each wraps the call at that place, nothing finer):
   ``tq::decode``: ``AutoencoderKL.decode``; ``tq::invert``:
   ``InferenceBundle.invert`` (Griffin-Lim, or the envelope's inverse).
 - ``tq::conv``: one convolution with its casts and bias (int8 and halo paths
-  too); ``tq::norm``: ``Norm32``, its layout moves and casts and the
+  too); ``tq::conv_bias``: inside it, the in-place add of the bias and of a
+  ResBlock's embedding shift (``ops.conv_bias``; not on the int8 path);
+  ``tq::norm``: ``Norm32``, its layout moves and casts and the
   GroupNorm; ``tq::group_norm_silu``: the GroupNorm itself;
   ``tq::group_norm_silu_backward``: its backward's recompute;
   ``tq::attention``: the attention block's call into ``flash_attention``.
